@@ -1,0 +1,39 @@
+"""binquant_tpu_torch — the PyTorch/CUDA port of the binquant signal engine.
+
+A second package beside ``binquant_tpu`` (the JAX reference). It runs the
+classic live tick — ring-buffer ingest, feature packs, market context, the
+five live strategies, the packed wire and host emission — on one NVIDIA
+Hopper card, with the repository's one hand-written kernel (the trailing
+rolling quantile, ``ops/quantile_tail.py`` + ``csrc/qtail.cu``) as the card's
+implementation of ``rolling_quantile_tail``.
+
+Device policy: entry points (``SignalEngine``, ``make_stub_engine``,
+``run_replay``) default to ``device="cuda"`` and raise when CUDA is absent
+unless the caller passes ``device="cpu"`` explicitly — a run never drops to
+the CPU on its own. Float32 matrix products stay in full float32 (the EWM
+decay matmul ran at ``Precision.HIGHEST`` in the reference; TF32 would break
+parity), so the TF32 switches are turned off here at import.
+"""
+
+from __future__ import annotations
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asks
+    for something else. A CUDA device without a visible card raises — the
+    port never falls back to the CPU behind the caller's back."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "binquant_tpu_torch: CUDA is not available; pass device='cpu' "
+            "to run on the CPU explicitly"
+        )
+    return dev

@@ -1,0 +1,399 @@
+"""Signal emission: fired wire slots → SignalsConsumer payloads + sinks.
+
+Port of ``binquant_tpu/io/emission.py``: for only the fired (strategy,
+symbol) pairs, the host builds the ``SignalsConsumer`` payload (with the
+strategy's bot params), the structured Telegram message (the reference's
+uniform key/value line shape) and the analytics record, all from the ONE
+fetched wire — its per-slot payload carries every value needed. When the
+compaction overflowed, the full step's summary is read instead.
+
+The sinks are recording stubs in this slice (:class:`RecordingSinks`): the
+network clients (binbot REST, Telegram, autotrade admission) are not ported.
+"""
+
+from __future__ import annotations
+
+from datetime import datetime, timezone
+from typing import Any
+
+import numpy as np
+
+from binquant_tpu_torch.engine.step import (
+    EMISSION_BASE_FIELDS,
+    EMISSION_DIAG_WIDTH,
+    FIVE_MIN_STRATEGIES,
+    LIVE_STRATEGIES,
+    STRATEGY_ORDER,
+    TickOutputs,
+    unpack_wire,
+)
+from binquant_tpu_torch.enums import (
+    Direction,
+    MarketRegimeCode,
+    MarketTransitionCode,
+    MarketType,
+    MicroRegimeCode,
+    MicroTransitionCode,
+    Position,
+    SignalKind,
+)
+from binquant_tpu_torch.schemas import (
+    BotBase,
+    GridDeploymentRequest,
+    HABollinguerSpread,
+    SignalsConsumer,
+)
+from binquant_tpu_torch.utils import (
+    build_links_msg,
+    format_context_timestamp_line,
+    round_numbers,
+)
+
+__all__ = [
+    "FIVE_MIN_STRATEGIES",
+    "LIVE_STRATEGIES",
+    "FiredSignal",
+    "RecordingSinks",
+    "extract_fired",
+]
+
+# strategies that trade FUTURES in their bot params
+_FUTURES_BOT_STRATEGIES = {"activity_burst_pump", "mean_reversion_fade"}
+_NO_REVERSAL = {"coinrule_price_tracker", "mean_reversion_fade"}
+
+
+def _name(enum_cls, code: int, fallback: str | None = "UNAVAILABLE") -> str | None:
+    try:
+        if code < 0:
+            return fallback
+        return enum_cls(code).name
+    except ValueError:
+        return fallback
+
+
+class FiredSignal:
+    """One fired (strategy, symbol) pair with host-materialized payloads."""
+
+    def __init__(
+        self,
+        strategy: str,
+        symbol: str,
+        row: int,
+        value: SignalsConsumer,
+        message: str,
+        analytics: dict[str, Any],
+    ) -> None:
+        self.strategy = strategy
+        self.symbol = symbol
+        self.row = row
+        self.value = value
+        self.message = message
+        self.analytics = analytics
+        # the evaluated tick's wall-clock ms, stamped at finalize
+        self.tick_ms: int | None = None
+
+
+class RecordingSinks:
+    """The three sinks as in-memory recorders: analytics records, Telegram
+    messages and autotrade payloads, in dispatch order."""
+
+    def __init__(self) -> None:
+        self.analytics: list[dict[str, Any]] = []
+        self.telegram: list[str] = []
+        self.autotrade: list[SignalsConsumer] = []
+
+    def dispatch(self, signal: FiredSignal) -> None:
+        self.analytics.append(signal.analytics)
+        self.telegram.append(signal.message)
+        self.autotrade.append(signal.value)
+
+
+def _cast_diag(kind: str, v: float):
+    if kind == "b":
+        return np.bool_(v > 0.5)
+    if kind == "i":
+        return np.int32(round(v))
+    return np.float32(v)
+
+
+def extract_fired(
+    outputs: TickOutputs | None,
+    registry,
+    env: str = "",
+    exchange: str = "kucoin",
+    market_type: str = "futures",
+    enabled: frozenset[str] | set[str] | None = None,
+    skip=None,
+    unpacked=None,
+    diag_layout: dict[str, list[tuple[str, str]]] | None = None,
+) -> list[FiredSignal]:
+    """Materialize FiredSignal objects for the wire's fired slots (or, on a
+    compaction overflow, for every set bit of ``outputs.summary``).
+    ``skip(strategy, row)`` drops rows before any payload is built."""
+    if enabled is None:
+        enabled = LIVE_STRATEGIES
+    fired_w, ctx_s = unpacked if unpacked is not None else unpack_wire(
+        outputs.wire.cpu().numpy()
+    )
+    entries: list[tuple] = []
+    if fired_w.overflow:
+        trig = outputs.summary.trigger.cpu().numpy()
+        auto = outputs.summary.autotrade.cpu().numpy()
+        dirn = outputs.summary.direction.cpu().numpy()
+        scor = outputs.summary.score.cpu().numpy()
+        stop = outputs.summary.stop_loss_pct.cpu().numpy()
+        for si, row in zip(*np.nonzero(trig)):
+            entries.append(
+                (int(si), int(row), bool(auto[si, row]), int(dirn[si, row]),
+                 float(scor[si, row]), float(stop[si, row]), None)
+            )
+    else:
+        has_payload = fired_w.payload is not None and diag_layout is not None
+        for j in range(len(fired_w.strategy_idx)):
+            entries.append(
+                (
+                    int(fired_w.strategy_idx[j]),
+                    int(fired_w.row[j]),
+                    bool(fired_w.autotrade[j]),
+                    int(fired_w.direction[j]),
+                    float(fired_w.score[j]),
+                    float(fired_w.stop_loss_pct[j]),
+                    fired_w.payload[j] if has_payload else None,
+                )
+            )
+
+    by_strategy: dict[int, list[tuple]] = {}
+    for si, row, autotrade, direction_code, score, stop_loss, slot in entries:
+        strategy = STRATEGY_ORDER[si]
+        if strategy not in enabled:
+            continue
+        if skip is not None and skip(strategy, row):
+            continue
+        by_strategy.setdefault(si, []).append(
+            (row, autotrade, direction_code, score, stop_loss, slot)
+        )
+    if not by_strategy:
+        return []
+
+    ctx_np = {
+        "market_regime": ctx_s["market_regime"],
+        "transition": ctx_s["market_regime_transition"],
+        "transition_strength": ctx_s["market_regime_transition_strength"],
+        "stress": ctx_s["market_stress_score"],
+        "timestamp_ms": ctx_s["timestamp"] * 1000,
+        "valid": ctx_s["valid"],
+    }
+    n_base = len(EMISSION_BASE_FIELDS)
+    fired: list[FiredSignal] = []
+    for si in sorted(by_strategy):
+        strategy = STRATEGY_ORDER[si]
+        five_min = strategy in FIVE_MIN_STRATEGIES
+        legacy = None
+        if any(slot is None for *_, slot in by_strategy[si]):
+            # overflow: read this strategy's tensors from the full outputs
+            so = outputs.strategies[strategy]
+            pack = outputs.pack5 if five_min else outputs.pack15
+            feats = outputs.context.features
+            legacy = (
+                {k: v.cpu().numpy() for k, v in so.diagnostics.items()},
+                pack.close.cpu().numpy(),
+                pack.bb_upper.cpu().numpy(),
+                pack.bb_mid.cpu().numpy(),
+                pack.bb_lower.cpu().numpy(),
+                pack.volume.cpu().numpy(),
+                feats.micro_regime.cpu().numpy(),
+                feats.micro_transition.cpu().numpy(),
+                outputs.btc_beta.cpu().numpy(),
+                outputs.btc_corr.cpu().numpy(),
+            )
+
+        for row, autotrade, direction_code, score, stop_loss, slot in by_strategy[si]:
+            symbol = registry.name_of(row)
+            if symbol is None:
+                continue
+            if slot is not None:
+                slot_base = len(slot) - EMISSION_DIAG_WIDTH
+                base = slot[:slot_base]
+                off = 0 if five_min else 5
+                current_price = float(base[0 + off])
+                volume = float(base[1 + off])
+                bb_high_v = float(base[2 + off])
+                bb_mid_v = float(base[3 + off])
+                bb_low_v = float(base[4 + off])
+                micro = int(base[10])
+                micro_trans = int(base[11])
+                btc_rel = (
+                    (float(base[12]), float(base[13])) if slot_base >= n_base else None
+                )
+                diag_vec = slot[slot_base:]
+                diag_row = {
+                    key: _cast_diag(kind, float(diag_vec[t]))
+                    for t, (key, kind) in enumerate(diag_layout[strategy])
+                }
+            else:
+                diags, closes, bb_h, bb_m, bb_l, volumes, mic, mtr, beta, corr = legacy
+                current_price = float(closes[row])
+                volume = float(volumes[row])
+                bb_high_v, bb_mid_v, bb_low_v = (
+                    float(bb_h[row]), float(bb_m[row]), float(bb_l[row])
+                )
+                micro = int(mic[row])
+                micro_trans = int(mtr[row])
+                btc_rel = (float(beta[row]), float(corr[row]))
+                diag_row = {
+                    k: (v[row] if v.ndim else v[()]) for k, v in diags.items()
+                }
+
+            direction = Direction(direction_code).name
+            position = Position.short if direction == "SHORT" else Position.long
+            spreads = HABollinguerSpread(
+                bb_high=round_numbers(bb_high_v, 6),
+                bb_mid=round_numbers(bb_mid_v, 6),
+                bb_low=round_numbers(bb_low_v, 6),
+            )
+            if strategy == "grid_ladder":
+                value = _grid_signal(
+                    symbol, diag_row, current_price, exchange, market_type,
+                    autotrade, ctx_np,
+                )
+            else:
+                bot_kwargs: dict[str, Any] = dict(
+                    pair=symbol, name=strategy, position=position
+                )
+                if strategy in _FUTURES_BOT_STRATEGIES:
+                    bot_kwargs["market_type"] = MarketType.FUTURES
+                else:
+                    bot_kwargs["market_type"] = MarketType(market_type)
+                if strategy in _NO_REVERSAL:
+                    bot_kwargs["margin_short_reversal"] = False
+                if strategy == "mean_reversion_fade":
+                    bot_kwargs["dynamic_trailing"] = True
+                    bot_kwargs["stop_loss"] = stop_loss
+                value = SignalsConsumer(
+                    autotrade=autotrade,
+                    current_price=current_price,
+                    direction=direction,
+                    score=score,
+                    volume=volume,
+                    signal_kind=SignalKind.standard,
+                    algorithm_name=strategy,
+                    symbol=symbol,
+                    bot_params=BotBase(**bot_kwargs),
+                    bb_spreads=spreads,
+                )
+            message = _build_message(
+                strategy, symbol, value, diag_row, ctx_np, micro, micro_trans,
+                env, exchange, market_type,
+            )
+            analytics = _analytics_record(
+                strategy, symbol, value, diag_row, ctx_np, btc_rel=btc_rel
+            )
+            fired.append(FiredSignal(strategy, symbol, row, value, message, analytics))
+    return fired
+
+
+def _grid_signal(
+    symbol, diag_row, current_price, exchange, market_type, autotrade, ctx_np,
+) -> SignalsConsumer:
+    """GridDeploymentRequest payload with the reference's default grid
+    settings; ``diag_row`` holds this row's diagnostics as scalars."""
+    grid_params = GridDeploymentRequest(
+        symbol=symbol,
+        fiat="USDT",
+        exchange=exchange,
+        market_type=MarketType(market_type),
+        algorithm_name="grid_ladder",
+        generated_at=datetime.now(timezone.utc),
+        range_low=float(diag_row["range_low"]),
+        range_high=float(diag_row["range_high"]),
+        breakout_low=float(diag_row["breakout_low"]),
+        breakout_high=float(diag_row["breakout_high"]),
+        total_margin=10.0,
+        level_count=7,
+        current_price=current_price,
+        current_regime=_name(MarketRegimeCode, ctx_np["market_regime"], None),
+        indicators={
+            "range_width_pct": float(diag_row["range_width_pct"]),
+            "atr_buffer_pct": float(diag_row["atr_buffer_pct"]),
+        },
+    )
+    return SignalsConsumer(
+        signal_kind=SignalKind.grid_deploy,
+        direction="grid",
+        current_price=current_price,
+        autotrade=autotrade,
+        algorithm_name="grid_ladder",
+        symbol=symbol,
+        grid_params=grid_params,
+    )
+
+
+def _build_message(
+    strategy, symbol, value, diag_row, ctx_np, micro, micro_trans, env, exchange,
+    market_type,
+) -> str:
+    """Structured Telegram message in the reference's key/value line shape."""
+    exchange_link, terminal_link = build_links_msg(env, exchange, market_type, symbol)
+    direction = value.direction if value.direction != "grid" else "GRID"
+    action = f"{direction} ENTRY" if direction != "GRID" else "GRID DEPLOY"
+    regime_name = (
+        _name(MarketRegimeCode, ctx_np["market_regime"]) if ctx_np["valid"] else "UNAVAILABLE"
+    )
+    lines = [
+        f"- [{env}] <strong>#{strategy} algorithm</strong> #{symbol}",
+        f"- Action: {action}",
+        f"- Current price: {round_numbers(value.current_price, 6)}",
+        "- Strategy: "
+        + ("short" if value.direction == "SHORT" else "long" if value.direction == "LONG" else "grid"),
+        f"- Market regime: {regime_name}",
+        f"- Market transition: {_name(MarketTransitionCode, ctx_np['transition'], 'None')}",
+        format_context_timestamp_line(ctx_np["timestamp_ms"] if ctx_np["valid"] else None),
+        f"- Coin regime: {_name(MicroRegimeCode, micro)}",
+        f"- Coin transition: {_name(MicroTransitionCode, micro_trans, 'None')}",
+        f"- Market stress: {round_numbers(ctx_np['stress'], 3)}",
+    ]
+    if value.score:
+        lines.append(f"- Score: {round_numbers(value.score, 4)}")
+    for key, val in diag_row.items():
+        if key == "route" or getattr(val, "dtype", None) == np.bool_:
+            continue
+        lines.append(f"- {key}: {round_numbers(float(val), 6)}")
+    lines.extend(
+        [
+            f"- {'Autotrade is enabled' if value.autotrade else 'Autotrade is disabled'}",
+            f"- <a href='{exchange_link}'>Exchange</a>",
+            f"- <a href='{terminal_link}'>Dashboard trade</a>",
+        ]
+    )
+    return "\n".join(lines)
+
+
+def _analytics_record(
+    strategy, symbol, value, diag_row, ctx_np, btc_rel=None
+) -> dict[str, Any]:
+    """POST /signals analytics body."""
+    merged: dict[str, Any] = {key: float(val) for key, val in diag_row.items()}
+    if btc_rel is not None:
+        beta_v, corr_v = float(btc_rel[0]), float(btc_rel[1])
+        merged.setdefault("btc_beta", None if beta_v != beta_v else beta_v)
+        merged.setdefault("btc_corr", None if corr_v != corr_v else corr_v)
+    if value.bb_spreads is not None:
+        merged.setdefault("bb_spreads", value.bb_spreads.model_dump(mode="json"))
+    if value.current_price:
+        merged.setdefault("current_price", value.current_price)
+    if value.score:
+        merged.setdefault("score", value.score)
+    return {
+        "algorithm_name": strategy,
+        "symbol": symbol,
+        "generated_at": datetime.now(timezone.utc).isoformat(),
+        "direction": value.direction,
+        "autotrade": value.autotrade,
+        "current_regime": _name(MarketRegimeCode, ctx_np["market_regime"], None)
+        if ctx_np["valid"]
+        else None,
+        "signal_kind": str(value.signal_kind.value),
+        "bot_params": value.bot_params.model_dump(mode="json") if value.bot_params else {},
+        "grid_params": value.grid_params.model_dump(mode="json") if value.grid_params else {},
+        "indicators": merged,
+    }

@@ -1,0 +1,78 @@
+"""Tensor math helpers and the host-edge formatting helpers emission uses.
+
+``jsafe_div``/``jclamp``/``jnon_negative``/``jsafe_pct`` keep the reference
+package's names (``binquant_tpu/utils.py``) so the ported formulas read the
+same; they are plain functions on tensors.
+"""
+
+from __future__ import annotations
+
+from datetime import datetime, timezone
+
+import torch
+
+UTC = timezone.utc
+
+
+def jclamp(value: torch.Tensor, low: float = -1.0, high: float = 1.0) -> torch.Tensor:
+    return torch.clamp(value, low, high)
+
+
+def jnon_negative(value: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(value, min=0.0)
+
+
+def jsafe_pct(current: torch.Tensor, previous: torch.Tensor) -> torch.Tensor:
+    """(current - previous) / |previous|, 0 where previous == 0."""
+    denom = torch.abs(previous)
+    ok = denom > 0
+    return torch.where(
+        ok, (current - previous) / torch.where(ok, denom, torch.ones_like(denom)), 0.0
+    )
+
+
+def jsafe_div(
+    num: torch.Tensor, den: torch.Tensor, default: float = 0.0
+) -> torch.Tensor:
+    """num / den with ``default`` where den == 0 (no NaN/Inf)."""
+    ok = den != 0
+    return torch.where(ok, num / torch.where(ok, den, torch.ones_like(den)), default)
+
+
+def round_numbers(value: float, decimals: int = 6) -> float:
+    return float(round(float(value), decimals))
+
+
+def timestamp_to_datetime(value_ms: int) -> str:
+    return datetime.fromtimestamp(float(value_ms) / 1000, tz=UTC).strftime(
+        "%Y-%m-%d %H:%M:%S UTC"
+    )
+
+
+def format_context_timestamp_line(timestamp_ms: int | None) -> str:
+    if timestamp_ms is None:
+        return "- Context timestamp: UNAVAILABLE"
+    return f"- Context timestamp: {timestamp_to_datetime(timestamp_ms)}"
+
+
+def build_links_msg(
+    env: str, exchange: str, market_type: str, symbol: str
+) -> tuple[str, str]:
+    """(exchange_link, terminal_link) for Telegram messages."""
+    exchange = str(exchange).lower()
+    market_type = str(market_type).lower()
+    if exchange == "binance":
+        exchange_link = f"https://www.binance.com/en/trade/{symbol}"
+    elif market_type == "futures":
+        exchange_link = f"https://www.kucoin.com/trade/futures/{symbol}"
+    else:
+        exchange_link = f"https://www.kucoin.com/trade/{symbol}"
+    terminal_host = (
+        "https://terminal.binbot.in" if env == "production" else "http://localhost:3000"
+    )
+    terminal_link = (
+        f"{terminal_host}/bots/futures/new/{symbol}"
+        if market_type == "futures"
+        else f"{terminal_host}/bots/new/{symbol}"
+    )
+    return exchange_link, terminal_link

@@ -1,0 +1,509 @@
+#!/usr/bin/env python3
+"""End-to-end check of the PyTorch/CUDA port on one NVIDIA card.
+
+Run from the root of a checkout, with no arguments::
+
+    python3 chip_smoke.py
+
+Phases (any failure exits nonzero; nothing is caught and passed over):
+
+1. Build every kernel of the classic tick from ``binquant_tpu_torch/csrc``
+   (``nvcc`` for ``sm_90a``) and print the seconds it took.
+2. Hold each kernel against its plain torch twin on the card, bit for bit,
+   at the shapes the main path gives it (ActivityBurstPump's 2048x128 tail
+   with NaN, tie and inf rows), at SpikeHunter's 2048x400 shape and at a
+   short ``W < L+K-1`` input; time kernel, twin and a PyTorch yardstick.
+3. Drive the port's classic live path at full width (S=2048 symbols, W=400
+   bars per ring): warm both rings with 400 bars of seeded history through
+   ``IngestBatcher.add_batch`` sub-batches folded by the first
+   ``process_tick``, then 16 live ticks of closed klines through
+   ``ingest`` -> ``process_tick``. The same stream runs through a second
+   engine on the CPU; fired sets must be equal and wires must agree.
+   Kernel launch counters are zeroed just before the drive and must show at
+   least one launch per tick.
+4. Print the kernels line, the card's name and power limit, and the result.
+
+With ``--profile`` it also drives the stream once more under
+``torch.profiler`` and prints where a live tick's time goes (host wall time,
+device busy time and idle share, kernels per tick, the costliest kernels).
+
+It exits nonzero without printing a result when CUDA is unavailable or when
+run outside a checkout that holds the ``binquant_tpu_torch`` package.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+S, W = 2048, 400
+LIVE_TICKS = 16
+T_LIVE0 = 1_780_272_000 + 900 * 2000  # 15m-aligned start of the live ticks
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+FP32_OPS_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores
+SEED = 2026
+
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# --------------------------------------------------------------------------
+# phase 2: kernel vs twin
+# --------------------------------------------------------------------------
+
+
+def quantile_inputs(rng: np.random.Generator, rows: int, cols: int) -> np.ndarray:
+    x = rng.random((rows, cols), dtype=np.float32)
+    x[3, : cols // 2] = np.nan  # leading NaN (the ring's warm-up pattern)
+    x[7, :] = np.nan  # all-NaN row
+    x[11, -3:] = np.nan  # NaN inside the evaluated windows
+    x[13, 10:40] = x[13, 0]  # ties
+    x[17, -20:-10] = np.inf  # +inf inside the windows
+    x[19, -30:-25] = -np.inf
+    x[23, :] = 0.5  # a constant row: every element ties
+    return x
+
+
+def check_quantile_kernel() -> dict:
+    import torch
+
+    from binquant_tpu_torch.ops import quantile_tail as qt
+
+    rng = np.random.default_rng(SEED)
+    cases = [
+        # (label, rows, cols, L, K, q, min_periods)
+        ("abp", S, 128, 80, 4, 0.92, 20),
+        ("spike_hunter", S, 400, 60, 1, 0.85, 20),
+        ("short_input", 64, 60, 80, 4, 0.92, 20),
+    ]
+    report = {}
+    for label, rows, cols, L, K, q, mp in cases:
+        x = torch.from_numpy(quantile_inputs(rng, rows, cols)).cuda()
+        out = qt.rolling_quantile_tail(x, L, q, num_out=K, min_periods=mp)
+        twin = qt.rolling_quantile_tail_reference(x, L, q, num_out=K, min_periods=mp)
+        cpu_twin = qt.rolling_quantile_tail_reference(x.cpu(), L, q, num_out=K, min_periods=mp)
+        torch.cuda.synchronize()
+        out_c, twin_c = out.cpu(), twin.cpu()
+        nan_equal = torch.equal(torch.isnan(out_c), torch.isnan(twin_c))
+        bits_equal = torch.equal(
+            torch.nan_to_num(out_c, nan=-9e9), torch.nan_to_num(twin_c, nan=-9e9)
+        ) and torch.equal(
+            torch.nan_to_num(out_c, nan=-9e9), torch.nan_to_num(cpu_twin, nan=-9e9)
+        )
+        if not (nan_equal and bits_equal):
+            diff = (torch.nan_to_num(out_c) - torch.nan_to_num(twin_c)).abs().max()
+            fail(f"qtail kernel != twin on {label}: nan_equal={nan_equal}, max diff {diff}")
+        finite = torch.isfinite(out_c) & torch.isfinite(twin_c)
+        max_abs_err = float((out_c[finite] - twin_c[finite]).abs().max()) if finite.any() else 0.0
+        need = min(L + K - 1, cols)
+        kernel_ms = cuda_time_ms(
+            lambda: qt.rolling_quantile_tail(x, L, q, num_out=K, min_periods=mp), iters=200
+        )
+        twin_ms = cuda_time_ms(
+            lambda: qt.rolling_quantile_tail_reference(x, L, q, num_out=K, min_periods=mp),
+            iters=20,
+        )
+        if cols >= L + K - 1:
+            windows = x[:, cols - need:].unfold(-1, L, 1)  # (rows, K, L)
+            library_ms = cuda_time_ms(
+                lambda: torch.nanquantile(windows, q, dim=-1), iters=20
+            )
+        else:
+            library_ms = None
+        # the least work of the function, not of this design's O(L^2) count
+        # rank: read each input column once, write each output once, and
+        # compare each window element at least once to select its quantile
+        bytes_moved = rows * need * 4 + rows * K * 4
+        ops = rows * K * L
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_OPS_PER_S * 1e3
+        report[label] = {
+            "shape": [rows, cols], "L": L, "K": K, "q": q, "min_periods": mp,
+            "equal_to_twin": True, "max_abs_err": max_abs_err,
+            "kernel_ms": kernel_ms, "twin_ms": twin_ms, "library_ms": library_ms,
+            "bytes": bytes_moved, "ops": ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        print(
+            f"[qtail {label}] {rows}x{cols} L={L} K={K}: equal to twin; "
+            f"kernel {kernel_ms:.4f} ms, twin {twin_ms:.4f} ms, "
+            f"nanquantile {library_ms if library_ms is None else round(library_ms, 4)} ms, "
+            f"bound {report[label]['bound_ms']:.5f} ms ({report[label]['bound_by']})"
+        )
+    return report
+
+
+# --------------------------------------------------------------------------
+# phase 3: the classic live path at full width
+# --------------------------------------------------------------------------
+
+
+def symbols() -> list[str]:
+    return ["BTCUSDT"] + [f"S{i:04d}USDT" for i in range(1, S)]
+
+
+def make_market(rng: np.random.Generator):
+    """Seeded 5m OHLCV for S symbols over the warm history plus the live
+    ticks, and the 15m bars aggregated from it. Some symbols get a volume
+    burst on the last 5m bar of a live tick (ActivityBurstPump's setup)."""
+    n15 = W + LIVE_TICKS
+    n5 = 3 * n15
+    rets = rng.normal(0.0, 0.004, (S, n5)).astype(np.float64)
+    rets[1::29] -= 0.0015  # a drifting-down cohort: oversold setups
+    close = (20 + rng.random((S, 1)) * 100) * np.exp(np.cumsum(rets, axis=1))
+    open_ = np.concatenate([close[:, :1], close[:, :-1]], axis=1)
+    vol = np.abs(rng.normal(1000, 200, (S, n5)))
+    high = np.maximum(open_, close) * 1.001
+    low = np.minimum(open_, close) * 0.999
+    # bursts: per live tick, 12 symbols' last 5m bar jumps +3% on 8x volume
+    # after two up bars
+    for t in range(LIVE_TICKS):
+        rows = rng.choice(np.arange(2, S), 12, replace=False)
+        j = 3 * (W + t) + 2
+        for r in rows:
+            close[r, j - 2] = open_[r, j - 2] * 1.003
+            open_[r, j - 1] = close[r, j - 2]
+            close[r, j - 1] = open_[r, j - 1] * 1.003
+            open_[r, j] = close[r, j - 1]
+            close[r, j] = open_[r, j] * 1.03
+            high[r, j - 2:j + 1] = np.maximum(open_[r, j - 2:j + 1], close[r, j - 2:j + 1]) * 1.001
+            low[r, j - 2:j + 1] = np.minimum(open_[r, j - 2:j + 1], close[r, j - 2:j + 1]) * 0.999
+            high[r, j] = close[r, j] * 1.002
+            vol[r, j] *= 8.0
+            if j + 1 < n5:
+                open_[r, j + 1] = close[r, j]
+    m5 = dict(open=open_, high=high, low=low, close=close, volume=vol)
+    g = lambda a: a.reshape(S, n15, 3)
+    m15 = dict(
+        open=g(open_)[:, :, 0],
+        high=g(high).max(axis=2),
+        low=g(low).min(axis=2),
+        close=g(close)[:, :, 2],
+        volume=g(vol).sum(axis=2),
+    )
+    return m5, m15
+
+
+def bar_values(m: dict, cols: slice, interval_s: int) -> np.ndarray:
+    """(S, n, 10) value planes in the ring's field order."""
+    o, h, lo, c, v = (m[k][:, cols] for k in ("open", "high", "low", "close", "volume"))
+    return np.stack(
+        [o, h, lo, c, v, v * c, np.full_like(c, 300.0), v / 2, v * c / 2,
+         np.full_like(c, float(interval_s))],
+        axis=-1,
+    ).astype(np.float32)
+
+
+def kline(symbol, ts_s, interval_s, m, i) -> dict:
+    o, h, lo, c, v = (float(m[k][symbol[1], i]) for k in ("open", "high", "low", "close", "volume"))
+    return {
+        "symbol": symbol[0],
+        "open_time": ts_s * 1000,
+        "close_time": (ts_s + interval_s) * 1000 - 1,
+        "open": o, "high": h, "low": lo, "close": c, "volume": v,
+        "quote_asset_volume": v * c,
+        "number_of_trades": 300.0,
+        "taker_buy_base_volume": v / 2,
+        "taker_buy_quote_volume": v * c / 2,
+    }
+
+
+def drive(device: str, m5: dict, m15: dict, profiler=None) -> dict:
+    """Warm tick plus the live ticks through one engine on ``device``. A
+    ``torch.profiler.profile`` passed as ``profiler`` records the live
+    ticks only."""
+    import contextlib
+
+    import torch
+
+    from binquant_tpu_torch.io.replay import make_stub_engine, signal_tuples
+    from binquant_tpu_torch.regime.context import ContextConfig
+
+    engine = make_stub_engine(
+        capacity=S, window=W, context_config=ContextConfig(),
+        device=device,
+    )
+    names = symbols()
+    rows = np.array([engine.registry.add(n) for n in names], dtype=np.int32)
+    # warm history: 400 bars per ring as add_batch sub-batches
+    w15 = bar_values(m15, slice(0, W), 900)
+    w5 = bar_values(m5, slice(3 * W - W, 3 * W), 300)
+    t15 = T_LIVE0 - 900 * W
+    t5 = T_LIVE0 - 300 * W
+    for k in range(W):
+        engine.batcher15.add_batch(rows, np.full(S, t15 + 900 * k, np.int32), w15[:, k])
+        engine.batcher5.add_batch(rows, np.full(S, t5 + 300 * k, np.int32), w5[:, k])
+
+    ticks: list[tuple[int, list[dict]]] = [(T_LIVE0 * 1000, [])]
+    for t in range(LIVE_TICKS):
+        ts15 = T_LIVE0 + 900 * t
+        klines = []
+        for r, name in enumerate(names):
+            klines.append(kline((name, r), ts15, 900, m15, W + t))
+            for j in range(3):
+                klines.append(kline((name, r), ts15 + 300 * j, 300, m5, 3 * (W + t) + j))
+        ticks.append(((ts15 + 900) * 1000, klines))
+
+    fired_all, wires, wall = [], [], []
+
+    async def tick(now_ms, klines):
+        for k in klines:
+            engine.ingest(k)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fired = await engine.process_tick(now_ms=now_ms)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1000.0)
+        fired_all.extend(signal_tuples(fired))
+        wires.append(engine.last_wire)
+
+    async def run():
+        await tick(*ticks[0])
+        with profiler if profiler is not None else contextlib.nullcontext():
+            for now_ms, klines in ticks[1:]:
+                await tick(now_ms, klines)
+        fired_all.extend(signal_tuples(await engine.flush_pending()))
+
+    asyncio.run(run())
+    return {
+        "engine": engine,
+        "fired": fired_all,
+        "tick_ms": wall,
+        "wires": wires,
+        "ticks": len(ticks),
+    }
+
+
+def check_slice(m5, m15) -> dict:
+    import torch
+
+    from binquant_tpu_torch.engine.step import WIRE_FIRED_COUNT_OFF, WIRE_MAX_FIRED
+    from binquant_tpu_torch.ops import quantile_tail as qt
+
+    qt.reset_launches()  # launches made by the comparisons above do not count
+    gpu = drive("cuda", m5, m15)
+    launches = qt.launches  # read just after the main path
+    cpu = drive("cpu", m5, m15)
+
+    if launches < gpu["ticks"]:
+        fail(f"qtail launches {launches} < ticks {gpu['ticks']}")
+    if not gpu["fired"]:
+        fail("no signal fired on the card's drive")
+    if sorted(gpu["fired"]) != sorted(cpu["fired"]):
+        only_gpu = sorted(set(gpu["fired"]) - set(cpu["fired"]))[:5]
+        only_cpu = sorted(set(cpu["fired"]) - set(gpu["fired"]))[:5]
+        fail(f"fired sets differ: card-only {only_gpu}, cpu-only {only_cpu}")
+
+    # wires: equal length; fired block exact; floats within the contract
+    off = WIRE_FIRED_COUNT_OFF
+    K = WIRE_MAX_FIRED
+    max_wire_err = 0.0
+    for wg, wc in zip(gpu["wires"], cpu["wires"], strict=True):
+        if wg.shape != wc.shape:
+            fail(f"wire lengths differ: {wg.shape} vs {wc.shape}")
+        if wg[off] != wc[off]:
+            fail(f"fired counts differ: {wg[off]} vs {wc[off]}")
+        blk_g = wg[off + 1: off + 1 + 6 * K].reshape(6, K)
+        blk_c = wc[off + 1: off + 1 + 6 * K].reshape(6, K)
+        if not np.array_equal(blk_g[:4], blk_c[:4]):
+            fail("fired (strategy, row, autotrade, direction) blocks differ")
+        # cumsum/matmul/libm orders differ between the card and the CPU:
+        # float fields agree to a few float32 ulps of their magnitude
+        ok = np.isclose(wg, wc, rtol=1e-4, atol=1e-5, equal_nan=True)
+        if not ok.all():
+            bad = np.flatnonzero(~ok)[:5]
+            fail(f"wire floats differ at {bad.tolist()}: {wg[bad]} vs {wc[bad]}")
+        fin = np.isfinite(wg) & np.isfinite(wc)
+        max_wire_err = max(max_wire_err, float(np.abs(wg[fin] - wc[fin]).max()))
+
+    eng = gpu["engine"]
+    st = eng.state
+    ring_bytes = sum(
+        t.numel() * t.element_size()
+        for b in (st.buf5, st.buf15)
+        for t in (b.times, b.values, b.filled, b.cursor)
+    )
+    # the rings must agree exactly (positional scatter + gather)
+    cst = cpu["engine"].state
+    for name in ("buf5", "buf15"):
+        for f in ("times", "values", "filled", "cursor"):
+            a = getattr(getattr(st, name), f).cpu()
+            b = getattr(getattr(cst, name), f)
+            if not torch.equal(torch.nan_to_num(a.float(), nan=-1.0), torch.nan_to_num(b.float(), nan=-1.0)):
+                fail(f"{name}.{f} differs between the card and the CPU")
+    live = np.asarray(gpu["tick_ms"][1:])
+    by_strategy: dict[str, int] = {}
+    for _, strat, *_rest in gpu["fired"]:
+        by_strategy[strat] = by_strategy.get(strat, 0) + 1
+    result = {
+        "ticks": gpu["ticks"],
+        "launches": launches,
+        "signals": len(gpu["fired"]),
+        "signals_by_strategy": by_strategy,
+        "warm_tick_ms": gpu["tick_ms"][0],
+        "tick_p50_ms": float(np.percentile(live, 50)),
+        "tick_p99_ms": float(np.percentile(live, 99)),
+        "cpu_tick_p50_ms": float(np.percentile(np.asarray(cpu["tick_ms"][1:]), 50)),
+        "ring_bytes_on_device": ring_bytes,
+        "max_wire_abs_err_vs_cpu": max_wire_err,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+    }
+    print(
+        f"[slice] S={S} W={W}: {result['ticks']} ticks (1 warm + {LIVE_TICKS} live), "
+        f"qtail launches {launches}, signals {result['signals']} {by_strategy}, "
+        f"tick p50 {result['tick_p50_ms']:.2f} ms p99 {result['tick_p99_ms']:.2f} ms "
+        f"(warm tick {result['warm_tick_ms']:.1f} ms; cpu p50 {result['cpu_tick_p50_ms']:.1f} ms), "
+        f"rings on device {ring_bytes / 2**20:.1f} MiB, fired sets equal to the cpu engine"
+    )
+    return result
+
+
+def profile_slice(m5, m15) -> dict:
+    """Where a live tick's time goes on the card: one more drive of the
+    same stream under ``torch.profiler``. Reports the tick's host wall time,
+    the device's busy time (union of the CUDA activity intervals) and idle
+    share, the kernels launched per tick, and the kernels that take the most
+    device time. Device numbers are ``None`` when the profiler saw no CUDA
+    activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    run = drive("cuda", m5, m15, profiler=prof)
+    live_ticks = run["ticks"] - 1
+    wall_ms = sum(run["tick_ms"][1:])
+    spans = sorted(
+        (e.time_range.start, e.time_range.end, e.name)
+        for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    busy_us, end_us, by_name, count = 0.0, float("-inf"), {}, {}
+    for start, end, name in spans:
+        busy_us += max(0.0, end - max(start, end_us))
+        end_us = max(end_us, end)
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+        count[name] = count.get(name, 0) + 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    measured = bool(spans)
+    result = {
+        "live_ticks": live_ticks,
+        "tick_wall_ms": wall_ms / live_ticks,
+        "device_busy_ms_per_tick": busy_us / 1e3 / live_ticks if measured else None,
+        "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms if measured else None,
+        "device_activities_per_tick": len(spans) / live_ticks if measured else None,
+        "qtail_device_ms_per_tick": (
+            sum(us for n, us in by_name.items() if "qtail" in n) / 1e3 / live_ticks
+            if measured else None
+        ),
+        "top_device_ms_per_tick": [
+            {"name": n[:90], "ms": us / 1e3 / live_ticks, "calls_per_tick": count[n] / live_ticks}
+            for n, us in top
+        ],
+    }
+    print(f"[profile] {json.dumps(result)}")
+    return result
+
+
+def main() -> int:
+    if not (ROOT / "binquant_tpu_torch" / "csrc" / "qtail.cu").is_file():
+        print("chip_smoke: run from a checkout holding binquant_tpu_torch/", file=sys.stderr)
+        return 2
+    # the smoke needs one card: on a host with several, use the first only
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0")
+    os.environ["CUDA_VISIBLE_DEVICES"] = visible.split(",")[0].strip()
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    if torch.cuda.device_count() != 1:
+        fail(f"expected one visible card, found {torch.cuda.device_count()}")
+    sys.path.insert(0, str(ROOT))
+
+    from binquant_tpu_torch.ops import quantile_tail as qt
+
+    # phase 1: build (one nvcc per kernel source; this slice has one)
+    t0 = time.perf_counter()
+    lib, compile_s = qt.build(verbose=True)
+    print(f"[build] {lib.name}: nvcc {compile_s:.2f} s (set-up {time.perf_counter() - t0:.2f} s)")
+
+    # phase 2: kernel vs twin
+    qreport = check_quantile_kernel()
+
+    # phase 3: the slice
+    rng = np.random.default_rng(SEED)
+    m5, m15 = make_market(rng)
+    slice_report = check_slice(m5, m15)
+    if "--profile" in sys.argv[1:]:
+        slice_report["profile"] = profile_slice(m5, m15)
+
+    abp = qreport["abp"]
+    kernels = [
+        {
+            "name": "rolling_quantile_tail",
+            "route": "cuda",
+            "source": "binquant_tpu_torch/csrc/qtail.cu",
+            "replaces": "binquant_tpu/ops/pallas_rolling.py:40",
+            "launches": slice_report["launches"],
+            "max_abs_err": abp["max_abs_err"],
+            "ms": abp["kernel_ms"],
+            "plain_ms": abp["twin_ms"],
+            "bound_ms": abp["bound_ms"],
+            "bound_by": abp["bound_by"],
+            "library_ms": abp["library_ms"],
+            "equal_to_twin": all(r["equal_to_twin"] for r in qreport.values()),
+        }
+    ]
+    print(json.dumps({"qtail_cases": qreport, "slice": slice_report}))
+    print(json.dumps({"kernels": kernels}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30,
+    )
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a")
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

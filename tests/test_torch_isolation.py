@@ -1,0 +1,98 @@
+"""The port stands alone: no JAX, nothing of the reference package, and no
+silent CPU fallback at its entry points."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+# small shapes: extra intra-op threads only spin and crowd parallel test workers
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "binquant_tpu_torch"
+
+
+def test_import_pulls_in_no_jax_and_no_reference_module():
+    code = (
+        "import sys\n"
+        "import binquant_tpu_torch.io.replay, binquant_tpu_torch.engine.convert\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'binquant_tpu'))\n"
+        "print(','.join(bad))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == ""
+
+
+def _imported_roots(path: Path) -> set[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_sources_import_no_jax_and_no_reference_package():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        roots = _imported_roots(path)
+        assert not roots & {"jax", "jaxlib", "binquant_tpu"}, (path, roots)
+
+
+@pytest.mark.parametrize("entry", ["make_stub_engine", "SignalEngine", "run_replay"])
+def test_entry_points_raise_without_cuda_unless_cpu_requested(entry, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible; the no-CUDA refusal cannot be shown")
+    from binquant_tpu_torch.io import pipeline, replay
+
+    calls = {
+        "make_stub_engine": lambda **kw: replay.make_stub_engine(capacity=8, window=32, **kw),
+        "SignalEngine": lambda **kw: pipeline.SignalEngine(window=32, **kw),
+        "run_replay": lambda **kw: replay.run_replay(tmp_path / "empty.jsonl", **kw),
+    }
+    (tmp_path / "empty.jsonl").write_text("")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
+    calls[entry](device="cpu")  # the explicit CPU request works
+
+
+@pytest.mark.parametrize(
+    "ctor",
+    ["empty_buffer", "initial_regime_carry", "no_signal", "default_host_inputs",
+     "initial_engine_state", "engine_state_from_numpy"],
+)
+def test_state_constructors_take_no_default_device(ctor):
+    """State built outside an entry point names its device: none of the
+    constructors picks one, so nothing lands on the CPU unasked."""
+    from binquant_tpu_torch.engine import buffer, convert, step
+    from binquant_tpu_torch.regime import context
+    from binquant_tpu_torch.strategies import base
+
+    calls = {
+        "empty_buffer": lambda **kw: buffer.empty_buffer(4, 6, **kw),
+        "initial_regime_carry": lambda **kw: context.initial_regime_carry(4, **kw),
+        "no_signal": lambda **kw: base.no_signal(4, **kw),
+        "default_host_inputs": lambda **kw: step.default_host_inputs(4, **kw),
+        "initial_engine_state": lambda **kw: step.initial_engine_state(4, 6, **kw),
+        "engine_state_from_numpy": lambda **kw: convert.engine_state_from_numpy(
+            convert.engine_state_to_numpy(step.initial_engine_state(4, 6, device="cpu")),
+            **kw,
+        ),
+    }
+    with pytest.raises(TypeError, match="device"):
+        calls[ctor]()
+    built = calls[ctor](device="cpu")
+    leaves = [t for t in torch.utils._pytree.tree_leaves(built) if isinstance(t, torch.Tensor)]
+    assert leaves and all(t.device.type == "cpu" for t in leaves)
