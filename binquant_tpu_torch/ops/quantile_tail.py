@@ -11,14 +11,15 @@ each row, NaN-aware, with ``min_periods``.
   ``nvcc`` for ``sm_90a`` into ``build/``, loaded with ``ctypes``) on the
   current stream, or raises. There is no fallback.
 * On a CPU tensor it runs :func:`rolling_quantile_tail_reference`, the plain
-  torch twin: the same count-rank selection the kernel performs, so the CPU
-  tests cover the kernel's algorithm.
+  torch twin: the same sort-once, select-per-window bookkeeping the kernel
+  performs, so the CPU tests cover the kernel's algorithm.
 
 ``launches`` counts kernel launches (never twin calls), so a run can show
 that its main path went through the kernel.
 
 On the card the kernel is latency-bound (see the note in ``qtail.cu``): at
-ActivityBurstPump's shape it reads ~0.7 MB and does ~52 M compare-adds.
+ActivityBurstPump's shape it reads ~0.7 MB, sorts each row's 83 tail values
+once and selects its 4 windows' order statistics from that one ordering.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ NVCC_FLAGS = (
 
 launches = 0  # kernel launches since import (or the caller's last reset)
 _lib: ctypes.CDLL | None = None
-_max_window: int | None = None
+_max_span: int | None = None  # the largest window + num_out - 1 the kernel takes
 
 
 def reset_launches() -> None:
@@ -94,7 +95,7 @@ def build(verbose: bool = False) -> tuple[Path, float]:
 
 
 def _load() -> ctypes.CDLL:
-    global _lib, _max_window
+    global _lib, _max_span
     if _lib is None:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
@@ -104,9 +105,9 @@ def _load() -> ctypes.CDLL:
             ctypes.c_void_p,
         ]
         lib.qtail_launch.restype = ctypes.c_int
-        lib.qtail_max_window.argtypes = []
-        lib.qtail_max_window.restype = ctypes.c_int
-        _max_window = int(lib.qtail_max_window())
+        lib.qtail_max_span.argtypes = []
+        lib.qtail_max_span.restype = ctypes.c_int
+        _max_span = int(lib.qtail_max_span())
         _lib = lib
     return _lib
 
@@ -126,41 +127,42 @@ def rolling_quantile_tail_reference(
 ) -> torch.Tensor:
     """Plain torch twin of the kernel, ``(..., W) -> (..., num_out)``.
 
-    For each trailing window: non-finite values become +inf, each element's
-    rank is the count of elements ordered before it (value, then index), and
-    the lo/hi order statistics are the elements whose rank equals lo/hi —
-    exactly the count-rank selection of ``csrc/qtail.cu`` and of the TPU
-    kernel, and bit-equal to the reference's windowed sort."""
+    The same selection ``csrc/qtail.cu`` performs: the row's last
+    ``T = window + num_out - 1`` columns (NaN before the row start,
+    non-finite values as +inf) are sorted once by value, then column; for
+    output k the window is the columns ``k <= col < k + window``, and its
+    lo-th and hi-th members in that one order are its order statistics.
+    Bit-equal to the reference's per-window sort."""
     mp, K = _resolve(x, window, num_out, min_periods)
     L = window
-    need = L + K - 1
+    T = L + K - 1
     W = x.shape[-1]
-    tail = x[..., -min(need, W):].to(torch.float32)
-    if W < need:  # positions before the array start are NaN
+    tail = x[..., -min(T, W):].to(torch.float32)
+    if W < T:  # positions before the array start are NaN
         pad = torch.full(
-            tail.shape[:-1] + (need - W,), float("nan"),
+            tail.shape[:-1] + (T - W,), float("nan"),
             dtype=torch.float32, device=x.device,
         )
         tail = torch.cat([pad, tail], dim=-1)
-    win = tail.unfold(-1, L, 1)  # (..., K, L)
-    finite = torch.isfinite(win)
-    wv = torch.where(finite, win, float("inf"))
-    cnt = finite.sum(dim=-1, dtype=torch.int32)
+    val = torch.where(torch.isfinite(tail), tail, float("inf"))
+    # stable: equal values keep column order
+    sval, col = torch.sort(val, dim=-1, stable=True)  # (..., T)
 
-    col = torch.arange(L, device=x.device)
-    vi = wv[..., :, None]  # element i along -2
-    vj = wv[..., None, :]  # element j along -1
-    # j orders before i: a smaller value, or an equal one at a lower index
-    before = torch.where(col[None, :] < col[:, None], vj <= vi, vj < vi)
-    rank = before.sum(dim=-1, dtype=torch.int32)  # a permutation of 0..L-1
-
+    k = torch.arange(K, device=x.device)[:, None]
+    col = col[..., None, :]  # (..., 1, T)
+    member = (col >= k) & (col < k + L)  # (..., K, T): window k, sorted order
+    cnt = (member & torch.isfinite(sval)[..., None, :]).sum(dim=-1, dtype=torch.int32)
     rankf = q * (cnt.to(torch.float32) - 1.0)
     lo = torch.clamp(torch.floor(rankf).to(torch.int32), 0, L - 1)
     hi = torch.minimum(torch.clamp(lo + 1, max=L - 1), torch.clamp(cnt - 1, min=0))
 
+    # members before and at each sorted position; the r-th member is the
+    # first position where that count reaches r + 1
+    seen = member.cumsum(dim=-1, dtype=torch.int32)
+
     def select(r: torch.Tensor) -> torch.Tensor:
-        pos = (rank == r[..., None]).to(torch.int32).argmax(dim=-1)
-        return torch.gather(wv, -1, pos.long()[..., None])[..., 0]
+        pos = (seen == r[..., None] + 1).to(torch.int32).argmax(dim=-1)
+        return torch.gather(sval, -1, pos.long())
 
     v_lo, v_hi = select(lo), select(hi)
     out = v_lo + (v_hi - v_lo) * (rankf - lo.to(torch.float32))
@@ -193,17 +195,23 @@ def rolling_quantile_tail(
     if x.device.type != "cuda":
         raise ValueError(f"rolling_quantile_tail: unsupported device {x.device}")
 
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"rolling_quantile_tail: {x.device} is not the current device "
+            f"cuda:{torch.cuda.current_device()}"
+        )
     lib = _load()
-    if window > _max_window:
-        raise ValueError(f"window {window} exceeds the kernel's {_max_window}")
     mp, K = _resolve(x, window, num_out, min_periods)
+    if window + K - 1 > _max_span:
+        raise ValueError(
+            f"window + num_out - 1 = {window + K - 1} passes the kernel's limit {_max_span}"
+        )
     S, W = x.shape
     out = torch.empty((S, K), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.qtail_launch(
-            x.data_ptr(), out.data_ptr(), S, W, window, K, float(q), mp, stream
-        )
+    err = lib.qtail_launch(
+        x.data_ptr(), out.data_ptr(), S, W, window, K, float(q), mp,
+        torch.cuda.current_stream().cuda_stream,
+    )
     if err != 0:
         raise RuntimeError(f"qtail kernel launch failed: cudaError {err}")
     launches += 1

@@ -9,10 +9,14 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
 
 1. Build every kernel of the classic tick from ``binquant_tpu_torch/csrc``
    (``nvcc`` for ``sm_90a``) and print the seconds it took.
-2. Hold each kernel against its plain torch twin on the card, bit for bit,
-   at the shapes the main path gives it (ActivityBurstPump's 2048x128 tail
-   with NaN, tie and inf rows), at SpikeHunter's 2048x400 shape and at a
-   short ``W < L+K-1`` input; time kernel, twin and a PyTorch yardstick.
+2. Hold each kernel against its plain torch twin on the card and on the
+   CPU, bit for bit, at the shapes the main path gives it
+   (ActivityBurstPump's 2048x128 tail with NaN, tie and inf rows), at
+   SpikeHunter's 2048x400 shape, at a 96-tick backtest chunk's 2048x224
+   (K=100) and at a short ``W < L+K-1`` input. Time the kernel on the
+   device (200 wrapper calls captured in one CUDA graph, replayed between
+   two events), the host-issued call loop, the card's launch floor (the
+   same graph at S=1, K=1, L=1), the twin and a PyTorch yardstick.
 3. Drive the port's classic live path at full width (S=2048 symbols, W=400
    bars per ring): warm both rings with 400 bars of seeded history through
    ``IngestBatcher.add_batch`` sub-batches folded by the first
@@ -59,6 +63,8 @@ def fail(msg: str) -> None:
 
 
 def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Per call of a host loop of ``fn`` between two events: the device
+    time when the device is the slower, else the host's issue time."""
     import torch
 
     for _ in range(warmup):
@@ -72,6 +78,36 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_time_ms(fn, calls: int = 200, replays: int = 5) -> float:
+    """Device time per call: ``calls`` calls of ``fn`` captured in one CUDA
+    graph, replayed between two events; the median of ``replays`` replays.
+    The host issues one replay, so its per-call cost drops out."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch asks
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
 
 
 # --------------------------------------------------------------------------
@@ -88,6 +124,7 @@ def quantile_inputs(rng: np.random.Generator, rows: int, cols: int) -> np.ndarra
     x[17, -20:-10] = np.inf  # +inf inside the windows
     x[19, -30:-25] = -np.inf
     x[23, :] = 0.5  # a constant row: every element ties
+    x[29, -40:] = np.where(np.arange(40) % 2 == 0, -0.0, 0.0)  # interleaved ±0.0
     return x
 
 
@@ -101,8 +138,15 @@ def check_quantile_kernel() -> dict:
         # (label, rows, cols, L, K, q, min_periods)
         ("abp", S, 128, 80, 4, 0.92, 20),
         ("spike_hunter", S, 400, 60, 1, 0.85, 20),
+        ("abp_batch", S, 224, 80, 100, 0.92, 20),
         ("short_input", 64, 60, 80, 4, 0.92, 20),
     ]
+    # the card's launch floor: the same graph method on the least work
+    one = torch.zeros((1, 1), dtype=torch.float32, device="cuda")
+    floor_ms = graph_time_ms(lambda: qt.rolling_quantile_tail(one, 1, 0.5))
+    floor_call_ms = cuda_time_ms(lambda: qt.rolling_quantile_tail(one, 1, 0.5), iters=200)
+    print(f"[qtail floor] S=1 L=1 K=1: device {floor_ms:.5f} ms per launch, "
+          f"host-issued call {floor_call_ms:.5f} ms")
     report = {}
     for label, rows, cols, L, K, q, mp in cases:
         x = torch.from_numpy(quantile_inputs(rng, rows, cols)).cuda()
@@ -112,10 +156,12 @@ def check_quantile_kernel() -> dict:
         torch.cuda.synchronize()
         out_c, twin_c = out.cpu(), twin.cpu()
         nan_equal = torch.equal(torch.isnan(out_c), torch.isnan(twin_c))
-        bits_equal = torch.equal(
-            torch.nan_to_num(out_c, nan=-9e9), torch.nan_to_num(twin_c, nan=-9e9)
-        ) and torch.equal(
-            torch.nan_to_num(out_c, nan=-9e9), torch.nan_to_num(cpu_twin, nan=-9e9)
+
+        def bits(t):
+            return torch.nan_to_num(t, nan=-9e9).view(torch.int32)
+
+        bits_equal = torch.equal(bits(out_c), bits(twin_c)) and torch.equal(
+            bits(out_c), bits(cpu_twin)
         )
         if not (nan_equal and bits_equal):
             diff = (torch.nan_to_num(out_c) - torch.nan_to_num(twin_c)).abs().max()
@@ -123,9 +169,12 @@ def check_quantile_kernel() -> dict:
         finite = torch.isfinite(out_c) & torch.isfinite(twin_c)
         max_abs_err = float((out_c[finite] - twin_c[finite]).abs().max()) if finite.any() else 0.0
         need = min(L + K - 1, cols)
-        kernel_ms = cuda_time_ms(
-            lambda: qt.rolling_quantile_tail(x, L, q, num_out=K, min_periods=mp), iters=200
-        )
+
+        def kernel():
+            return qt.rolling_quantile_tail(x, L, q, num_out=K, min_periods=mp)
+
+        kernel_ms = graph_time_ms(kernel)
+        call_ms = cuda_time_ms(kernel, iters=200)
         twin_ms = cuda_time_ms(
             lambda: qt.rolling_quantile_tail_reference(x, L, q, num_out=K, min_periods=mp),
             iters=20,
@@ -147,16 +196,19 @@ def check_quantile_kernel() -> dict:
         report[label] = {
             "shape": [rows, cols], "L": L, "K": K, "q": q, "min_periods": mp,
             "equal_to_twin": True, "max_abs_err": max_abs_err,
-            "kernel_ms": kernel_ms, "twin_ms": twin_ms, "library_ms": library_ms,
+            "kernel_ms": kernel_ms, "call_ms": call_ms,
+            "floor_ms": floor_ms, "floor_call_ms": floor_call_ms,
+            "twin_ms": twin_ms, "library_ms": library_ms,
             "bytes": bytes_moved, "ops": ops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
         print(
             f"[qtail {label}] {rows}x{cols} L={L} K={K}: equal to twin; "
-            f"kernel {kernel_ms:.4f} ms, twin {twin_ms:.4f} ms, "
+            f"kernel {kernel_ms:.5f} ms on the device ({kernel_ms / floor_ms:.2f}x floor), "
+            f"call {call_ms:.5f} ms, twin {twin_ms:.4f} ms, "
             f"nanquantile {library_ms if library_ms is None else round(library_ms, 4)} ms, "
-            f"bound {report[label]['bound_ms']:.5f} ms ({report[label]['bound_by']})"
+            f"bound {report[label]['bound_ms']:.6f} ms ({report[label]['bound_by']})"
         )
     return report
 
@@ -484,6 +536,8 @@ def main() -> int:
             "bound_ms": abp["bound_ms"],
             "bound_by": abp["bound_by"],
             "library_ms": abp["library_ms"],
+            "call_ms": abp["call_ms"],
+            "floor_ms": abp["floor_ms"],
             "equal_to_twin": all(r["equal_to_twin"] for r in qreport.values()),
         }
     ]
