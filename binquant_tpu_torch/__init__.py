@@ -1,11 +1,14 @@
 """binquant_tpu_torch — the PyTorch/CUDA port of the binquant signal engine.
 
 A second package beside ``binquant_tpu`` (the JAX reference). It runs the
-classic live tick — ring-buffer ingest, feature packs, market context, the
-five live strategies, the packed wire and host emission — on one NVIDIA
-Hopper card, with the repository's one hand-written kernel (the trailing
-rolling quantile, ``ops/quantile_tail.py`` + ``csrc/qtail.cu``) as the card's
-implementation of ``rolling_quantile_tail``.
+live tick — ring-buffer ingest, feature packs, market context, the five
+live strategies, the packed wire and host emission — on one NVIDIA Hopper
+card, on the incremental path (indicator state carried from tick to tick,
+resynced by full recomputes; the production default) or the classic one
+(every tick recomputed from the windows), with the repository's one
+hand-written kernel (the trailing rolling quantile,
+``ops/quantile_tail.py`` + ``csrc/qtail.cu``) as the card's implementation
+of ``rolling_quantile_tail``.
 
 Device policy: entry points (``SignalEngine``, ``make_stub_engine``,
 ``run_replay``) default to ``device="cuda"`` and raise when CUDA is absent

@@ -7,7 +7,9 @@ one batched scatter per candle sub-batch.
 * **Circular write cursor**: each symbol's ``cursor`` is the slot its next
   append lands in; the k-th newest bar lives at ``(cursor - k) mod W``.
   ``cursor == 0`` with data packed at the right edge is the canonical
-  (right-aligned) layout that :func:`materialize` returns.
+  (right-aligned) layout that :func:`materialize` returns. Full ticks keep
+  the ring canonical; the incremental tick keeps it mid-phase and gathers
+  only a right-aligned tail (:func:`materialize_tail`).
 * **Routing** (:func:`route_updates`): a newer timestamp appends at the
   cursor, a timestamp already in the window (latest or mid-history)
   overwrites its slot in place, an older timestamp with no matching bar is
@@ -283,6 +285,10 @@ class SymbolRegistry:
 
     def name_of(self, row: int) -> str | None:
         return self._row_to_name.get(row)
+
+    def to_mapping(self) -> dict[str, int]:
+        """A copy of the symbol → row mapping."""
+        return dict(self._name_to_row)
 
     def frozen_rows(self) -> FrozenRows:
         return FrozenRows(dict(self._row_to_name))

@@ -1,11 +1,25 @@
 """The signal engine: ingest → device tick → emission, on one card.
 
 A lean port of ``binquant_tpu/io/pipeline.py``'s ``SignalEngine`` for the
-classic live tick at ``pipeline_depth=0``. Candles accumulate in two
+live tick at ``pipeline_depth=0``. Candles accumulate in two
 :class:`IngestBatcher` s between ticks; ``process_tick`` drains them, folds
 every sub-batch but the last into the rings (:meth:`_fold_updates`), runs ONE
-classic wire step on the last, fetches the one float32 wire, and emits the
-fired rows through the sinks after the once-per-bar dedupe.
+wire step on the last, fetches the one float32 wire, and emits the fired
+rows through the sinks after the once-per-bar dedupe.
+
+Routing (``incremental=True``, the production default): a tick runs the
+INCREMENTAL step, reading indicators from the carried state advanced by one
+bar, when every update since the last full recompute was a clean
+strictly-newer single-bar append, judged on the host against a per-row
+mirror of the latest applied open time (:meth:`_note_applied`). Otherwise
+it runs the FULL step, which rebuilds the carry from the windows, with its
+reason counted in ``full_recompute_reasons``: ``cold_start`` (the first
+tick), ``rewrite`` (an update at or before a row's latest bar), ``churn``
+(a row claimed in the drain, or rows freed by :meth:`prune_symbols`) and
+``audit`` (every ``carry_audit_every`` ticks). On the incremental path the
+folds advance the carry too, so a multi-bar drain stays incremental. With
+``incremental=False`` every tick is the classic full step and no carry is
+maintained.
 
 Host carries feeding the step: the grid-only policy (resolved from the
 previous tick's regime and the breadth series), the London quiet window of
@@ -26,12 +40,19 @@ import torch
 
 from binquant_tpu_torch import resolve_device
 from binquant_tpu_torch.config import Config
-from binquant_tpu_torch.engine.buffer import IngestBatcher, NUM_FIELDS, SymbolRegistry
+from binquant_tpu_torch.engine.buffer import (
+    NUM_FIELDS,
+    IngestBatcher,
+    SymbolRegistry,
+    reset_rows,
+)
 from binquant_tpu_torch.engine.step import (
     EMISSION_LAYOUTS,
     FIVE_MIN_STRATEGIES,
     LIVE_STRATEGIES,
+    MIN_INCR_ENGINE_WINDOW,
     HostInputs,
+    apply_updates_carry_step,
     apply_updates_step,
     initial_engine_state,
     tick_step,
@@ -129,6 +150,31 @@ class SignalEngine:
         self.tick_wall_ms: list[float] = []
         # the last fetched wire (host numpy), for inspection and comparison
         self.last_wire: np.ndarray | None = None
+        self.ticks_processed = 0
+        # -- incremental routing (see the module docstring)
+        self.incremental = bool(self.config.incremental)
+        if self.incremental and self.window < MIN_INCR_ENGINE_WINDOW:
+            raise ValueError(
+                f"window {self.window} < {MIN_INCR_ENGINE_WINDOW}, the incremental "
+                "engine's minimum ring (engine/step.py MIN_INCR_ENGINE_WINDOW): "
+                "grow the window or build the engine with incremental=False"
+            )
+        self.carry_audit_every = int(self.config.carry_audit_every_ticks or 0)
+        # why the carry is desynced (None = synced); the first reason wins
+        # until a full tick clears it
+        self._carry_desync_reason: str | None = "cold_start"
+        # last applied open time per registry row and interval: the host
+        # mirror that detects rewrites without a device fetch
+        self._host_latest: dict[str, np.ndarray] = {
+            "5m": np.full(self.capacity, -1, dtype=np.int64),
+            "15m": np.full(self.capacity, -1, dtype=np.int64),
+        }
+        self.incremental_ticks = 0
+        self.full_recompute_ticks = 0
+        self.full_recompute_reasons: dict[str, int] = {}
+        # the last tick's path: "incremental", the full recompute's
+        # reason, or "classic" on a classic engine
+        self.last_path: str | None = None
 
     # -- ingest ---------------------------------------------------------------
 
@@ -155,24 +201,102 @@ class SignalEngine:
              np.zeros((0, NUM_FIELDS), np.float32))
         )
 
-    def _fold_updates(self, batches5: list, batches15: list):
-        """Apply all but the FINAL sub-batch pair with the update-only step
+    def _fold_updates(
+        self,
+        batches5: list,
+        batches15: list,
+        advance_carry: bool = False,
+        btc_row: int = -1,
+    ):
+        """Apply all but the FINAL sub-batch pair without evaluating
         (ordered replay — evaluating each would advance the dedupe carries
-        and discard earlier signals); return the final pair to evaluate."""
+        and discard earlier signals); return the final pair to evaluate.
+        ``advance_carry`` folds with the carry-advancing step (only when the
+        caller found every sub-batch a clean append); ``btc_row`` keeps the
+        beta/corr pairing advancing through those folds."""
         empty = self._empty_updates()
         upd5 = [self._to_device(b) for b in batches5] or [empty]
         upd15 = [self._to_device(b) for b in batches15] or [empty]
         n = max(len(upd5), len(upd15))
         for i in range(n - 1):
-            self.state = apply_updates_step(
-                self.state,
-                upd5[i] if i < len(upd5) else empty,
-                upd15[i] if i < len(upd15) else empty,
-            )
+            a = upd5[i] if i < len(upd5) else empty
+            b = upd15[i] if i < len(upd15) else empty
+            if advance_carry:
+                self.state = apply_updates_carry_step(self.state, a, b, btc_row=btc_row)
+            else:
+                self.state = apply_updates_step(self.state, a, b)
         return (
             upd5[n - 1] if n - 1 < len(upd5) else empty,
             upd15[n - 1] if n - 1 < len(upd15) else empty,
         )
+
+    def _note_applied(self, batches5: list, batches15: list) -> bool:
+        """Move the host's per-row latest-open-time mirror over the
+        sub-batches about to be applied; True when EVERY update is a clean
+        strictly-newer append (safe for the carry advance). Called once per
+        drained batch set, in apply order."""
+        clean = True
+        for key, batches in (("5m", batches5), ("15m", batches15)):
+            latest = self._host_latest[key]
+            for rows, ts, _ in batches:
+                if len(rows) == 0:
+                    continue
+                rows = np.asarray(rows, dtype=np.int64)
+                ts64 = np.asarray(ts, dtype=np.int64)
+                ok = (rows >= 0) & (rows < self.capacity)
+                rows, ts64 = rows[ok], ts64[ok]
+                if np.any(ts64 <= latest[rows]):
+                    clean = False
+                np.maximum.at(latest, rows, ts64)
+        return clean
+
+    def _mark_carry_desynced(self, reason: str) -> None:
+        """The carried state no longer matches the windows: the next tick
+        runs the full recompute. The first reason wins until then."""
+        if self._carry_desync_reason is None:
+            self._carry_desync_reason = reason
+
+    def _route(self) -> tuple[bool, str | None]:
+        """This tick's path: (incremental?, full-recompute reason). The
+        audit runs on the engine's own tick count, so a replay audits the
+        same ticks every run."""
+        if not self.incremental:
+            return False, None
+        if self._carry_desync_reason is not None:
+            return False, self._carry_desync_reason
+        if (
+            self.carry_audit_every > 0
+            and self.ticks_processed > 0
+            and self.ticks_processed % self.carry_audit_every == 0
+        ):
+            return False, "audit"
+        return True, None
+
+    def prune_symbols(self, keep: list[str]) -> int:
+        """Drop registry rows of symbols outside ``keep`` and clear their
+        buffer rows. A freed row can be reclaimed by a new symbol whose
+        first append the stale carry would misread, so the next tick runs
+        the full recompute (``churn``); the host mirror of the freed rows is
+        reset, or a reclaimed row would be judged against a stale time."""
+        keep_rows = {r for r in (self.registry.row_of(s) for s in keep) if r is not None}
+        stale = [
+            (sym, row) for sym, row in self.registry.to_mapping().items()
+            if row not in keep_rows
+        ]
+        if not stale:
+            return 0
+        for sym, _ in stale:
+            self.registry.remove(sym)
+        rows_np = np.array([row for _, row in stale], np.int32)
+        rows = torch.from_numpy(rows_np).to(self.device)
+        self.state = self.state._replace(
+            buf5=reset_rows(self.state.buf5, rows),
+            buf15=reset_rows(self.state.buf15, rows),
+        )
+        for latest in self._host_latest.values():
+            latest[rows_np] = -1
+        self._mark_carry_desynced("churn")
+        return len(stale)
 
     # -- host carries ---------------------------------------------------------
 
@@ -250,6 +374,7 @@ class SignalEngine:
         pending = await self._dispatch_tick_inner(ts_ms)
         fired = await self._finalize_tick_inner(pending)
         self.tick_wall_ms.append((time.perf_counter() - t0) * 1000.0)
+        self.ticks_processed += 1
         return fired
 
     async def flush_pending(self) -> list:
@@ -265,22 +390,51 @@ class SignalEngine:
         ts5 = (ts_s // FIVE_MIN_S) * FIVE_MIN_S - FIVE_MIN_S
         await self._refresh_market_breadth(bucket15)
 
+        registry_version0 = self.registry.version
         batches5 = self.batcher5.drain()
         batches15 = self.batcher15.drain()
+        if self.registry.version != registry_version0:
+            # a symbol claimed a row in this drain: its carry was built on
+            # whatever window the last full recompute saw
+            self._mark_carry_desynced("churn")
+        # a mid-history rewrite leaves the latest bar alone, so the device
+        # carry cannot see it: the host mirror does
+        if not self._note_applied(batches5, batches15):
+            self._mark_carry_desynced("rewrite")
         # the window reads the EVALUATED tick time, so replays are deterministic
         quiet = is_quiet_hours(now=datetime.fromtimestamp(ts_ms / 1000, tz=timezone.utc))
         btc = self.registry.row_of(self.btc_symbol)
         btc_row = -1 if btc is None else int(btc)
 
-        u5, u15 = self._fold_updates(batches5, batches15)
+        use_incremental, reason = self._route()
+        if self.incremental:
+            if use_incremental:
+                self.incremental_ticks += 1
+            else:
+                self.full_recompute_ticks += 1
+                self.full_recompute_reasons[reason] = (
+                    self.full_recompute_reasons.get(reason, 0) + 1
+                )
+        self.last_path = "incremental" if use_incremental else (reason or "classic")
+
+        u5, u15 = self._fold_updates(
+            batches5, batches15, advance_carry=use_incremental, btc_row=btc_row
+        )
         inputs = self._host_inputs(btc_row, ts15, ts5, quiet)
         prev_state = self.state
         cfg, key = self.context_config, self._wire_enabled_key()
-        self.state, wire = tick_step_wire(prev_state, u5, u15, inputs, cfg, wire_enabled=key)
+        # a classic engine never reads the carry: no rebuild on its ticks
+        paths = dict(incremental=use_incremental, maintain_carry=self.incremental)
+        self.state, wire = tick_step_wire(
+            prev_state, u5, u15, inputs, cfg, wire_enabled=key, **paths
+        )
+        if not use_incremental:
+            self._carry_desync_reason = None
 
-        def fallback(_args=(prev_state, u5, u15, inputs, cfg, key)):
-            st, a, b, inp, cfg_, key_ = _args
-            _, full = tick_step(st, a, b, inp, cfg_, wire_enabled=key_)
+        # a compaction overflow re-runs the SAME path from the pre-tick state
+        def fallback(_args=(prev_state, u5, u15, inputs, cfg, key, paths)):
+            st, a, b, inp, cfg_, key_, paths_ = _args
+            _, full = tick_step(st, a, b, inp, cfg_, wire_enabled=key_, **paths_)
             return full
 
         return _PendingTick(

@@ -32,14 +32,21 @@ def make_stub_engine(
     enabled_strategies: set[str] | None = None,
     context_config: ContextConfig | None = None,
     device: str | None = None,
+    incremental: bool | None = None,
+    carry_audit_every: int | None = None,
 ) -> SignalEngine:
     """A SignalEngine wired to recording sinks (no network), futures market
     type, small-universe context gates unless ``context_config`` is given.
     Runs on ``device`` — CUDA by default; raises when CUDA is missing unless
-    ``device="cpu"``."""
+    ``device="cpu"``. ``incremental`` and ``carry_audit_every`` override the
+    config's defaults (the incremental path, an audit every 256 ticks)."""
     config = Config(
         max_symbols=capacity, window_bars=window, env=os.environ.get("ENV", "CI")
     )
+    if incremental is not None:
+        config.incremental = bool(incremental)
+    if carry_audit_every is not None:
+        config.carry_audit_every_ticks = int(carry_audit_every)
     return SignalEngine(
         config=config,
         sinks=RecordingSinks(),
@@ -100,9 +107,12 @@ def run_replay(
     enabled_strategies: set | None = None,
     context_config: ContextConfig | None = None,
     device: str | None = None,
+    incremental: bool | None = None,
+    carry_audit_every: int | None = None,
 ) -> dict:
-    """Replay a JSONL kline file; returns run statistics. With ``collect``
-    a list, every fired signal is appended as a :func:`signal_tuples` tuple."""
+    """Replay a JSONL kline file; returns run statistics, the routing
+    counters among them. With ``collect`` a list, every fired signal is
+    appended as a :func:`signal_tuples` tuple."""
     engine = make_stub_engine(
         capacity=capacity,
         window=window,
@@ -111,6 +121,8 @@ def run_replay(
         enabled_strategies=enabled_strategies,
         context_config=context_config,
         device=device,
+        incremental=incremental,
+        carry_audit_every=carry_audit_every,
     )
     seq = tick_seq(path)
     fired_total = 0
@@ -139,6 +151,9 @@ def run_replay(
         "wall_s": wall,
         "tick_p50_ms": float(np.percentile(lat, 50)) if lat.size else 0.0,
         "tick_p99_ms": float(np.percentile(lat, 99)) if lat.size else 0.0,
+        "incremental_ticks": engine.incremental_ticks,
+        "full_recompute_ticks": engine.full_recompute_ticks,
+        "full_recompute_reasons": dict(engine.full_recompute_reasons),
     }
 
 

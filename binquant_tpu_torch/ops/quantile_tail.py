@@ -15,7 +15,9 @@ each row, NaN-aware, with ``min_periods``.
   performs, so the CPU tests cover the kernel's algorithm.
 
 ``launches`` counts kernel launches (never twin calls), so a run can show
-that its main path went through the kernel.
+that its main path went through the kernel; ``launches_by_site`` splits the
+same count by the caller's ``site`` label (``abp_core`` on every full tick,
+``abp_init_from_window`` on every carry resync).
 
 On the card the kernel is latency-bound (see the note in ``qtail.cu``): at
 ActivityBurstPump's shape it reads ~0.7 MB, sorts each row's 83 tail values
@@ -43,6 +45,7 @@ NVCC_FLAGS = (
 )
 
 launches = 0  # kernel launches since import (or the caller's last reset)
+launches_by_site: dict[str, int] = {}  # the same launches by call site
 _lib: ctypes.CDLL | None = None
 _max_span: int | None = None  # the largest window + num_out - 1 the kernel takes
 
@@ -50,6 +53,7 @@ _max_span: int | None = None  # the largest window + num_out - 1 the kernel take
 def reset_launches() -> None:
     global launches
     launches = 0
+    launches_by_site.clear()
 
 
 def _nvcc() -> str:
@@ -175,10 +179,12 @@ def rolling_quantile_tail(
     q: float,
     num_out: int = 1,
     min_periods: int | None = None,
+    site: str = "direct",
 ) -> torch.Tensor:
     """Trailing rolling quantile of a 2-D float32 ``(S, W)`` tensor at its
     last ``num_out`` positions, ``(S, num_out)``. CUDA tensors launch the
-    kernel; CPU tensors run the twin; anything else raises."""
+    kernel; CPU tensors run the twin; anything else raises. ``site`` names
+    the caller in ``launches_by_site``."""
     global launches
     if not isinstance(x, torch.Tensor):
         raise TypeError("rolling_quantile_tail expects a torch.Tensor")
@@ -215,4 +221,5 @@ def rolling_quantile_tail(
     if err != 0:
         raise RuntimeError(f"qtail kernel launch failed: cudaError {err}")
     launches += 1
+    launches_by_site[site] = launches_by_site.get(site, 0) + 1
     return out

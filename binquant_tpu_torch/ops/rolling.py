@@ -237,12 +237,32 @@ def ewm_mean(
     return torch.where(ok, y, NAN)
 
 
+def fixed_order_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum along the last axis in one fixed pairwise order, built from
+    elementwise adds only: zero-padded to a power of two, then halved until
+    one column is left. Every add is a correctly rounded float32 add, so
+    the card and the CPU return the same bits (a library reduction or
+    matrix product sums in an order of its own on each)."""
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width > n:
+        pad = torch.zeros(x.shape[:-1] + (width - n,), dtype=x.dtype, device=x.device)
+        x = torch.cat([x, pad], dim=-1)
+    while width > 1:
+        width //= 2
+        x = x[..., :width] + x[..., width:]
+    return x[..., 0]
+
+
 def ewm_last_state(
-    x: torch.Tensor, alpha: float
+    x: torch.Tensor, alpha: float, fixed_order: bool = False
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(mean, rel, any_valid) of the ``adjust=False`` recursion at the last
     window position; ``rel`` is the last column's offset from the first
-    valid sample."""
+    valid sample. ``fixed_order`` sums the weighted window with
+    :func:`fixed_order_sum` instead of a matrix-vector product: the
+    incremental carry's init, which the card and the CPU then build bit for
+    bit alike."""
     W = x.shape[-1]
     d = 1.0 - alpha
     w = torch.from_numpy(
@@ -252,7 +272,7 @@ def ewm_last_state(
     ).to(x.device)
     m = torch.isfinite(x)
     xf = torch.where(m, x, 0.0).to(torch.float32)
-    base = torch.matmul(xf, w)
+    base = fixed_order_sum(xf * w) if fixed_order else torch.matmul(xf, w)
     s0, any_valid = _first_valid(m)
     x0 = torch.gather(x, -1, s0.long()[..., None])[..., 0]
     rel = (W - 1) - s0

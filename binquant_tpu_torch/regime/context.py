@@ -1,7 +1,8 @@
 """Batched market-context construction + regime annotation.
 
-Port of ``binquant_tpu/regime/context.py`` (the full-window path): per-symbol
-features (EMA20/50, ATR-14, BB-20 width, trend score, last-bar return),
+Port of ``binquant_tpu/regime/context.py``: per-symbol features (EMA20/50,
+ATR-14, BB-20 width, trend score, last-bar return) from the window or, on
+the incremental tick, from the carried 15m feature state,
 coverage gates, the RS-vs-BTC rewrite, masked market aggregates, the derived
 scores, and the macro/micro regime ladders with transitions against a
 carried previous state (:class:`RegimeCarry`). Scalars are 0-d tensors on
@@ -208,6 +209,29 @@ def compute_symbol_features(
     return _assemble_symbol_feature_values(
         close[:, -1], close[:, -2], buf.times[:, -1], buf.filled,
         eligible, ema20, ema50, atr, mid, std,
+    )
+
+
+def symbol_features_from_carry(
+    buf: MarketBuffer, carry, eligible: torch.Tensor, stale: torch.Tensor
+) -> SymbolFeatureArrays:
+    """The same symbol features read from the 15m ``FeatureCarry`` (the
+    incremental tick's path): ``min_periods=1`` readouts of the carried
+    sums the feature pack uses. ``stale`` rows are left out of ``valid``
+    so they cannot feed the market aggregates before the resync."""
+    from binquant_tpu_torch.ops.incremental import ewm_value, moment_mean, moment_std
+    from binquant_tpu_torch.strategies.features import ATR_WINDOW, BB_WINDOW
+
+    ema20 = ewm_value(carry.ema20, 1)
+    ema50 = ewm_value(carry.ema50, 1)
+    atr = moment_mean(carry.tr_m, ATR_WINDOW, min_periods=1)
+    mid = moment_mean(carry.close_m, BB_WINDOW, min_periods=1)
+    std = moment_std(carry.close_m, BB_WINDOW, min_periods=1, ddof=0)
+    std = torch.where(torch.isfinite(std), std, 0.0)
+    close = buf.values[:, :, Field.CLOSE]
+    return _assemble_symbol_feature_values(
+        close[:, -1], close[:, -2], buf.times[:, -1], buf.filled,
+        eligible & ~stale, ema20, ema50, atr, mid, std,
     )
 
 
@@ -427,13 +451,17 @@ def compute_market_context(
     timestamp: torch.Tensor,  # int32 seconds, the tick being evaluated
     carry: RegimeCarry,
     cfg: ContextConfig = ContextConfig(),
+    feats: SymbolFeatureArrays | None = None,
 ) -> tuple[MarketContext, RegimeCarry]:
     """One tick's market context for the whole universe + updated carry.
     When the coverage gates fail ``context.valid`` is False and only the
-    stage bookkeeping moves."""
+    stage bookkeeping moves. ``feats`` passes in symbol features read from
+    the carried indicator state (:func:`symbol_features_from_carry`, the
+    incremental tick); None computes them from the window."""
     S = buf.capacity
     dev = buf.times.device
-    feats = compute_symbol_features(buf, fresh & tracked)
+    if feats is None:
+        feats = compute_symbol_features(buf, fresh & tracked)
 
     # BTC features come from its row even when BTC itself is not fresh
     btc_ok = (btc_row >= 0) & (btc_row < S)

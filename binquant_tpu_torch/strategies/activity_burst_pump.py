@@ -10,7 +10,19 @@ autotrade off.
 
 The 92nd-percentile threshold is the repository's one hand-written kernel:
 ``ops.quantile_tail.rolling_quantile_tail`` launches ``csrc/qtail.cu`` on
-the card every tick.
+the card at both of its call sites here, :func:`abp_core` (every full tick)
+and :func:`abp_init_from_window` (every carry resync).
+
+The incremental tick reads the strategy from a carry instead
+(:class:`ABPCarry`): sorted windows of the shifted volume series and of the
+shifted score (``ops.incremental.SortedCarry``), a score ring feeding the
+score window's entering and leaving samples, and a raw-signal ring for the
+cooldown. :func:`abp_advance_one_bar` moves them by one bar and
+:func:`activity_burst_pump_from_carry` reads the same outputs from them,
+with the threshold from the sorted score window — no kernel launch on an
+incremental tick. The last-bar math both carry functions share is
+:func:`_abp_last_bar`, expression for expression the full kernel's formulas
+at the newest position.
 """
 
 from __future__ import annotations
@@ -20,6 +32,14 @@ from typing import NamedTuple
 import torch
 
 from binquant_tpu_torch.engine.buffer import Field, MarketBuffer
+from binquant_tpu_torch.ops.incremental import (
+    SortedCarry,
+    sorted_advance,
+    sorted_init,
+    sorted_median,
+    sorted_quantile,
+    tree_where,
+)
 from binquant_tpu_torch.ops.quantile_tail import rolling_quantile_tail
 from binquant_tpu_torch.ops.rolling import rolling_median, shift
 from binquant_tpu_torch.regime.context import MarketContext
@@ -55,6 +75,114 @@ def _baseline_window(p: ABPParams) -> int:
     return max(p.lookback_window, 2) - 1
 
 
+class _LastBar(NamedTuple):
+    """Newest-position intermediates shared by the carry advance and the
+    carry readout."""
+
+    baseline_safe: torch.Tensor
+    volume_ratio: torch.Tensor
+    quote_ratio: torch.Tensor
+    price_jump: torch.Tensor
+    range_frac: torch.Tensor
+    body_frac: torch.Tensor
+    score: torch.Tensor
+    threshold_filled: torch.Tensor
+    raw: torch.Tensor
+    volume: torch.Tensor
+
+
+def _col(buf: MarketBuffer, pos: int, f: Field) -> torch.Tensor:
+    """(S,) column read — O(1) bytes per symbol."""
+    return buf.values[:, pos, int(f)]
+
+
+def _abp_last_bar(
+    buf5: MarketBuffer,
+    vol_med: SortedCarry,
+    qvol_med: SortedCarry,
+    score_q: SortedCarry,
+    has_qav: torch.Tensor,
+    p: ABPParams,
+) -> _LastBar:
+    """The kernel's newest-position math from carried order statistics and
+    a dozen (S,) column reads: the formulas of :func:`abp_core` at the last
+    tail position, so a carried score equals the full path's recompute."""
+    bw = _baseline_window(p)
+    minb = p.min_baseline_volume
+    volume = _col(buf5, -1, Field.VOLUME)
+    quote_volume = _col(buf5, -1, Field.QUOTE_VOLUME)
+    close = _col(buf5, -1, Field.CLOSE)
+    open_ = _col(buf5, -1, Field.OPEN)
+    high = _col(buf5, -1, Field.HIGH)
+    low = _col(buf5, -1, Field.LOW)
+    c1 = _col(buf5, -2, Field.CLOSE)
+    c2 = _col(buf5, -3, Field.CLOSE)
+    c3 = _col(buf5, -4, Field.CLOSE)
+
+    baseline_safe = torch.clamp(sorted_median(vol_med, min_periods=bw), min=minb)
+    volume_ratio = volume / baseline_safe
+    q_baseline_safe = torch.clamp(sorted_median(qvol_med, min_periods=bw), min=minb)
+    quote_ratio = torch.where(has_qav, quote_volume / q_baseline_safe, 1.0)
+
+    prev_close = torch.clamp(c1, min=minb)
+    candle_range = torch.clamp(high - low, min=minb)
+    body = torch.abs(close - open_)
+
+    price_jump = (close - c1) / prev_close
+    range_frac = candle_range / torch.clamp(close, min=minb)
+    body_frac = body / candle_range
+    close_to_high = (high - close) / candle_range
+    is_bullish = close > open_
+    # a NaN close compares False -> 0.0, the full path's shift fill
+    recent_up = (
+        (close > c1).to(torch.float32)
+        + (c1 > c2).to(torch.float32)
+        + (c2 > c3).to(torch.float32)
+    )
+
+    vol_spike = volume > p.volume_multiplier * baseline_safe
+    quote_spike = torch.where(
+        has_qav, quote_volume > p.quote_volume_multiplier * q_baseline_safe, True
+    )
+    jump_flag = price_jump > p.price_threshold
+    range_flag = range_frac > p.min_range_frac
+    body_flag = (
+        is_bullish & (body_frac > p.min_body_frac) & (close_to_high < p.max_close_to_high)
+    )
+    trend_flag = recent_up >= torch.where(
+        has_qav, float(p.min_recent_up_closes), 1.0
+    )
+    score = torch.where(
+        has_qav,
+        volume_ratio * quote_ratio * torch.clamp(price_jump, min=0.0) * (1.0 + body_frac),
+        volume_ratio * torch.clamp(price_jump, min=0.0),
+    )
+    threshold = sorted_quantile(score_q, p.score_quantile, min_periods=p.lookback_window)
+    threshold_filled = torch.where(torch.isfinite(threshold), threshold, 0.0)
+    raw = (
+        vol_spike
+        & quote_spike
+        & jump_flag
+        & range_flag
+        & body_flag
+        & trend_flag
+        & torch.isfinite(score)
+        & (score >= threshold_filled)
+    )
+    return _LastBar(
+        baseline_safe=baseline_safe,
+        volume_ratio=volume_ratio,
+        quote_ratio=quote_ratio,
+        price_jump=price_jump,
+        range_frac=range_frac,
+        body_frac=body_frac,
+        score=score,
+        threshold_filled=threshold_filled,
+        raw=raw,
+        volume=volume,
+    )
+
+
 def _abp_outputs(
     filled: torch.Tensor,
     context: MarketContext,
@@ -86,13 +214,29 @@ def _abp_outputs(
     )
 
 
-def abp_core(
-    buf5: MarketBuffer, params: ABPParams = ABPParams()
-) -> tuple[torch.Tensor, torch.Tensor, dict[str, torch.Tensor]]:
-    """The context-free heavy half: the full-tail windowed math up to the
-    cooldown-gated ``qualified`` mask. Returns ``(qualified, score_last,
-    diagnostics)``."""
-    p = params
+class _Tail(NamedTuple):
+    """The full kernel's series over the trailing TAIL bars, shared by the
+    full tick (:func:`abp_core`) and the carry init
+    (:func:`abp_init_from_window`); ``threshold_filled`` and ``raw`` cover
+    the trailing ``cooldown_bars+1`` positions only."""
+
+    volume: torch.Tensor
+    quote_volume: torch.Tensor
+    has_qav: torch.Tensor  # (S, 1)
+    baseline_safe: torch.Tensor
+    volume_ratio: torch.Tensor
+    quote_ratio: torch.Tensor
+    price_jump: torch.Tensor
+    range_frac: torch.Tensor
+    body_frac: torch.Tensor
+    score: torch.Tensor
+    threshold_filled: torch.Tensor
+    raw: torch.Tensor
+
+
+def _abp_tail(buf5: MarketBuffer, p: ABPParams, site: str) -> _Tail:
+    """The windowed math up to the raw signal at the cooldown positions.
+    ``site`` names the caller at the qtail kernel's launch count."""
     v = buf5.values[:, -TAIL:]
     volume = v[:, :, Field.VOLUME]
     quote_volume = v[:, :, Field.QUOTE_VOLUME]
@@ -149,7 +293,7 @@ def abp_core(
     n_out = p.cooldown_bars + 1
     threshold_tail = rolling_quantile_tail(
         shift(score, 1).contiguous(), p.score_lookback, p.score_quantile,
-        num_out=n_out, min_periods=p.lookback_window,
+        num_out=n_out, min_periods=p.lookback_window, site=site,
     )
     threshold_filled = torch.where(
         torch.isfinite(threshold_tail), threshold_tail, 0.0
@@ -168,19 +312,35 @@ def abp_core(
         & torch.isfinite(tail_n(score))
         & (tail_n(score) >= threshold_filled)
     )
-    qualified = raw[:, -1] & ~raw[:, :-1].any(dim=-1)
+    return _Tail(
+        volume=volume, quote_volume=quote_volume, has_qav=has_qav,
+        baseline_safe=baseline_safe, volume_ratio=volume_ratio,
+        quote_ratio=quote_ratio, price_jump=price_jump, range_frac=range_frac,
+        body_frac=body_frac, score=score, threshold_filled=threshold_filled, raw=raw,
+    )
+
+
+def abp_core(
+    buf5: MarketBuffer, params: ABPParams = ABPParams()
+) -> tuple[torch.Tensor, torch.Tensor, dict[str, torch.Tensor]]:
+    """The context-free heavy half: the full-tail windowed math up to the
+    cooldown-gated ``qualified`` mask. Returns ``(qualified, score_last,
+    diagnostics)``."""
+    t = _abp_tail(buf5, params, "abp_core")
+    # 3-bar cooldown: any raw signal in the previous cooldown_bars bars
+    qualified = t.raw[:, -1] & ~t.raw[:, :-1].any(dim=-1)
     return (
         qualified,
-        score[:, -1],
+        t.score[:, -1],
         {
-            "baseline_volume": baseline_safe[:, -1],
-            "volume_ratio": volume_ratio[:, -1],
-            "quote_volume_ratio": quote_ratio[:, -1],
-            "price_jump": price_jump[:, -1],
-            "range_frac": range_frac[:, -1],
-            "body_frac": body_frac[:, -1],
-            "score_threshold": threshold_filled[:, -1],
-            "volume": volume[:, -1],
+            "baseline_volume": t.baseline_safe[:, -1],
+            "volume_ratio": t.volume_ratio[:, -1],
+            "quote_volume_ratio": t.quote_ratio[:, -1],
+            "price_jump": t.price_jump[:, -1],
+            "range_frac": t.range_frac[:, -1],
+            "body_frac": t.body_frac[:, -1],
+            "score_threshold": t.threshold_filled[:, -1],
+            "volume": t.volume[:, -1],
         },
     )
 
@@ -192,3 +352,163 @@ def activity_burst_pump(
 ) -> StrategyOutputs:
     qualified, score_last, diag = abp_core(buf5, params)
     return _abp_outputs(buf5.filled, context, qualified, score_last, diag, params)
+
+
+# ---------------------------------------------------------------------------
+# Incremental carry: the same kernel in O(window) merges per symbol per tick
+# ---------------------------------------------------------------------------
+
+
+class ABPCarry(NamedTuple):
+    """Carried ActivityBurstPump state, (S,)/(S, k) leaves.
+
+    ``vol_med``/``qvol_med`` hold ``shift(volume, 2)``'s trailing window
+    (entering sample: the ring column three back), ``score_q`` holds
+    ``shift(score, 1)``'s, fed from ``score_ring``; ``raw_ring`` is the raw
+    signal at the trailing ``cooldown_bars+1`` positions. A ``has_qav``
+    flip (a feed starting or stopping quote volume) switches the whole
+    score formula, which no one-bar advance can rewrite: it sets ``dirty``,
+    the row cannot fire, and the next full recompute clears it.
+    """
+
+    vol_med: SortedCarry
+    qvol_med: SortedCarry
+    score_q: SortedCarry
+    score_ring: torch.Tensor  # (S, score_lookback+1) f32, oldest first
+    raw_ring: torch.Tensor  # (S, cooldown_bars+1) bool, oldest first
+    has_qav: torch.Tensor  # (S,) bool
+    dirty: torch.Tensor  # (S,) bool
+
+
+# the deepest column the one-bar advance reads: the baseline leaver at -(bw+3)
+ABP_MIN_WINDOW = _baseline_window(ABPParams()) + 3
+# the init keeps score_lookback+1 trailing scores
+ABP_INIT_MIN_WINDOW = ABPParams().score_lookback + 1
+
+
+def empty_abp_carry(
+    num_symbols: int, p: ABPParams = ABPParams(), *, device: torch.device | str
+) -> ABPCarry:
+    bw = _baseline_window(p)
+    S = num_symbols
+
+    def empty_sorted(w):
+        return SortedCarry(
+            sorted=torch.full((S, w), float("inf"), dtype=torch.float32, device=device),
+            cnt=torch.zeros((S,), dtype=torch.int32, device=device),
+        )
+
+    return ABPCarry(
+        vol_med=empty_sorted(bw),
+        qvol_med=empty_sorted(bw),
+        score_q=empty_sorted(p.score_lookback),
+        score_ring=torch.full(
+            (S, p.score_lookback + 1), float("nan"), dtype=torch.float32, device=device
+        ),
+        raw_ring=torch.zeros((S, p.cooldown_bars + 1), dtype=torch.bool, device=device),
+        has_qav=torch.zeros((S,), dtype=torch.bool, device=device),
+        dirty=torch.zeros((S,), dtype=torch.bool, device=device),
+    )
+
+
+def abp_init_from_window(buf5: MarketBuffer, p: ABPParams = ABPParams()) -> ABPCarry:
+    """Carry from the full tail: the series of :func:`abp_core` (one copy,
+    :func:`_abp_tail`), so every readout at the init tick equals the full
+    kernel's. Its cooldown-ring threshold is the kernel's second call
+    site."""
+    # the ring slices below pin the carry's leaf shapes
+    assert buf5.window >= p.score_lookback + 1, (
+        f"window {buf5.window} too short for the ABP carry init "
+        f"(need >= {p.score_lookback + 1})"
+    )
+    bw = _baseline_window(p)
+    t = _abp_tail(buf5, p, "abp_init_from_window")
+    return ABPCarry(
+        vol_med=sorted_init(shift(t.volume, 2), bw),
+        qvol_med=sorted_init(shift(t.quote_volume, 2), bw),
+        score_q=sorted_init(shift(t.score, 1), p.score_lookback),
+        score_ring=t.score[:, -(p.score_lookback + 1):].to(torch.float32),
+        raw_ring=t.raw,
+        has_qav=t.has_qav[:, 0],
+        dirty=torch.zeros((buf5.capacity,), dtype=torch.bool, device=t.score.device),
+    )
+
+
+def abp_advance_one_bar(
+    buf5: MarketBuffer,
+    carry: ABPCarry,
+    advanced: torch.Tensor,
+    p: ABPParams = ABPParams(),
+) -> ABPCarry:
+    """Advance the carry by the buffer's newest bar on ``advanced`` rows
+    (the engine's shared clean-append mask); other rows keep their state."""
+    bw = _baseline_window(p)
+    assert buf5.window >= bw + 3, (
+        f"window {buf5.window} too short for the ABP carry advance "
+        f"(deepest read -(bw+3) = -{bw + 3})"
+    )
+    # the shifted baseline window ends two bars back: entering sample at
+    # column -3, leaver at -(bw+3)
+    vol_med = sorted_advance(
+        carry.vol_med, _col(buf5, -3, Field.VOLUME), _col(buf5, -(bw + 3), Field.VOLUME)
+    )
+    qvol_med = sorted_advance(
+        carry.qvol_med,
+        _col(buf5, -3, Field.QUOTE_VOLUME),
+        _col(buf5, -(bw + 3), Field.QUOTE_VOLUME),
+    )
+    # shift(score, 1)'s window: enters last tick's score, evicts the oldest
+    score_q = sorted_advance(carry.score_q, carry.score_ring[:, -1], carry.score_ring[:, 0])
+
+    has_qav = (buf5.values[:, -TAIL:, Field.QUOTE_VOLUME] > 0).any(dim=-1)
+    dirty = carry.dirty | (has_qav != carry.has_qav)
+
+    last = _abp_last_bar(buf5, vol_med, qvol_med, score_q, has_qav, p)
+    new = ABPCarry(
+        vol_med=vol_med,
+        qvol_med=qvol_med,
+        score_q=score_q,
+        score_ring=torch.cat(
+            [carry.score_ring[:, 1:], last.score[:, None].to(torch.float32)], dim=1
+        ),
+        raw_ring=torch.cat([carry.raw_ring[:, 1:], last.raw[:, None]], dim=1),
+        has_qav=has_qav,
+        dirty=dirty,
+    )
+    return tree_where(advanced, new, carry)
+
+
+def activity_burst_pump_from_carry(
+    buf5: MarketBuffer,
+    carry: ABPCarry,
+    context: MarketContext,
+    stale: torch.Tensor,
+    params: ABPParams = ABPParams(),
+) -> StrategyOutputs:
+    """The incremental twin of :func:`activity_burst_pump`: the same
+    formulas from carried order statistics and column reads. STALE rows
+    (carry desynced) and DIRTY rows (has_qav flip) cannot fire."""
+    p = params
+    last = _abp_last_bar(
+        buf5, carry.vol_med, carry.qvol_med, carry.score_q, carry.has_qav, p
+    )
+    # cooldown: the ring's last entry is this bar's raw (pushed by the
+    # advance); the previous cooldown_bars entries veto
+    qualified = last.raw & ~carry.raw_ring[:, :-1].any(dim=-1) & ~stale & ~carry.dirty
+    return _abp_outputs(
+        buf5.filled,
+        context,
+        qualified,
+        last.score,
+        {
+            "baseline_volume": last.baseline_safe,
+            "volume_ratio": last.volume_ratio,
+            "quote_volume_ratio": last.quote_ratio,
+            "price_jump": last.price_jump,
+            "range_frac": last.range_frac,
+            "body_frac": last.body_frac,
+            "score_threshold": last.threshold_filled,
+            "volume": last.volume,
+        },
+        p,
+    )

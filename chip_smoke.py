@@ -7,29 +7,43 @@ Run from the root of a checkout, with no arguments::
 
 Phases (any failure exits nonzero; nothing is caught and passed over):
 
-1. Build every kernel of the classic tick from ``binquant_tpu_torch/csrc``
+1. Build every kernel of the live tick from ``binquant_tpu_torch/csrc``
    (``nvcc`` for ``sm_90a``) and print the seconds it took.
 2. Hold each kernel against its plain torch twin on the card and on the
    CPU, bit for bit, at the shapes the main path gives it
-   (ActivityBurstPump's 2048x128 tail with NaN, tie and inf rows), at
-   SpikeHunter's 2048x400 shape, at a 96-tick backtest chunk's 2048x224
-   (K=100) and at a short ``W < L+K-1`` input. Time the kernel on the
-   device (200 wrapper calls captured in one CUDA graph, replayed between
-   two events), the host-issued call loop, the card's launch floor (the
-   same graph at S=1, K=1, L=1), the twin and a PyTorch yardstick.
-3. Drive the port's classic live path at full width (S=2048 symbols, W=400
-   bars per ring): warm both rings with 400 bars of seeded history through
+   (ActivityBurstPump's 2048x128 tail with NaN, tie and inf rows — the
+   shape of both of its call sites, ``abp_core`` and
+   ``abp_init_from_window``), at SpikeHunter's 2048x400 shape, at a 96-tick
+   backtest chunk's 2048x224 (K=100) and at a short ``W < L+K-1`` input.
+   Time the kernel on the device (200 wrapper calls captured in one CUDA
+   graph, replayed between two events), the host-issued call loop, the
+   card's launch floor (the same graph at S=1, K=1, L=1), the twin and a
+   ``torch.nanquantile`` yardstick (a short input left-padded with NaN).
+3. Drive the port's live paths at full width (S=2048 symbols, W=400 bars
+   per ring): warm both rings with 400 bars of seeded history through
    ``IngestBatcher.add_batch`` sub-batches folded by the first
-   ``process_tick``, then 16 live ticks of closed klines through
-   ``ingest`` -> ``process_tick``. The same stream runs through a second
-   engine on the CPU; fired sets must be equal and wires must agree.
-   Kernel launch counters are zeroed just before the drive and must show at
-   least one launch per tick.
+   ``process_tick``, then live ticks of closed klines through ``ingest`` ->
+   ``process_tick``. Each drive runs on the card and, on the same stream,
+   on the CPU; routing, fired sets and rings must be equal and wires must
+   agree. Kernel launch counters are zeroed just before each card drive
+   and read just after it.
+
+   * classic (``incremental=False``), 8 live ticks: one qtail launch per
+     tick (``abp_core``);
+   * incremental (the production default, a full-recompute audit every 8
+     ticks), 16 live ticks: a cold start on the warm tick, audits on live
+     ticks 8 and 16, every other tick incremental; two qtail launches on
+     each full tick (``abp_core``, ``abp_init_from_window``) and none on an
+     incremental one; the carry's order-free leaves equal to the CPU's bit
+     for bit; its fired set equal to the classic drive's over their common
+     ticks but for flips inside the declared gate margins. The supertrend
+     scan and the whole carry init are also timed alone.
 4. Print the kernels line, the card's name and power limit, and the result.
 
-With ``--profile`` it also drives the stream once more under
-``torch.profiler`` and prints where a live tick's time goes (host wall time,
-device busy time and idle share, kernels per tick, the costliest kernels).
+With ``--profile`` it also drives the incremental path once more under
+``torch.profiler`` and prints, per tick kind (incremental, full), where the
+tick's time goes: host wall time, device busy time and idle share, device
+activities per tick, the costliest kernels.
 
 It exits nonzero without printing a result when CUDA is unavailable or when
 run outside a checkout that holds the ``binquant_tpu_torch`` package.
@@ -49,7 +63,9 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 S, W = 2048, 400
-LIVE_TICKS = 16
+LIVE_TICKS = 16  # live ticks of the incremental drive
+CLASSIC_TICKS = 8  # live ticks of the classic drive
+AUDIT_EVERY = 8  # the incremental drive's full-recompute audit cadence
 T_LIVE0 = 1_780_272_000 + 900 * 2000  # 15m-aligned start of the live ticks
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores
@@ -179,13 +195,15 @@ def check_quantile_kernel() -> dict:
             lambda: qt.rolling_quantile_tail_reference(x, L, q, num_out=K, min_periods=mp),
             iters=20,
         )
-        if cols >= L + K - 1:
-            windows = x[:, cols - need:].unfold(-1, L, 1)  # (rows, K, L)
-            library_ms = cuda_time_ms(
-                lambda: torch.nanquantile(windows, q, dim=-1), iters=20
-            )
-        else:
-            library_ms = None
+        # the yardstick: torch.nanquantile over the K trailing windows; a
+        # short input is left-padded with NaN to L+K-1 columns first, the
+        # positions before the row start
+        span = x[:, cols - need:]
+        if cols < L + K - 1:
+            pad = torch.full((rows, L + K - 1 - cols), float("nan"), device=x.device)
+            span = torch.cat([pad, span], dim=1)
+        windows = span.unfold(-1, L, 1)  # (rows, K, L)
+        library_ms = cuda_time_ms(lambda: torch.nanquantile(windows, q, dim=-1), iters=20)
         # the least work of the function, not of this design's O(L^2) count
         # rank: read each input column once, write each output once, and
         # compare each window element at least once to select its quantile
@@ -207,14 +225,14 @@ def check_quantile_kernel() -> dict:
             f"[qtail {label}] {rows}x{cols} L={L} K={K}: equal to twin; "
             f"kernel {kernel_ms:.5f} ms on the device ({kernel_ms / floor_ms:.2f}x floor), "
             f"call {call_ms:.5f} ms, twin {twin_ms:.4f} ms, "
-            f"nanquantile {library_ms if library_ms is None else round(library_ms, 4)} ms, "
+            f"nanquantile {library_ms:.4f} ms, "
             f"bound {report[label]['bound_ms']:.6f} ms ({report[label]['bound_by']})"
         )
     return report
 
 
 # --------------------------------------------------------------------------
-# phase 3: the classic live path at full width
+# phase 3: the classic and the incremental live paths at full width
 # --------------------------------------------------------------------------
 
 
@@ -288,26 +306,32 @@ def kline(symbol, ts_s, interval_s, m, i) -> dict:
     }
 
 
-def drive(device: str, m5: dict, m15: dict, profiler=None) -> dict:
-    """Warm tick plus the live ticks through one engine on ``device``. A
-    ``torch.profiler.profile`` passed as ``profiler`` records the live
-    ticks only."""
+def drive(
+    device: str, m5: dict, m15: dict, incremental: bool, live_ticks: int, profiler=None
+) -> dict:
+    """Warm tick plus ``live_ticks`` live ticks through one engine on
+    ``device``. Per tick it records the path the engine took, the qtail
+    launches (and their call sites) the tick made, the host wall time, the
+    wire and the fired signals with their indicator payloads. A
+    ``torch.profiler.profile`` passed as ``profiler`` records the live ticks
+    only, each inside a ``chip_smoke_tick`` range."""
     import contextlib
 
     import torch
 
     from binquant_tpu_torch.io.replay import make_stub_engine, signal_tuples
+    from binquant_tpu_torch.ops import quantile_tail as qt
     from binquant_tpu_torch.regime.context import ContextConfig
 
     engine = make_stub_engine(
-        capacity=S, window=W, context_config=ContextConfig(),
-        device=device,
+        capacity=S, window=W, context_config=ContextConfig(), device=device,
+        incremental=incremental, carry_audit_every=AUDIT_EVERY,
     )
     names = symbols()
     rows = np.array([engine.registry.add(n) for n in names], dtype=np.int32)
-    # warm history: 400 bars per ring as add_batch sub-batches
+    # warm history: W bars per ring as add_batch sub-batches
     w15 = bar_values(m15, slice(0, W), 900)
-    w5 = bar_values(m5, slice(3 * W - W, 3 * W), 300)
+    w5 = bar_values(m5, slice(2 * W, 3 * W), 300)
     t15 = T_LIVE0 - 900 * W
     t5 = T_LIVE0 - 300 * W
     for k in range(W):
@@ -315,7 +339,7 @@ def drive(device: str, m5: dict, m15: dict, profiler=None) -> dict:
         engine.batcher5.add_batch(rows, np.full(S, t5 + 300 * k, np.int32), w5[:, k])
 
     ticks: list[tuple[int, list[dict]]] = [(T_LIVE0 * 1000, [])]
-    for t in range(LIVE_TICKS):
+    for t in range(live_ticks):
         ts15 = T_LIVE0 + 900 * t
         klines = []
         for r, name in enumerate(names):
@@ -324,102 +348,197 @@ def drive(device: str, m5: dict, m15: dict, profiler=None) -> dict:
                 klines.append(kline((name, r), ts15 + 300 * j, 300, m5, 3 * (W + t) + j))
         ticks.append(((ts15 + 900) * 1000, klines))
 
-    fired_all, wires, wall = [], [], []
+    out = {"paths": [], "launches": [], "sites": [], "tick_ms": [], "wires": [],
+           "fired": [], "indicators": {}}
 
-    async def tick(now_ms, klines):
+    async def tick(now_ms, klines, live):
         for k in klines:
             engine.ingest(k)
         if device == "cuda":
             torch.cuda.synchronize()
+        before, sites = qt.launches, dict(qt.launches_by_site)
+        rng = (
+            torch.profiler.record_function("chip_smoke_tick")
+            if profiler is not None and live else contextlib.nullcontext()
+        )
         t0 = time.perf_counter()
-        fired = await engine.process_tick(now_ms=now_ms)
-        if device == "cuda":
-            torch.cuda.synchronize()
-        wall.append((time.perf_counter() - t0) * 1000.0)
-        fired_all.extend(signal_tuples(fired))
-        wires.append(engine.last_wire)
+        with rng:
+            fired = await engine.process_tick(now_ms=now_ms)
+            if device == "cuda":
+                torch.cuda.synchronize()
+        out["tick_ms"].append((time.perf_counter() - t0) * 1000.0)
+        out["launches"].append(qt.launches - before)
+        out["sites"].append({
+            k: v - sites.get(k, 0) for k, v in qt.launches_by_site.items() if v != sites.get(k, 0)
+        })
+        out["paths"].append(engine.last_path)
+        out["wires"].append(engine.last_wire)
+        for sig, tup in zip(fired, signal_tuples(fired)):
+            out["fired"].append(tup)
+            out["indicators"][tup] = sig.analytics["indicators"]
 
     async def run():
-        await tick(*ticks[0])
+        await tick(*ticks[0], live=False)
         with profiler if profiler is not None else contextlib.nullcontext():
             for now_ms, klines in ticks[1:]:
-                await tick(now_ms, klines)
-        fired_all.extend(signal_tuples(await engine.flush_pending()))
+                await tick(now_ms, klines, live=True)
+        if await engine.flush_pending():
+            fail("a depth-0 engine left a tick in flight")
 
     asyncio.run(run())
-    return {
-        "engine": engine,
-        "fired": fired_all,
-        "tick_ms": wall,
-        "wires": wires,
-        "ticks": len(ticks),
-    }
+    out.update(engine=engine, ticks=len(ticks), tick_times=[t for t, _ in ticks])
+    return out
 
 
-def check_slice(m5, m15) -> dict:
+def compare_drives(gpu: dict, cpu: dict, label: str) -> float:
+    """The card's drive against the CPU's on the same stream: equal routing
+    and fired sets, wires with the fired block exact and floats within
+    ``rtol=1e-4, atol=1e-5`` (NaN equal), rings bit for bit. Returns the
+    largest finite wire difference."""
     import torch
 
     from binquant_tpu_torch.engine.step import WIRE_FIRED_COUNT_OFF, WIRE_MAX_FIRED
-    from binquant_tpu_torch.ops import quantile_tail as qt
 
-    qt.reset_launches()  # launches made by the comparisons above do not count
-    gpu = drive("cuda", m5, m15)
-    launches = qt.launches  # read just after the main path
-    cpu = drive("cpu", m5, m15)
-
-    if launches < gpu["ticks"]:
-        fail(f"qtail launches {launches} < ticks {gpu['ticks']}")
+    if gpu["paths"] != cpu["paths"]:
+        fail(f"{label}: routing differs between the card and the CPU")
     if not gpu["fired"]:
-        fail("no signal fired on the card's drive")
+        fail(f"{label}: no signal fired on the card's drive")
     if sorted(gpu["fired"]) != sorted(cpu["fired"]):
         only_gpu = sorted(set(gpu["fired"]) - set(cpu["fired"]))[:5]
         only_cpu = sorted(set(cpu["fired"]) - set(gpu["fired"]))[:5]
-        fail(f"fired sets differ: card-only {only_gpu}, cpu-only {only_cpu}")
-
-    # wires: equal length; fired block exact; floats within the contract
-    off = WIRE_FIRED_COUNT_OFF
-    K = WIRE_MAX_FIRED
+        fail(f"{label}: fired sets differ: card-only {only_gpu}, cpu-only {only_cpu}")
+    off, K = WIRE_FIRED_COUNT_OFF, WIRE_MAX_FIRED
     max_wire_err = 0.0
     for wg, wc in zip(gpu["wires"], cpu["wires"], strict=True):
         if wg.shape != wc.shape:
-            fail(f"wire lengths differ: {wg.shape} vs {wc.shape}")
+            fail(f"{label}: wire lengths differ: {wg.shape} vs {wc.shape}")
         if wg[off] != wc[off]:
-            fail(f"fired counts differ: {wg[off]} vs {wc[off]}")
+            fail(f"{label}: fired counts differ: {wg[off]} vs {wc[off]}")
         blk_g = wg[off + 1: off + 1 + 6 * K].reshape(6, K)
         blk_c = wc[off + 1: off + 1 + 6 * K].reshape(6, K)
         if not np.array_equal(blk_g[:4], blk_c[:4]):
-            fail("fired (strategy, row, autotrade, direction) blocks differ")
+            fail(f"{label}: fired (strategy, row, autotrade, direction) blocks differ")
         # cumsum/matmul/libm orders differ between the card and the CPU:
         # float fields agree to a few float32 ulps of their magnitude
         ok = np.isclose(wg, wc, rtol=1e-4, atol=1e-5, equal_nan=True)
         if not ok.all():
             bad = np.flatnonzero(~ok)[:5]
-            fail(f"wire floats differ at {bad.tolist()}: {wg[bad]} vs {wc[bad]}")
+            fail(f"{label}: wire floats differ at {bad.tolist()}: {wg[bad]} vs {wc[bad]}")
         fin = np.isfinite(wg) & np.isfinite(wc)
         max_wire_err = max(max_wire_err, float(np.abs(wg[fin] - wc[fin]).max()))
+    st, cst = gpu["engine"].state, cpu["engine"].state
+    for name in ("buf5", "buf15"):
+        for f in ("times", "values", "filled", "cursor"):
+            a = getattr(getattr(st, name), f).cpu()
+            b = getattr(getattr(cst, name), f)
+            if not torch.equal(torch.nan_to_num(a.float(), nan=-1.0),
+                               torch.nan_to_num(b.float(), nan=-1.0)):
+                fail(f"{label}: {name}.{f} differs between the card and the CPU")
+    return max_wire_err
 
-    eng = gpu["engine"]
-    st = eng.state
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, tuple):
+        for f, v in zip(tree._fields, tree):
+            yield from _leaves(v, f"{prefix}{f}.")
+    else:
+        yield prefix[:-1], tree
+
+
+# carry leaves whose values do not depend on a summation order: equal bit for
+# bit between the card and the CPU
+EXACT_CARRY_LEAVES = {
+    "last_ts", "rel", "cnt", "n_seen", "has_qav", "dirty", "bc_dirty", "raw_ring",
+    "abp5.vol_med.sorted", "abp5.qvol_med.sorted", "abp5.score_q.sorted", "abp5.score_ring",
+}
+
+
+def compare_exact_carry(gpu: dict, cpu: dict) -> tuple[int, int, int]:
+    """The carry's order-free leaves, card against CPU, bit for bit (a
+    failure otherwise). Returns (order-free leaves, float sum leaves, those
+    of them equal bit for bit too): the inits' fixed-order sums make most
+    of the float sums equal as well, which is reported, not required."""
+    card = dict(_leaves(gpu["engine"].state.indicator_carry))
+    host = dict(_leaves(cpu["engine"].state.indicator_carry))
+    n_exact = n_float = n_float_equal = 0
+    for path, a in card.items():
+        a, b = a.cpu().numpy(), host[path].numpy()
+        equal = a.dtype == b.dtype and np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+        if path in EXACT_CARRY_LEAVES or path.rsplit(".", 1)[-1] in EXACT_CARRY_LEAVES:
+            if not equal:
+                fail(f"carry leaf {path} differs between the card and the CPU")
+            n_exact += 1
+        else:
+            n_float += 1
+            n_float_equal += int(equal)
+    return n_exact, n_float, n_float_equal
+
+
+def gate_flips(incr: dict, classic: dict) -> tuple[list, list]:
+    """Signals on which the incremental and the classic drive disagree, over
+    the classic drive's ticks, and those among them that are NOT a flip
+    inside a declared gate margin: the row's gated indicator (RSI/MFI
+    points, from the payload of the drive that fired) within
+    ``declared_gate_margins()`` of its threshold."""
+    from binquant_tpu_torch.strategies.params import StrategyParams, declared_gate_margins
+
+    margins = declared_gate_margins()
+    p = StrategyParams()
+    gates = {
+        "coinrule_price_tracker": [("rsi", p.pt.rsi_oversold), ("mfi", p.pt.mfi_oversold)],
+        "mean_reversion_fade": [("rsi", p.mrf.rsi_long_max), ("rsi", p.mrf.rsi_short_min)],
+    }
+    common = set(classic["tick_times"])
+    a = {f for f in incr["fired"] if f[0] in common}
+    b = set(classic["fired"])
+    flips = sorted(a ^ b)
+    bad = []
+    for f in flips:
+        ind = incr["indicators"].get(f) or classic["indicators"].get(f) or {}
+        dists = [
+            abs(float(ind[k]) - thr) for k, thr in gates.get(f[1], ())
+            if ind.get(k) is not None and np.isfinite(float(ind[k]))
+        ]
+        if f[1] not in margins or not dists or min(dists) > margins[f[1]]:
+            bad.append(f)
+    return flips, bad
+
+
+def _launch_report(run: dict) -> dict:
+    by_site: dict[str, int] = {}
+    for d in run["sites"]:
+        for k, v in d.items():
+            by_site[k] = by_site.get(k, 0) + v
+    return {"launches": sum(run["launches"]), "launches_by_site": by_site}
+
+
+def check_classic(m5, m15) -> dict:
+    """The classic live path (``incremental=False``): one qtail launch per
+    tick (``abp_core``), card against CPU."""
+    import torch
+
+    from binquant_tpu_torch.ops import quantile_tail as qt
+
+    qt.reset_launches()  # launches made by the comparisons above do not count
+    gpu = drive("cuda", m5, m15, incremental=False, live_ticks=CLASSIC_TICKS)
+    counts = _launch_report(gpu)  # read just after the drive
+    cpu = drive("cpu", m5, m15, incremental=False, live_ticks=CLASSIC_TICKS)
+    if set(gpu["paths"]) != {"classic"}:
+        fail(f"classic drive took {sorted(set(gpu['paths']))}")
+    if gpu["launches"] != [1] * gpu["ticks"]:
+        fail(f"classic drive: qtail launches per tick {gpu['launches']}, expected 1 each")
+    max_wire_err = compare_drives(gpu, cpu, "classic")
+    live = np.asarray(gpu["tick_ms"][1:])
+    by_strategy = _by_strategy(gpu["fired"])
+    st = gpu["engine"].state
     ring_bytes = sum(
         t.numel() * t.element_size()
         for b in (st.buf5, st.buf15)
         for t in (b.times, b.values, b.filled, b.cursor)
     )
-    # the rings must agree exactly (positional scatter + gather)
-    cst = cpu["engine"].state
-    for name in ("buf5", "buf15"):
-        for f in ("times", "values", "filled", "cursor"):
-            a = getattr(getattr(st, name), f).cpu()
-            b = getattr(getattr(cst, name), f)
-            if not torch.equal(torch.nan_to_num(a.float(), nan=-1.0), torch.nan_to_num(b.float(), nan=-1.0)):
-                fail(f"{name}.{f} differs between the card and the CPU")
-    live = np.asarray(gpu["tick_ms"][1:])
-    by_strategy: dict[str, int] = {}
-    for _, strat, *_rest in gpu["fired"]:
-        by_strategy[strat] = by_strategy.get(strat, 0) + 1
     result = {
         "ticks": gpu["ticks"],
-        "launches": launches,
+        **counts,
         "signals": len(gpu["fired"]),
         "signals_by_strategy": by_strategy,
         "warm_tick_ms": gpu["tick_ms"][0],
@@ -431,57 +550,194 @@ def check_slice(m5, m15) -> dict:
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
     }
     print(
-        f"[slice] S={S} W={W}: {result['ticks']} ticks (1 warm + {LIVE_TICKS} live), "
-        f"qtail launches {launches}, signals {result['signals']} {by_strategy}, "
-        f"tick p50 {result['tick_p50_ms']:.2f} ms p99 {result['tick_p99_ms']:.2f} ms "
-        f"(warm tick {result['warm_tick_ms']:.1f} ms; cpu p50 {result['cpu_tick_p50_ms']:.1f} ms), "
-        f"rings on device {ring_bytes / 2**20:.1f} MiB, fired sets equal to the cpu engine"
+        f"[slice classic] S={S} W={W}: {result['ticks']} ticks (1 warm + {CLASSIC_TICKS} live), "
+        f"qtail launches {result['launches']} (1 per tick), signals {result['signals']} "
+        f"{by_strategy}, tick p50 {result['tick_p50_ms']:.2f} ms p99 "
+        f"{result['tick_p99_ms']:.2f} ms (warm tick {result['warm_tick_ms']:.1f} ms; cpu p50 "
+        f"{result['cpu_tick_p50_ms']:.1f} ms), rings on device {ring_bytes / 2**20:.1f} MiB, "
+        f"fired sets equal to the cpu engine"
+    )
+    return {**result, "fired": gpu["fired"], "indicators": gpu["indicators"],
+            "tick_times": gpu["tick_times"]}
+
+
+def _by_strategy(fired) -> dict[str, int]:
+    out: dict[str, int] = {}
+    for _, strat, *_rest in fired:
+        out[strat] = out.get(strat, 0) + 1
+    return out
+
+
+def check_incremental(m5, m15, classic: dict) -> dict:
+    """The incremental live path (the production default), card against
+    CPU: the routing schedule, two qtail launches on every full tick and
+    none on an incremental one, the carry's order-free leaves bit for bit,
+    and the fired set against the classic drive's."""
+    import torch
+
+    from binquant_tpu_torch.engine.buffer import Field, materialize
+    from binquant_tpu_torch.engine.step import init_indicator_carry
+    from binquant_tpu_torch.ops import quantile_tail as qt
+    from binquant_tpu_torch.ops.incremental import supertrend_init
+
+    qt.reset_launches()
+    gpu = drive("cuda", m5, m15, incremental=True, live_ticks=LIVE_TICKS)
+    counts = _launch_report(gpu)  # read just after the drive
+    cpu = drive("cpu", m5, m15, incremental=True, live_ticks=LIVE_TICKS)
+
+    expect = ["cold_start"] + [
+        "audit" if t % AUDIT_EVERY == 0 else "incremental" for t in range(1, LIVE_TICKS + 1)
+    ]
+    if gpu["paths"] != expect:
+        fail(f"incremental drive routing {gpu['paths']}, expected {expect}")
+    full = [p != "incremental" for p in gpu["paths"]]
+    if gpu["launches"] != [2 if f else 0 for f in full]:
+        fail(f"qtail launches per tick {gpu['launches']}: 2 on a full tick, 0 else")
+    for f, sites in zip(full, gpu["sites"]):
+        want = {"abp_core": 1, "abp_init_from_window": 1} if f else {}
+        if sites != want:
+            fail(f"qtail call sites per tick {gpu['sites']}")
+    max_wire_err = compare_drives(gpu, cpu, "incremental")
+    exact_leaves, float_leaves, float_equal = compare_exact_carry(gpu, cpu)
+    flips, bad = gate_flips(gpu, classic)
+    if bad:
+        fail(f"incremental vs classic on the card: flips outside the gate margins {bad[:5]}")
+
+    # the supertrend scan inside every full recompute, and the whole carry
+    # init, timed alone at the engine's shapes (the scan feeds only a
+    # dormant strategy); launches made here are not the main path's
+    buf5 = materialize(gpu["engine"].state.buf5)
+    buf15 = materialize(gpu["engine"].state.buf15)
+    start = (W - buf5.filled + 99).to(torch.int32)
+    v = buf5.values
+
+    def scan():
+        return supertrend_init(v[:, :, Field.HIGH], v[:, :, Field.LOW], v[:, :, Field.CLOSE],
+                               10, 3.0, start=start)
+
+    st_scan_ms = cuda_time_ms(scan, iters=3, warmup=1)
+    init_ms = cuda_time_ms(
+        lambda: init_indicator_carry(buf5, buf15, torch.tensor(0, dtype=torch.int32,
+                                                              device=buf5.times.device)),
+        iters=3, warmup=1,
+    )
+    live = np.asarray(gpu["tick_ms"][1:])
+    live_full = np.asarray([t for t, f in zip(gpu["tick_ms"][1:], full[1:]) if f])
+    live_incr = np.asarray([t for t, f in zip(gpu["tick_ms"][1:], full[1:]) if not f])
+    by_strategy = _by_strategy(gpu["fired"])
+    routing = dict(gpu["engine"].full_recompute_reasons)
+    routing["incremental"] = gpu["engine"].incremental_ticks
+    result = {
+        "ticks": gpu["ticks"],
+        **counts,
+        "launches_per_tick": gpu["launches"],
+        "paths": gpu["paths"],
+        "routing": routing,
+        "signals": len(gpu["fired"]),
+        "signals_by_strategy": by_strategy,
+        "warm_tick_ms": gpu["tick_ms"][0],
+        "incremental_tick_p50_ms": float(np.percentile(live_incr, 50)),
+        "incremental_tick_p99_ms": float(np.percentile(live_incr, 99)),
+        "full_tick_p50_ms": float(np.percentile(live_full, 50)),
+        "full_tick_p99_ms": float(np.percentile(live_full, 99)),
+        "full_tick_ms": live_full.tolist(),
+        "tick_p50_ms": float(np.percentile(live, 50)),
+        "cpu_incremental_tick_p50_ms": float(np.percentile(
+            [t for t, f in zip(cpu["tick_ms"][1:], full[1:]) if not f], 50)),
+        "max_wire_abs_err_vs_cpu": max_wire_err,
+        "exact_carry_leaves_equal": exact_leaves,
+        "float_carry_leaves_bit_equal": [float_equal, float_leaves],
+        "flips_vs_classic": len(flips),
+        "supertrend_scan_ms": st_scan_ms,
+        "init_indicator_carry_ms": init_ms,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+    }
+    print(
+        f"[slice incremental] S={S} W={W}: {result['ticks']} ticks (1 warm + {LIVE_TICKS} "
+        f"live, audit every {AUDIT_EVERY}), routing {routing}, qtail launches "
+        f"{result['launches']} {counts['launches_by_site']} (per tick {gpu['launches']}), "
+        f"signals {result['signals']} {by_strategy}; incremental tick p50 "
+        f"{result['incremental_tick_p50_ms']:.2f} ms p99 {result['incremental_tick_p99_ms']:.2f} ms, "
+        f"full tick p50 {result['full_tick_p50_ms']:.2f} ms p99 {result['full_tick_p99_ms']:.2f} ms "
+        f"(warm {result['warm_tick_ms']:.1f} ms; cpu incremental p50 "
+        f"{result['cpu_incremental_tick_p50_ms']:.1f} ms); supertrend scan {st_scan_ms:.2f} ms, "
+        f"carry init {init_ms:.2f} ms alone; fired sets, routing, rings and "
+        f"{exact_leaves} order-free carry leaves equal to the cpu engine (and "
+        f"{float_equal} of {float_leaves} float sums bit for bit); "
+        f"{len(flips)} flips vs the classic drive, all inside the gate margins"
     )
     return result
 
 
 def profile_slice(m5, m15) -> dict:
-    """Where a live tick's time goes on the card: one more drive of the
-    same stream under ``torch.profiler``. Reports the tick's host wall time,
-    the device's busy time (union of the CUDA activity intervals) and idle
-    share, the kernels launched per tick, and the kernels that take the most
-    device time. Device numbers are ``None`` when the profiler saw no CUDA
-    activity."""
+    """Where a tick's time goes on the card: one more drive of the
+    incremental path under ``torch.profiler``. Device activities are
+    assigned to the ``chip_smoke_tick`` range they start in, and reported
+    per tick kind (incremental, full): host wall time, device busy time
+    (the union of the activity intervals), idle share, activities per tick,
+    qtail device time, and the costliest kernels. Device numbers are
+    ``None`` when the profiler saw no CUDA activity."""
+    import bisect
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    run = drive("cuda", m5, m15, profiler=prof)
-    live_ticks = run["ticks"] - 1
-    wall_ms = sum(run["tick_ms"][1:])
+    run = drive("cuda", m5, m15, incremental=True, live_ticks=LIVE_TICKS, profiler=prof)
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    # the host's tick ranges; the profiler mirrors each as a range on the
+    # device's timeline too, which is an annotation, not device work
+    ranges = sorted(
+        (e.time_range.start, e.time_range.end)
+        for e in events if e.name == "chip_smoke_tick" and e.device_type != cuda
+    )
+    kinds = ["incremental" if p == "incremental" else "full" for p in run["paths"][1:]]
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name)
-        for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
+        for e in events
+        if e.device_type == cuda and e.name != "chip_smoke_tick"
     )
-    busy_us, end_us, by_name, count = 0.0, float("-inf"), {}, {}
-    for start, end, name in spans:
-        busy_us += max(0.0, end - max(start, end_us))
-        end_us = max(end_us, end)
-        by_name[name] = by_name.get(name, 0.0) + (end - start)
-        count[name] = count.get(name, 0) + 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    measured = bool(spans)
-    result = {
-        "live_ticks": live_ticks,
-        "tick_wall_ms": wall_ms / live_ticks,
-        "device_busy_ms_per_tick": busy_us / 1e3 / live_ticks if measured else None,
-        "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms if measured else None,
-        "device_activities_per_tick": len(spans) / live_ticks if measured else None,
-        "qtail_device_ms_per_tick": (
-            sum(us for n, us in by_name.items() if "qtail" in n) / 1e3 / live_ticks
-            if measured else None
-        ),
-        "top_device_ms_per_tick": [
-            {"name": n[:90], "ms": us / 1e3 / live_ticks, "calls_per_tick": count[n] / live_ticks}
-            for n, us in top
-        ],
-    }
+    starts = [r[0] for r in ranges]
+    per_tick = [{"spans": []} for _ in ranges]
+    for sp in spans:
+        i = bisect.bisect_right(starts, sp[0]) - 1
+        if 0 <= i < len(ranges) and sp[0] <= ranges[i][1]:
+            per_tick[i]["spans"].append(sp)
+    result: dict = {"ticks_profiled": len(ranges), "measured": bool(spans)}
+    for kind in ("incremental", "full"):
+        idx = [i for i, k in enumerate(kinds) if k == kind and i < len(per_tick)]
+        if not idx:
+            continue
+        busy_total, n_total, qtail_total, wall_total = 0.0, 0, 0.0, 0.0
+        by_name: dict[str, float] = {}
+        count: dict[str, int] = {}
+        for i in idx:
+            end_us, busy = float("-inf"), 0.0
+            for start, end, name in sorted(per_tick[i]["spans"]):
+                busy += max(0.0, end - max(start, end_us))
+                end_us = max(end_us, end)
+                by_name[name] = by_name.get(name, 0.0) + (end - start)
+                count[name] = count.get(name, 0) + 1
+                if "qtail" in name:
+                    qtail_total += end - start
+            busy_total += busy
+            n_total += len(per_tick[i]["spans"])
+            wall_total += ranges[i][1] - ranges[i][0]
+        n = len(idx)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        result[kind] = {
+            "ticks": n,
+            "tick_wall_ms": wall_total / 1e3 / n,
+            "device_busy_ms_per_tick": busy_total / 1e3 / n if spans else None,
+            "device_idle_share": 1.0 - busy_total / wall_total if spans else None,
+            "device_activities_per_tick": n_total / n if spans else None,
+            "qtail_device_ms_per_tick": qtail_total / 1e3 / n if spans else None,
+            "top_device_ms_per_tick": [
+                {"name": k[:90], "ms": us / 1e3 / n, "calls_per_tick": count[k] / n}
+                for k, us in top
+            ],
+        }
     print(f"[profile] {json.dumps(result)}")
     return result
 
@@ -507,7 +763,7 @@ def main() -> int:
 
     from binquant_tpu_torch.ops import quantile_tail as qt
 
-    # phase 1: build (one nvcc per kernel source; this slice has one)
+    # phase 1: build (one nvcc per kernel source; the port has one)
     t0 = time.perf_counter()
     lib, compile_s = qt.build(verbose=True)
     print(f"[build] {lib.name}: nvcc {compile_s:.2f} s (set-up {time.perf_counter() - t0:.2f} s)")
@@ -515,21 +771,35 @@ def main() -> int:
     # phase 2: kernel vs twin
     qreport = check_quantile_kernel()
 
-    # phase 3: the slice
+    # phase 3: the classic and the incremental live paths
     rng = np.random.default_rng(SEED)
     m5, m15 = make_market(rng)
-    slice_report = check_slice(m5, m15)
+    classic = check_classic(m5, m15)
+    incremental = check_incremental(m5, m15, classic)
+    slices = {
+        "classic": {k: v for k, v in classic.items()
+                    if k not in ("fired", "indicators", "tick_times")},
+        "incremental": incremental,
+    }
     if "--profile" in sys.argv[1:]:
-        slice_report["profile"] = profile_slice(m5, m15)
+        slices["profile"] = profile_slice(m5, m15)
 
     abp = qreport["abp"]
+    by_site: dict[str, int] = {}
+    for run in (classic, incremental):
+        for k, v in run["launches_by_site"].items():
+            by_site[k] = by_site.get(k, 0) + v
     kernels = [
         {
             "name": "rolling_quantile_tail",
             "route": "cuda",
             "source": "binquant_tpu_torch/csrc/qtail.cu",
             "replaces": "binquant_tpu/ops/pallas_rolling.py:40",
-            "launches": slice_report["launches"],
+            "launches": classic["launches"] + incremental["launches"],
+            "launches_by_site": by_site,
+            "launches_by_drive": {
+                "classic": classic["launches"], "incremental": incremental["launches"],
+            },
             "max_abs_err": abp["max_abs_err"],
             "ms": abp["kernel_ms"],
             "plain_ms": abp["twin_ms"],
@@ -541,7 +811,7 @@ def main() -> int:
             "equal_to_twin": all(r["equal_to_twin"] for r in qreport.values()),
         }
     ]
-    print(json.dumps({"qtail_cases": qreport, "slice": slice_report}))
+    print(json.dumps({"qtail_cases": qreport, "slice": slices}))
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

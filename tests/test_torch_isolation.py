@@ -58,8 +58,9 @@ def test_entry_points_raise_without_cuda_unless_cpu_requested(entry, tmp_path):
     from binquant_tpu_torch.io import pipeline, replay
 
     calls = {
-        "make_stub_engine": lambda **kw: replay.make_stub_engine(capacity=8, window=32, **kw),
-        "SignalEngine": lambda **kw: pipeline.SignalEngine(window=32, **kw),
+        # window 96: the incremental engine's minimum ring is 81 bars
+        "make_stub_engine": lambda **kw: replay.make_stub_engine(capacity=8, window=96, **kw),
+        "SignalEngine": lambda **kw: pipeline.SignalEngine(window=96, **kw),
         "run_replay": lambda **kw: replay.run_replay(tmp_path / "empty.jsonl", **kw),
     }
     (tmp_path / "empty.jsonl").write_text("")

@@ -42,7 +42,7 @@ def test_signal_tuples_equal_reference(replay_path):
     port_sig: list = []
     stats = treplay.run_replay(
         replay_path, capacity=CAPACITY, window=WINDOW, collect=port_sig,
-        device="cpu",
+        device="cpu", incremental=False,
     )
     assert stats["device"] == "cpu" and stats["ticks"] == 120
     assert len(jax_sig) > 0  # the crafted setups fire: not an empty-vs-empty match

@@ -155,7 +155,9 @@ def stepped(inputs):
     jnew, jwire = jstep.tick_step_wire(
         *inputs["jargs"], wire_enabled=KEY, incremental=False, maintain_carry=False
     )
-    tnew, twire = tstep.tick_step_wire(*inputs["targs"], wire_enabled=KEY)
+    tnew, twire = tstep.tick_step_wire(
+        *inputs["targs"], wire_enabled=KEY, incremental=False, maintain_carry=False
+    )
     return jnew, np.asarray(jwire), tnew, twire
 
 
@@ -261,7 +263,9 @@ def test_overflow_emission_reads_the_full_outputs(inputs, stepped):
     # a wire whose fired count exceeds its 128 slots makes emission read the
     # full step's summary and tensors; both routes must emit the same signals
     _, _, _, tw = stepped
-    _, outputs = tstep.tick_step(*inputs["targs"], wire_enabled=KEY)
+    _, outputs = tstep.tick_step(
+        *inputs["targs"], wire_enabled=KEY, incremental=False, maintain_carry=False
+    )
     wire = outputs.wire.numpy().copy()
     np.testing.assert_array_equal(wire, tw.numpy())
     wire[tstep.WIRE_FIRED_COUNT_OFF] = tstep.WIRE_MAX_FIRED + 1
