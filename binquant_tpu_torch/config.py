@@ -3,9 +3,24 @@
 The port's own copy of the fields of ``binquant_tpu/config.py`` the ported
 slices use, as one small dataclass built explicitly by the caller (no
 environment parsing at import time). Defaults are the production shape:
-2048 symbol rows, a 400-bar ring per interval, and the incremental tick
+2048 symbol rows, a 400-bar ring per interval, the incremental tick
 (carried indicator state, resynced by a full recompute every
-``carry_audit_every_ticks`` ticks; 0 disables the audit).
+``carry_audit_every_ticks`` ticks; 0 disables the audit), and the
+pipelined production loop:
+
+* ``pipeline_depth`` — dispatch tick i, emit tick i-depth, whose wire
+  copy has landed meanwhile; 0 is the serial (same-tick) loop;
+* ``donate`` — at depth <= 1 the ring planes are written in place instead
+  of cloned on every apply (the reference donates its state there);
+* ``early_emit`` — the live loop lands a dispatched tick's wire and emits
+  it as soon as the copy completes (``SignalEngine.emit_ready``);
+* ``numeric_digest`` / ``ingest_digest`` — the numeric-health and
+  ingest-health blocks ride the wire, judged against
+  ``numeric_nan_budget`` leaked rows and ``ingest_stale_budget`` stale
+  rows per tick;
+* ``drift_meter`` — every audit tick measures how far the carried
+  indicator state drifted from a fresh recompute, alarming past
+  ``drift_tol`` (scale-normalized).
 """
 
 from __future__ import annotations
@@ -18,9 +33,17 @@ from dataclasses import dataclass, field
 class Config:
     max_symbols: int = 2048
     window_bars: int = 400
-    pipeline_depth: int = 0
+    pipeline_depth: int = 1
+    donate: bool = True
+    early_emit: bool = True
     incremental: bool = True
     carry_audit_every_ticks: int = 256
+    numeric_digest: bool = True
+    numeric_nan_budget: int = 0
+    ingest_digest: bool = True
+    ingest_stale_budget: int = 0
+    drift_meter: bool = True
+    drift_tol: float = 0.05
     env: str = field(default_factory=lambda: os.environ.get("ENV", ""))
 
     @property

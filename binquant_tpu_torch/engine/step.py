@@ -1,13 +1,27 @@
 """The per-tick step: the live wire path on the card.
 
 Port of ``binquant_tpu/engine/step.py`` for the live wire step
-(``compute_all=False``, both digests off): apply the candle updates to the
-two rings, compute the feature packs, the market context, the BTC-relative
-block and the five live strategies for ALL symbols at once, and pack
-everything the host needs into ONE float32 wire — context scalars, a
-fixed-size compaction of the fired (strategy, row) pairs, a per-slot
-emission payload and the (3, S) calibration rows. The wire layout is the
+(``compute_all=False``): apply the candle updates to the two rings, compute
+the feature packs, the market context, the BTC-relative block and the five
+live strategies for ALL symbols at once, and pack everything the host needs
+into ONE float32 wire — context scalars, a fixed-size compaction of the
+fired (strategy, row) pairs, a per-slot emission payload, the (3, S)
+calibration rows and, behind their flags, the numeric-health digest and the
+ingest-health digest (in that order, strictly after the calibration rows,
+so every earlier offset is the same either way). The wire layout is the
 reference's, so :func:`unpack_wire` decodes either package's wire.
+
+The step has a copying form (the default: the rings are cloned before the
+scatter, the input state is left untouched) and an in-place form
+(``inplace=True``, :func:`tick_step_wire_inplace` and the folds' ``inplace``
+argument): the scatter writes the input state's ring planes, as the
+reference donates its state at ``pipeline_depth <= 1``. A caller of the
+in-place form must not read the input state's rings as pre-tick data
+afterwards.
+
+Off the step, :func:`measure_carry_drift` is the audit tick's carry-drift
+meter: the carried indicator state advanced by the tick's updates against a
+fresh init from the post-update windows, per family.
 
 Two paths, chosen by the host per tick:
 
@@ -37,11 +51,16 @@ import torch
 from binquant_tpu_torch.engine.buffer import (
     Field,
     MarketBuffer,
+    UpdateRouting,
+    _scatter_updates,
     apply_updates,
+    apply_updates_routed,
     empty_buffer,
     fresh_mask,
     materialize,
     materialize_tail,
+    ring_latest_times,
+    route_updates,
 )
 from binquant_tpu_torch.ops.incremental import (
     BetaCorrCarry,
@@ -51,6 +70,8 @@ from binquant_tpu_torch.ops.incremental import (
     beta_corr_value,
     empty_beta_corr_carry,
     empty_supertrend_carry,
+    moment_mean,
+    moment_std,
     supertrend_advance,
     supertrend_init,
     tree_where,
@@ -192,11 +213,17 @@ _WIRE_TS_BASE = 65536
 WIRE_FIRED_COUNT_OFF = len(WIRE_SCALARS_A) + len(WIRE_SCALARS_B) + 4
 
 
-def wire_length(num_symbols: int) -> int:
-    """Length of the classic wire for ``num_symbols`` rows."""
+def wire_length(
+    num_symbols: int, numeric_digest: bool = False, ingest_digest: bool = False
+) -> int:
+    """Length of one tick's wire for ``num_symbols`` rows: scalars, the
+    fired compaction, the per-slot payload, the (3, S) calibration rows,
+    and each digest block whose flag is on."""
     return (
         WIRE_FIRED_COUNT_OFF + 1 + 6 * WIRE_MAX_FIRED
         + WIRE_MAX_FIRED * EMISSION_SLOT_WIDTH + 3 * num_symbols
+        + (NUMERIC_DIGEST_WIDTH if numeric_digest else 0)
+        + (INGEST_DIGEST_WIDTH if ingest_digest else 0)
     )
 
 
@@ -360,10 +387,12 @@ def init_indicator_carry(
     buf15: MarketBuffer,
     btc_row: torch.Tensor,
     params=None,
+    site: str = "abp_init_from_window",
 ) -> IndicatorCarry:
     """The carry rebuilt from both windows (what every full tick emits).
     A ``btc_row`` of -1 leaves the beta/corr pair sums empty (readouts 0,
-    the full kernel's no-BTC fill)."""
+    the full kernel's no-BTC fill). ``site`` labels the ABP init's qtail
+    launch (the drift meter's fresh init counts as ``carry_drift``)."""
     sp = resolve_params(params)
     S = buf15.capacity
     dev = buf15.times.device
@@ -379,7 +408,7 @@ def init_indicator_carry(
     return IndicatorCarry(
         pack5=init_feature_carry(buf5),
         pack15=init_feature_carry(buf15),
-        abp5=abp_init_from_window(buf5, sp.abp),
+        abp5=abp_init_from_window(buf5, sp.abp, site=site),
         lsp15=lsp_init_from_window(buf15, sp.lsp),
         st5=supertrend_init(
             buf5.values[:, :, Field.HIGH],
@@ -567,6 +596,362 @@ def _compact_fired(flat_trig: torch.Tensor, K: int) -> torch.Tensor:
     return idx[:K]
 
 
+# --- numeric-health digest ---------------------------------------------------
+# Per-stage NaN/Inf row counts among rows whose sufficiency gates promise
+# finite values, per-strategy non-finite and fired counts, min/max/absmax of
+# key series, and the gate-margin tail: one gate-margin distance per
+# strategy plus the regime-score top1-top2 spread. Appended after the
+# calibration rows when ``numeric_digest`` is on.
+NUMERIC_STAGES: tuple[str, ...] = ("features5", "features15", "indicators")
+NUMERIC_SERIES: tuple[str, ...] = ("close5", "close15", "volume5", "volume15", "score")
+NUMERIC_DIGEST_WIDTH = (
+    2 * len(NUMERIC_STAGES)
+    + 2 * len(STRATEGY_ORDER)
+    + 3 * len(NUMERIC_SERIES)
+    + len(STRATEGY_ORDER)
+    + 1
+)
+
+
+def numeric_digest_layout() -> list[str]:
+    """Field names of the numeric digest block, in wire order."""
+    names: list[str] = []
+    for stage in NUMERIC_STAGES:
+        names += [f"{stage}.nan_rows", f"{stage}.inf_rows"]
+    names += [f"nonfinite.{s}" for s in STRATEGY_ORDER]
+    names += [f"fired.{s}" for s in STRATEGY_ORDER]
+    for series in NUMERIC_SERIES:
+        names += [f"{series}.min", f"{series}.max", f"{series}.absmax"]
+    names += [f"margin.{s}" for s in STRATEGY_ORDER]
+    names += ["margin.market_regime"]
+    return names
+
+
+def _count(mask: torch.Tensor) -> torch.Tensor:
+    """A bool count as a float32 scalar (exact below 2**24)."""
+    return mask.sum().to(F32)
+
+
+def _series_stats(x: torch.Tensor, mask: torch.Tensor) -> list[torch.Tensor]:
+    """(min, max, absmax) over ``mask``-selected finite entries; NaN when
+    nothing qualifies."""
+    m = mask & torch.isfinite(x)
+    any_m = m.any()
+    nan = float("nan")
+    return [
+        torch.where(any_m, torch.where(m, x, float("inf")).min(), nan).to(F32),
+        torch.where(any_m, torch.where(m, x, float("-inf")).max(), nan).to(F32),
+        torch.where(any_m, torch.where(m, torch.abs(x), 0.0).max(), nan).to(F32),
+    ]
+
+
+def _margin_min(prox: torch.Tensor, eligible: torch.Tensor) -> torch.Tensor:
+    m = eligible & torch.isfinite(prox)
+    mn = torch.where(m, prox, float("inf")).min()
+    return torch.where(m.any(), mn, float("nan")).to(F32)
+
+
+def _numeric_digest_block(
+    pack5: FeaturePack,
+    pack15: FeaturePack,
+    summary: TriggerSummary,
+    btc_beta: torch.Tensor,
+    btc_corr: torch.Tensor,
+    tracked: torch.Tensor,
+    ok5: torch.Tensor,
+    ok15: torch.Tensor,
+    fresh5: torch.Tensor,
+    fresh15: torch.Tensor,
+    beta_expected_nan: torch.Tensor,
+    wire_fields_only: bool = False,
+    sp=None,
+    context: MarketContext | None = None,
+) -> torch.Tensor:
+    """The (NUMERIC_DIGEST_WIDTH,) float32 numeric-health block.
+
+    NaN/Inf rows are counted only where tracked rows pass ``filled >=
+    MIN_BARS`` (warm-up NaN is by design, a NaN past the gate is leakage);
+    ``beta_expected_nan`` masks the incremental path's dirty/stale beta rows,
+    which decode NaN on purpose. ``wire_fields_only`` (a classic deployment's
+    ticks) scans only the pack fields the wire's payload carries; every
+    other tick scans the twelve gated fields."""
+    suff5 = tracked & ok5
+    suff15 = tracked & ok15
+
+    def stage_counts(fields, sufficient):
+        nan_any = torch.zeros_like(sufficient)
+        inf_any = torch.zeros_like(sufficient)
+        for f in fields:
+            nan_any = nan_any | torch.isnan(f)
+            inf_any = inf_any | torch.isinf(f)
+        return [_count(nan_any & sufficient), _count(inf_any & sufficient)]
+
+    def pack_fields(pack):
+        if wire_fields_only:
+            return (pack.close, pack.volume, pack.bb_upper, pack.bb_mid, pack.bb_lower)
+        # quote volume is left out: feeds legitimately omit it
+        return (
+            pack.close, pack.volume, pack.rsi, pack.mfi, pack.macd, pack.macd_signal,
+            pack.bb_upper, pack.bb_mid, pack.bb_lower, pack.atr, pack.ema9, pack.ema21,
+        )
+
+    out: list[torch.Tensor] = []
+    out += stage_counts(pack_fields(pack5), suff5)
+    out += stage_counts(pack_fields(pack15), suff15)
+    ind_mask = suff15 & ~beta_expected_nan
+    out += [
+        _count((torch.isnan(btc_beta) | torch.isnan(btc_corr)) & ind_mask),
+        _count((torch.isinf(btc_beta) | torch.isinf(btc_corr)) & ind_mask),
+    ]
+    for k, name in enumerate(STRATEGY_ORDER):
+        gate = suff5 & fresh5 if name in FIVE_MIN_STRATEGIES else suff15 & fresh15
+        bad = ~torch.isfinite(summary.score[k]) | ~torch.isfinite(summary.stop_loss_pct[k])
+        out.append(_count(bad & gate))
+    for k in range(len(STRATEGY_ORDER)):
+        out.append(_count(summary.trigger[k]))
+    out += _series_stats(pack5.close, suff5)
+    out += _series_stats(pack15.close, suff15)
+    out += _series_stats(pack5.volume, suff5)
+    out += _series_stats(pack15.volume, suff15)
+    out += _series_stats(summary.score, torch.broadcast_to(tracked, summary.score.shape))
+
+    # gate-margin tail: per strategy, the least distance between a gated
+    # indicator and its threshold over eligible rows (NaN when none is)
+    spv = resolve_params(sp)
+    elig5 = suff5 & fresh5
+    elig15 = suff15 & fresh15
+    margins = {
+        "coinrule_price_tracker": _margin_min(
+            torch.minimum(
+                torch.abs(pack5.rsi - spv.pt.rsi_oversold),
+                torch.abs(pack5.mfi - spv.pt.mfi_oversold),
+            ),
+            elig5,
+        ),
+        "mean_reversion_fade": _margin_min(
+            torch.minimum(
+                torch.abs(pack15.rsi_wilder - spv.mrf.rsi_long_max),
+                torch.abs(pack15.rsi_wilder - spv.mrf.rsi_short_min),
+            ),
+            elig15,
+        ),
+        # inverse_price_tracker keeps the reference's baked constants
+        "inverse_price_tracker": _margin_min(
+            torch.minimum(torch.abs(pack5.rsi - 30.0), torch.abs(pack5.mfi - 20.0)),
+            elig5,
+        ),
+    }
+    nan32 = torch.full((), float("nan"), dtype=F32, device=tracked.device)
+    for name in STRATEGY_ORDER:
+        out.append(margins.get(name, nan32))
+    if context is not None:
+        scores = torch.stack(
+            [
+                context.long_regime_score, context.short_regime_score,
+                context.range_regime_score, context.stress_regime_score,
+            ]
+        ).to(F32)
+        top2 = torch.topk(scores, 2).values
+        # the reference's top_k ranks NaN first, so any NaN score spreads
+        # to NaN; held explicitly, whatever the device's topk does with NaN
+        out.append(torch.where(torch.isnan(scores).any(), nan32, top2[0] - top2[1]))
+    else:
+        out.append(nan32)
+    return torch.stack(out)
+
+
+def decode_numeric_digest(block) -> dict:
+    """Host-side decode of one tick's numeric digest block into a nested
+    dict; non-finite series stats and margins decode to None."""
+    vec = np.asarray(block, dtype=np.float64)
+    if vec.shape != (NUMERIC_DIGEST_WIDTH,):
+        raise ValueError(f"numeric digest block of shape {vec.shape}")
+    i = 0
+    nan_rows: dict[str, int] = {}
+    inf_rows: dict[str, int] = {}
+    for stage in NUMERIC_STAGES:
+        nan_rows[stage] = int(vec[i])
+        inf_rows[stage] = int(vec[i + 1])
+        i += 2
+    nonfinite = {}
+    for name in STRATEGY_ORDER:
+        nonfinite[name] = int(vec[i])
+        i += 1
+    fired = {}
+    for name in STRATEGY_ORDER:
+        fired[name] = int(vec[i])
+        i += 1
+    series = {}
+    for name in NUMERIC_SERIES:
+        mn, mx, am = vec[i], vec[i + 1], vec[i + 2]
+        series[name] = {
+            "min": None if mn != mn else float(mn),
+            "max": None if mx != mx else float(mx),
+            "absmax": None if am != am else float(am),
+        }
+        i += 3
+    margin: dict[str, float | None] = {}
+    for name in [*STRATEGY_ORDER, "market_regime"]:
+        v = vec[i]
+        margin[name] = None if v != v else float(v)
+        i += 1
+    return {
+        "nan_rows": nan_rows,
+        "inf_rows": inf_rows,
+        "strategy_nonfinite": nonfinite,
+        "fired": fired,
+        "series": series,
+        "margin": margin,
+        "nan_total": sum(nan_rows.values()) + sum(nonfinite.values()),
+        "inf_total": sum(inf_rows.values()),
+    }
+
+
+# --- ingest-health digest ----------------------------------------------------
+# Per interval: staleness buckets (tracked rows whose newest bar is at least
+# 1x/3x/10x the interval behind the evaluated bucket), the stalest row's age,
+# the coverage funnel (covered, >= MIN_BARS, fresh), and the tick's
+# append/rewrite/gap/drop routing counts summed over EVERY sub-batch the
+# tick applied (the counted folds carry the fold slots' counts in). Appended
+# after the numeric digest when ``ingest_digest`` is on. Every entry is an
+# exact integer reduction cast to float32, so every backend gives the same
+# bits.
+FIVE_MIN_S = 300
+FIFTEEN_MIN_S = 900
+INGEST_INTERVALS: tuple[str, ...] = ("5m", "15m")
+INGEST_STAT_FIELDS: tuple[str, ...] = (
+    "stale_1x", "stale_3x", "stale_10x", "max_age_s", "covered", "min_bars", "fresh",
+)
+INGEST_COUNT_FIELDS: tuple[str, ...] = ("appends", "rewrites", "gap_appends", "dropped")
+INGEST_DIGEST_WIDTH = 1 + len(INGEST_INTERVALS) * (
+    len(INGEST_STAT_FIELDS) + len(INGEST_COUNT_FIELDS)
+)
+
+
+def ingest_digest_layout() -> list[str]:
+    """Field names of the ingest digest block, in wire order."""
+    names = ["tracked"]
+    for interval in INGEST_INTERVALS:
+        names += [f"{interval}.{f}" for f in INGEST_STAT_FIELDS]
+        names += [f"{interval}.{f}" for f in INGEST_COUNT_FIELDS]
+    return names
+
+
+def _ingest_interval_stats(
+    latest_ts: torch.Tensor,  # (S,) int32 newest bar open time, -1 empty
+    filled: torch.Tensor,  # (S,) int32
+    tracked: torch.Tensor,  # (S,) bool
+    eval_ts: torch.Tensor,  # int32 scalar: the evaluated bucket's open time
+    interval_s: int,
+) -> list[torch.Tensor]:
+    """The 7 per-interval staleness/coverage scalars of the POST-update
+    ring. A row's age is ``eval_ts - latest_ts``: a fresh row has age 0, a
+    row one bar behind exactly ``interval_s`` (neither is stale);
+    ``max_age_s`` is NaN when no tracked row holds data."""
+    covered = tracked & (filled > 0)
+    age = torch.where(covered, eval_ts - latest_ts, 0).to(I32)
+    max_age = torch.where(covered, age, 0).max().to(F32)
+    min_bars = tracked & (filled >= MIN_BARS)
+    fresh = min_bars & (latest_ts == eval_ts)
+    return [
+        _count(covered & (age > 1 * interval_s)),
+        _count(covered & (age > 3 * interval_s)),
+        _count(covered & (age > 10 * interval_s)),
+        torch.where(covered.any(), max_age, float("nan")).to(F32),
+        _count(covered),
+        _count(min_bars),
+        _count(fresh),
+    ]
+
+
+def _ingest_counts_from_routing(
+    r: UpdateRouting,
+    filled: torch.Tensor,  # (S,) int32 PRE-update fill counts
+    interval_s: int,
+) -> torch.Tensor:
+    """(4,) float32 ``(appends, rewrites, gap_appends, dropped)`` of one
+    routed batch. A gap append is a new bar more than one interval past the
+    row's previous newest bar; a dropped update is a mid-history insert the
+    apply discards."""
+    dropped = r.has_update & ~r.is_append & ~r.is_rewrite
+    gap = r.is_append & (filled > 0) & (r.upd_ts - r.last_ts > interval_s)
+    return torch.stack([_count(r.is_append), _count(r.is_rewrite), _count(gap), _count(dropped)])
+
+
+def _ingest_batch_counts(
+    buf: MarketBuffer, row_idx: torch.Tensor, ts: torch.Tensor, interval_s: int
+) -> torch.Tensor:
+    """(4,) batch counts classified against the PRE-update ring through the
+    same :func:`route_updates` the apply resolves — for callers that do not
+    apply the batch; the step and the folds share one routing instead."""
+    return _ingest_counts_from_routing(route_updates(buf, row_idx, ts), buf.filled, interval_s)
+
+
+def _ingest_digest_block(
+    tracked: torch.Tensor,
+    stats5: list,
+    stats15: list,
+    counts5: torch.Tensor,
+    counts15: torch.Tensor,
+) -> torch.Tensor:
+    """The (INGEST_DIGEST_WIDTH,) float32 block in layout order."""
+    return torch.cat(
+        [torch.stack([_count(tracked)] + stats5), counts5, torch.stack(stats15), counts15]
+    )
+
+
+def decode_ingest_digest(block) -> dict:
+    """Host-side decode of one tick's ingest digest block; ``max_age_s``
+    decodes NaN to None (no tracked row holds data)."""
+    vec = np.asarray(block, dtype=np.float64)
+    if vec.shape != (INGEST_DIGEST_WIDTH,):
+        raise ValueError(f"ingest digest block of shape {vec.shape}")
+    out: dict = {"tracked": int(vec[0])}
+    i = 1
+    for interval in INGEST_INTERVALS:
+        sect: dict = {}
+        for f in INGEST_STAT_FIELDS:
+            v = vec[i]
+            if f == "max_age_s":
+                sect[f] = None if v != v else float(v)
+            else:
+                sect[f] = int(v)
+            i += 1
+        for f in INGEST_COUNT_FIELDS:
+            sect[f] = int(vec[i])
+            i += 1
+        out[interval] = sect
+    out["stale_total"] = out["5m"]["stale_1x"] + out["15m"]["stale_1x"]
+    return out
+
+
+def _ingest_pair_counts(state: EngineState, upd5, upd15) -> torch.Tensor:
+    """(8,) float32: both intervals' batch counts, 5m first."""
+    return torch.cat(
+        [
+            _ingest_batch_counts(state.buf5, upd5[0], upd5[1], FIVE_MIN_S),
+            _ingest_batch_counts(state.buf15, upd15[0], upd15[1], FIFTEEN_MIN_S),
+        ]
+    )
+
+
+def _counted_fold_bufs(state: EngineState, upd5, upd15, counts, inplace: bool = False):
+    """One routing per ring feeds both the count reductions and the apply
+    scatter. Returns ``(buf5, buf15, counts)`` with the (8,) accumulator
+    advanced."""
+    r5, uv5 = _scatter_updates(state.buf5, *upd5)
+    r15, uv15 = _scatter_updates(state.buf15, *upd15)
+    counts = counts + torch.cat(
+        [
+            _ingest_counts_from_routing(r5, state.buf5.filled, FIVE_MIN_S),
+            _ingest_counts_from_routing(r15, state.buf15.filled, FIFTEEN_MIN_S),
+        ]
+    )
+    buf5 = apply_updates_routed(state.buf5, r5, uv5, inplace)
+    buf15 = apply_updates_routed(state.buf15, r15, uv15, inplace)
+    return buf5, buf15, counts
+
+
 def pack_wire(
     context: MarketContext,
     strategies: dict[str, StrategyOutputs],
@@ -578,10 +963,13 @@ def pack_wire(
     btc_change_96: torch.Tensor,
     bc_dirty_rows: torch.Tensor,
     wire_enabled: tuple[str, ...],
+    digest: torch.Tensor | None = None,
+    ingest: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Pack one tick's evaluation into the single float32 wire: context
     scalars + fired compaction + per-slot emission payload + the (3, S)
-    calibration block. Records the emission layout for ``wire_enabled``."""
+    calibration block, then the numeric ``digest`` and the ``ingest``
+    digest where given. Records the emission layout for ``wire_enabled``."""
     S = summary.trigger.shape[1]
     dev = summary.trigger.device
     scalar_values = {
@@ -692,15 +1080,18 @@ def pack_wire(
             context.features.atr_pct.to(F32),
         ]
     )  # (3, S)
-    return torch.cat(
-        [
-            scalars,
-            n_fired[None],
-            fired_block.reshape(-1),
-            slot_payload.reshape(-1),
-            calib_block.reshape(-1),
-        ]
-    )
+    parts = [
+        scalars,
+        n_fired[None],
+        fired_block.reshape(-1),
+        slot_payload.reshape(-1),
+        calib_block.reshape(-1),
+    ]
+    if digest is not None:
+        parts.append(digest.to(F32))
+    if ingest is not None:
+        parts.append(ingest.to(F32))
+    return torch.cat(parts)
 
 
 def _tick_step_impl(
@@ -713,6 +1104,10 @@ def _tick_step_impl(
     incremental: bool = False,
     maintain_carry: bool = True,
     params=None,
+    numeric_digest: bool = False,
+    ingest_digest: bool = False,
+    ingest_fold_counts: torch.Tensor | None = None,
+    inplace: bool = False,
 ) -> tuple[EngineState, TickOutputs]:
     """One tick: apply the (row_idx, ts_s, vals) update batches, evaluate,
     pack the wire.
@@ -728,10 +1123,29 @@ def _tick_step_impl(
 
     Only the strategies in ``wire_enabled`` are evaluated, except the two
     carry-owning ones (PriceTracker, MeanReversionFade), which always run so
-    their device dedupe state advances identically whatever is enabled."""
+    their device dedupe state advances identically whatever is enabled.
+
+    ``numeric_digest`` and ``ingest_digest`` append their blocks to the
+    wire; both off, the wire is the pre-digest layout bit for bit.
+    ``ingest_fold_counts`` ((8,) float32 or None) carries the counts of the
+    fold sub-batches the caller applied before this batch, so the ingest
+    digest covers the whole drain. ``inplace`` writes the input state's ring
+    planes instead of cloning them (see the module docstring)."""
     sp = resolve_params(params)
-    ring5 = apply_updates(state.buf5, *upd5)
-    ring15 = apply_updates(state.buf15, *upd15)
+    if ingest_digest:
+        # one routing per ring feeds both the digest's counts and the apply
+        r5, uv5 = _scatter_updates(state.buf5, *upd5)
+        r15, uv15 = _scatter_updates(state.buf15, *upd15)
+        icnt5 = _ingest_counts_from_routing(r5, state.buf5.filled, FIVE_MIN_S)
+        icnt15 = _ingest_counts_from_routing(r15, state.buf15.filled, FIFTEEN_MIN_S)
+        if ingest_fold_counts is not None:
+            icnt5 = icnt5 + ingest_fold_counts[:4]
+            icnt15 = icnt15 + ingest_fold_counts[4:]
+        ring5 = apply_updates_routed(state.buf5, r5, uv5, inplace)
+        ring15 = apply_updates_routed(state.buf15, r15, uv15, inplace)
+    else:
+        ring5 = apply_updates(state.buf5, *upd5, inplace=inplace)
+        ring15 = apply_updates(state.buf15, *upd15, inplace=inplace)
     # the incremental tick gathers a shallow tail and keeps the rings
     # mid-phase; the full tick gathers whole windows and its returned
     # rings are canonical (cursor 0)
@@ -883,9 +1297,42 @@ def _tick_step_impl(
         }
     )
     summary = build_summary(strategies)
+    digest = ingest_block = None
+    if numeric_digest:
+        # the incremental path's dirty/stale beta rows decode NaN on purpose
+        beta_expected_nan = (
+            indicator_carry.bc_dirty | stale15
+            if incremental
+            else torch.zeros((S,), dtype=torch.bool, device=dev)
+        )
+        digest = _numeric_digest_block(
+            pack5, pack15, summary, btc_beta, btc_corr,
+            inputs.tracked, ok5, ok15, fresh5, fresh15, beta_expected_nan,
+            # a classic deployment's ticks scan only the wire's pack fields;
+            # an incremental deployment's full ticks resync the carry and
+            # keep the twelve-field scan
+            wire_fields_only=not incremental and not maintain_carry,
+            sp=sp,
+            context=context,
+        )
+    if ingest_digest:
+        ingest_block = _ingest_digest_block(
+            inputs.tracked,
+            _ingest_interval_stats(
+                ring_latest_times(ring5), ring5.filled, inputs.tracked,
+                inputs.timestamp5_s, FIVE_MIN_S,
+            ),
+            _ingest_interval_stats(
+                ring_latest_times(ring15), ring15.filled, inputs.tracked,
+                inputs.timestamp_s, FIFTEEN_MIN_S,
+            ),
+            icnt5,
+            icnt15,
+        )
     wire = pack_wire(
         context, strategies, summary, pack5, pack15,
         btc_beta, btc_corr, btc_change_96, bc_dirty_rows, tuple(wire_enabled),
+        digest=digest, ingest=ingest_block,
     )
     new_state = EngineState(
         buf5=ring5,
@@ -922,11 +1369,14 @@ def tick_step(
     incremental: bool = False,
     maintain_carry: bool = True,
     params=None,
+    numeric_digest: bool = False,
+    ingest_digest: bool = False,
+    ingest_fold_counts: torch.Tensor | None = None,
 ) -> tuple[EngineState, TickOutputs]:
-    """The step with every output (tests, overflow fallback)."""
+    """The copying step with every output (tests, overflow fallback)."""
     return _tick_step_impl(
         state, upd5, upd15, inputs, cfg, wire_enabled, incremental,
-        maintain_carry, params,
+        maintain_carry, params, numeric_digest, ingest_digest, ingest_fold_counts,
     )
 
 
@@ -940,34 +1390,61 @@ def tick_step_wire(
     incremental: bool = False,
     maintain_carry: bool = True,
     params=None,
+    numeric_digest: bool = False,
+    ingest_digest: bool = False,
+    ingest_fold_counts: torch.Tensor | None = None,
 ) -> tuple[EngineState, torch.Tensor]:
-    """The live engine's step: the same evaluation, only the wire returned."""
+    """The live engine's copying step: the same evaluation, only the wire
+    returned; the input state is left untouched."""
     new_state, outputs = _tick_step_impl(
         state, upd5, upd15, inputs, cfg, wire_enabled, incremental,
-        maintain_carry, params,
+        maintain_carry, params, numeric_digest, ingest_digest, ingest_fold_counts,
     )
     return new_state, outputs.wire
 
 
-def apply_updates_step(state: EngineState, upd5, upd15) -> EngineState:
+def tick_step_wire_inplace(
+    state: EngineState,
+    upd5,
+    upd15,
+    inputs: HostInputs,
+    cfg: ContextConfig = ContextConfig(),
+    wire_enabled: tuple[str, ...] = tuple(sorted(LIVE_STRATEGIES)),
+    incremental: bool = False,
+    maintain_carry: bool = True,
+    params=None,
+    numeric_digest: bool = False,
+    ingest_digest: bool = False,
+    ingest_fold_counts: torch.Tensor | None = None,
+) -> tuple[EngineState, torch.Tensor]:
+    """The live engine's in-place step (the counterpart of the reference's
+    donated ``tick_step_wire_donated``): the updates scatter into the input
+    state's ring planes, which the returned state goes on using until a
+    full tick gathers them canonically. The caller must not read the input
+    state's rings as pre-tick data afterwards; the small carries (regime,
+    dedupe, indicator) are produced functionally and stay readable."""
+    new_state, outputs = _tick_step_impl(
+        state, upd5, upd15, inputs, cfg, wire_enabled, incremental,
+        maintain_carry, params, numeric_digest, ingest_digest, ingest_fold_counts,
+        inplace=True,
+    )
+    return new_state, outputs.wire
+
+
+def apply_updates_step(
+    state: EngineState, upd5, upd15, inplace: bool = False
+) -> EngineState:
     """Update-only fold of one sub-batch pair (no evaluation). Leaves the
     indicator carry untouched: an incremental engine folds with
     :func:`apply_updates_carry_step` or marks the carry desynced."""
     return state._replace(
-        buf5=apply_updates(state.buf5, *upd5),
-        buf15=apply_updates(state.buf15, *upd15),
+        buf5=apply_updates(state.buf5, *upd5, inplace=inplace),
+        buf15=apply_updates(state.buf15, *upd15, inplace=inplace),
     )
 
 
-def apply_updates_carry_step(
-    state: EngineState, upd5, upd15, btc_row: torch.Tensor | int | None = None
-) -> EngineState:
-    """Sub-batch fold that ALSO advances every carried family, so a
-    multi-bar drain of clean appends (three 5m bars in one 15m tick) stays
-    on the incremental path. ``btc_row`` keeps the beta/corr pairing
-    advancing through the folds; None marks those rows dirty instead."""
-    buf5 = apply_updates(state.buf5, *upd5)
-    buf15 = apply_updates(state.buf15, *upd15)
+def _advance_folded(state: EngineState, buf5, buf15, btc_row) -> EngineState:
+    """The folded rings with the carry advanced by their newest bar."""
     row = torch.as_tensor(
         -1 if btc_row is None else btc_row, dtype=I32, device=buf15.times.device
     )
@@ -978,6 +1455,227 @@ def apply_updates_carry_step(
         row,
     )
     return state._replace(buf5=buf5, buf15=buf15, indicator_carry=carry)
+
+
+def apply_updates_carry_step(
+    state: EngineState,
+    upd5,
+    upd15,
+    btc_row: torch.Tensor | int | None = None,
+    inplace: bool = False,
+) -> EngineState:
+    """Sub-batch fold that ALSO advances every carried family, so a
+    multi-bar drain of clean appends (three 5m bars in one 15m tick) stays
+    on the incremental path. ``btc_row`` keeps the beta/corr pairing
+    advancing through the folds; None marks those rows dirty instead."""
+    buf5 = apply_updates(state.buf5, *upd5, inplace=inplace)
+    buf15 = apply_updates(state.buf15, *upd15, inplace=inplace)
+    return _advance_folded(state, buf5, buf15, btc_row)
+
+
+def apply_updates_step_counted(
+    state: EngineState, upd5, upd15, counts: torch.Tensor, inplace: bool = False
+) -> tuple[EngineState, torch.Tensor]:
+    """Counted twin of :func:`apply_updates_step`: also adds the sub-batch
+    pair's (8,) ingest counts, classified against the pre-fold rings, to
+    ``counts``."""
+    buf5, buf15, counts = _counted_fold_bufs(state, upd5, upd15, counts, inplace)
+    return state._replace(buf5=buf5, buf15=buf15), counts
+
+
+def apply_updates_carry_step_counted(
+    state: EngineState,
+    upd5,
+    upd15,
+    btc_row: torch.Tensor | int | None = None,
+    counts: torch.Tensor | None = None,
+    inplace: bool = False,
+) -> tuple[EngineState, torch.Tensor]:
+    """Counted twin of :func:`apply_updates_carry_step` (``counts`` None
+    starts from zeros)."""
+    if counts is None:
+        counts = torch.zeros((8,), dtype=F32, device=state.buf15.times.device)
+    buf5, buf15, counts = _counted_fold_bufs(state, upd5, upd15, counts, inplace)
+    return _advance_folded(state, buf5, buf15, btc_row), counts
+
+
+# --- the carry-drift meter ---------------------------------------------------
+# On an audit tick: the carried indicator state advanced by the tick's
+# updates (what the incremental path would read) against a fresh init from
+# the post-update windows (what the audit's resync installs), per family.
+
+DRIFT_FAMILIES: tuple[str, ...] = (
+    "ewm", "sums", "moments", "supertrend", "beta_corr", "abp_sorted", "lsp_sorted",
+)
+_EWM_LEAVES = (
+    "ema9", "ema21", "ema20", "ema50",
+    "macd_fast", "macd_slow", "macd_sig", "gain_w", "loss_w",
+)
+_SUM_LEAVES = ("gain_s", "loss_s", "pos_flow", "neg_flow")
+_MOMENT_LEAVES = ("close_m", "vol_m", "tr_m")
+
+
+def _ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float32 ULP distance through the ordered-integer mapping of the bit
+    patterns (adjacent floats differ by 1). A same-sign difference is taken
+    in exact int32 arithmetic; a cross-sign one, already huge, sums the
+    magnitudes in float32. Returned as float32."""
+
+    def ordered(x):
+        bits = x.to(F32).contiguous().view(torch.int32)
+        mag = bits & 0x7FFFFFFF
+        return torch.where(bits >= 0, bits, -mag)
+
+    ka, kb = ordered(a), ordered(b)
+    same_sign = (ka >= 0) == (kb >= 0)
+    # same sign: both keys in [0, 2**31) or both in (-2**31, 0], so the
+    # int32 difference cannot overflow
+    exact = torch.abs(ka - kb).to(F32)
+    crossed = torch.abs(ka.to(F32)) + torch.abs(kb.to(F32))
+    return torch.where(same_sign, exact, crossed)
+
+
+def _drift_of(pairs) -> dict[str, torch.Tensor]:
+    """Max-abs, scale-normalized and max-ULP drift over (carried, fresh,
+    mask) triples; only positions finite on BOTH sides compare. ``max_rel``
+    (what the alarm judges) is each leaf's max-abs drift over that leaf's
+    largest compared magnitude, maxed over the family's leaves."""
+    dev = pairs[0][0].device
+    zero = torch.zeros((), dtype=F32, device=dev)
+    max_abs, max_rel, max_ulp = zero, zero, zero
+    compared = torch.zeros((), dtype=I32, device=dev)
+    for c, f, m in pairs:
+        both = torch.broadcast_to(m, c.shape) & torch.isfinite(c) & torch.isfinite(f)
+        cf, ff = c.to(F32), f.to(F32)
+        leaf_abs = torch.where(both, torch.abs(cf - ff), 0.0).max()
+        max_abs = torch.maximum(max_abs, leaf_abs)
+        mag = torch.maximum(torch.abs(cf), torch.abs(ff))
+        leaf_scale = torch.where(both, mag, 0.0).max()
+        max_rel = torch.maximum(max_rel, leaf_abs / torch.clamp(leaf_scale, min=1e-30))
+        max_ulp = torch.maximum(max_ulp, torch.where(both, _ulp_distance(c, f), 0.0).max())
+        compared = compared + both.sum(dtype=I32)
+    return {"max_abs": max_abs, "max_rel": max_rel, "max_ulp": max_ulp, "compared": compared}
+
+
+def _carry_drift_impl(
+    state: EngineState, upd5, upd15, btc_row: torch.Tensor, params=None
+) -> dict[str, dict[str, torch.Tensor]]:
+    """Per-family drift between the carried state advanced by this tick's
+    updates and a fresh init from the post-update windows. Rows the advance
+    marked stale, dirty beta/corr rows and dirty ABP rows are left out:
+    their divergence is documented behaviour, not drift. The updates apply
+    through the COPYING form: the meter never writes the live rings."""
+    buf5 = materialize(apply_updates(state.buf5, *upd5))
+    buf15 = materialize(apply_updates(state.buf15, *upd15))
+
+    def canonical_tail(buf: MarketBuffer, width: int) -> MarketBuffer:
+        # buf is canonical already: its tail is a plain slice
+        width = min(width, buf.window)
+        return MarketBuffer(
+            times=buf.times[:, -width:], values=buf.values[:, -width:],
+            filled=buf.filled, cursor=buf.cursor,
+        )
+
+    tail = _advance_tail_floor(params)
+    carried, stale5, stale15 = advance_indicator_carry(
+        canonical_tail(buf5, tail), canonical_tail(buf15, tail),
+        state.indicator_carry, btc_row, params,
+    )
+    fresh = init_indicator_carry(buf5, buf15, btc_row, params, site="carry_drift")
+    live5 = ~stale5 & (buf5.filled > 0)
+    live15 = ~stale15 & (buf15.filled > 0)
+
+    ewm_pairs, sum_pairs, moment_pairs = [], [], []
+    for pc, pf, mask in ((carried.pack5, fresh.pack5, live5), (carried.pack15, fresh.pack15, live15)):
+        for name in _EWM_LEAVES:
+            c, f = getattr(pc, name), getattr(pf, name)
+            ewm_pairs.append((c.mean, f.mean, mask & (c.rel >= 0) & (f.rel >= 0)))
+        for name in _SUM_LEAVES:
+            c, f = getattr(pc, name), getattr(pf, name)
+            sum_pairs.append((c.wsum, f.wsum, mask & (c.cnt == f.cnt) & (c.cnt > 0)))
+        for name in _MOMENT_LEAVES:
+            c, f = getattr(pc, name), getattr(pf, name)
+            m = mask & (c.cnt == f.cnt) & (c.cnt > 0)
+            moment_pairs.append((moment_mean(c, 1, 1), moment_mean(f, 1, 1), m))
+            moment_pairs.append((moment_std(c, 1, 1), moment_std(f, 1, 1), m))
+
+    stc, stf = carried.st5, fresh.st5
+    st_mask = live5 & (stc.n_seen >= ST_WINDOW) & (stf.n_seen >= ST_WINDOW)
+    st_pairs = [
+        (stc.atr, stf.atr, st_mask),
+        (stc.final_upper, stf.final_upper, st_mask),
+        (stc.final_lower, stf.final_lower, st_mask),
+        (stc.direction, stf.direction, st_mask),
+    ]
+
+    cb, cc = beta_corr_value(carried.bc15, BC_WINDOW)
+    fb, fc = beta_corr_value(fresh.bc15, BC_WINDOW)
+    bc_mask = (
+        live15 & ~carried.bc_dirty
+        & (carried.bc15.cnt >= BC_WINDOW) & (fresh.bc15.cnt >= BC_WINDOW)
+    )
+    bc_pairs = [(cb, fb, bc_mask), (cc, fc, bc_mask)]
+
+    abpc, abpf = carried.abp5, fresh.abp5
+    abp_mask = live5 & ~abpc.dirty
+    abp_pairs = [
+        (c.sorted, f.sorted, (abp_mask & (c.cnt == f.cnt))[:, None])
+        for c, f in (
+            (abpc.vol_med, abpf.vol_med),
+            (abpc.qvol_med, abpf.qvol_med),
+            (abpc.score_q, abpf.score_q),
+        )
+    ]
+
+    lspc, lspf = carried.lsp15, fresh.lsp15
+    lsp_pairs = [
+        (
+            lspc.score_q.sorted, lspf.score_q.sorted,
+            (live15 & (lspc.score_q.cnt == lspf.score_q.cnt))[:, None],
+        ),
+        (lspc.prev_raw, lspf.prev_raw, live15),
+    ]
+    return {
+        "ewm": _drift_of(ewm_pairs),
+        "sums": _drift_of(sum_pairs),
+        "moments": _drift_of(moment_pairs),
+        "supertrend": _drift_of(st_pairs),
+        "beta_corr": _drift_of(bc_pairs),
+        "abp_sorted": _drift_of(abp_pairs),
+        "lsp_sorted": _drift_of(lsp_pairs),
+    }
+
+
+_DRIFT_FIELDS = ("max_abs", "max_rel", "max_ulp", "compared")
+
+
+def measure_carry_drift(state: EngineState, upd5, upd15, btc_row, params=None) -> dict:
+    """Host entry of the meter: ``{family: {"max_abs": float, "max_rel":
+    float, "max_ulp": int, "compared": int}}`` for every
+    :data:`DRIFT_FAMILIES` entry. The 28 scalars land in ONE device-to-host
+    copy (``compared`` rides bit for bit as int32 in the float32 vector)."""
+    dev = state.buf15.times.device
+    out = _carry_drift_impl(
+        state, upd5, upd15, torch.as_tensor(btc_row, dtype=I32, device=dev), params
+    )
+    flat = torch.stack(
+        [
+            out[fam][k] if k != "compared" else out[fam][k].reshape(1).view(F32)[0]
+            for fam in DRIFT_FAMILIES
+            for k in _DRIFT_FIELDS
+        ]
+    ).cpu().numpy()
+    counts = flat.view(np.int32)
+    result = {}
+    for i, fam in enumerate(DRIFT_FAMILIES):
+        base = i * len(_DRIFT_FIELDS)
+        result[fam] = {
+            "max_abs": float(flat[base]),
+            "max_rel": float(flat[base + 1]),
+            "max_ulp": int(flat[base + 2]),
+            "compared": int(counts[base + 3]),
+        }
+    return result
 
 
 class WireFired(NamedTuple):
@@ -994,9 +1692,22 @@ class WireFired(NamedTuple):
     payload: object = None
 
 
-def unpack_wire(wire) -> tuple[WireFired, dict]:
-    """Split one fetched wire into fired entries + context scalars."""
+def unpack_wire(
+    wire, numeric_digest: bool = False, ingest_digest: bool = False
+) -> tuple[WireFired, dict]:
+    """Split one fetched wire into fired entries + context scalars. With
+    ``ingest_digest`` the trailing ingest block is stripped into
+    ``ctx["ingest_digest"]`` first, then with ``numeric_digest`` the numeric
+    block into ``ctx["numeric_digest"]``, so the calibration rows are found
+    at the pre-digest layout."""
     w = np.asarray(wire)
+    ingest = digest = None
+    if ingest_digest:
+        ingest = w[-INGEST_DIGEST_WIDTH:]
+        w = w[:-INGEST_DIGEST_WIDTH]
+    if numeric_digest:
+        digest = w[-NUMERIC_DIGEST_WIDTH:]
+        w = w[:-NUMERIC_DIGEST_WIDTH]
     na, nb = len(WIRE_SCALARS_A), len(WIRE_SCALARS_B)
     a = w[:na]
     b = w[na : na + nb + 4]
@@ -1028,6 +1739,10 @@ def unpack_wire(wire) -> tuple[WireFired, dict]:
             ctx["calib_valid"] = calib[0] > 0.5
             ctx["calib_close"] = calib[1]
             ctx["calib_atr_pct"] = calib[2]
+    if digest is not None:
+        ctx["numeric_digest"] = digest
+    if ingest is not None:
+        ctx["ingest_digest"] = ingest
     fired = WireFired(
         n=n,
         overflow=n > K,

@@ -1,11 +1,35 @@
 """The signal engine: ingest → device tick → emission, on one card.
 
 A lean port of ``binquant_tpu/io/pipeline.py``'s ``SignalEngine`` for the
-live tick at ``pipeline_depth=0``. Candles accumulate in two
-:class:`IngestBatcher` s between ticks; ``process_tick`` drains them, folds
-every sub-batch but the last into the rings (:meth:`_fold_updates`), runs ONE
-wire step on the last, fetches the one float32 wire, and emits the fired
-rows through the sinks after the once-per-bar dedupe.
+live tick. Candles accumulate in two :class:`IngestBatcher` s between
+ticks; a tick drains them, folds every sub-batch but the last into the
+rings (:meth:`_fold_updates`), runs ONE wire step on the last, copies the
+one float32 wire to the host, and emits the fired rows through the sinks
+after the once-per-bar dedupe.
+
+The pipelined loop (``pipeline_depth``, production 1): ``process_tick``
+first finalizes in-flight ticks while ``depth`` (at least one) are pending,
+then dispatches the new tick, and at depth 0 finalizes that same tick. The
+dispatch starts the wire's copy into a pinned host buffer (a rotation of
+``depth + 1``, so a buffer is never overwritten before its tick is read)
+and records a CUDA event; finalize waits on the event and decodes. So at
+depth 1 the host never waits for the tick it just dispatched, and the host
+carries feeding tick i (grid-only policy) still lag one tick, as at depth
+0. ``flush_pending`` finalizes what is in flight; ``emit_ready`` lands the
+oldest in-flight tick now instead of at the next call. Nothing between
+dispatch and finalize reads the card: the overflow check, the digests and
+the monitors all read the landed wire.
+
+In-place rings (``donate``, production on): at depth <= 1 the folds and the
+wire step scatter into the rings' own planes (``inplace=True``) instead of
+cloning them, as the reference donates its state. A compaction overflow's
+fallback then re-evaluates from the POST-tick rings (the updates already
+landed) with empty update batches and the PRE-tick small carries (regime,
+dedupe, indicator carry — produced functionally, so the pre-tick tensors
+are simply kept). An exception after the tick's first in-place write (a
+ring plane's version counter moved) resets the engine cold; one before it
+leaves the state intact. Depth >= 2, or ``donate=False``, runs the copying
+step, whose fallback re-runs the tick from the pre-tick state.
 
 Routing (``incremental=True``, the production default): a tick runs the
 INCREMENTAL step, reading indicators from the carried state advanced by one
@@ -21,6 +45,14 @@ folds advance the carry too, so a multi-bar drain stays incremental. With
 ``incremental=False`` every tick is the classic full step and no carry is
 maintained.
 
+Observability on the wire: with ``numeric_digest`` and ``ingest_digest`` the
+wire carries both digest blocks, decoded at finalize into
+:class:`NumericHealthMonitor` and :class:`IngestHealthMonitor`; the ingest
+counts cover every folded sub-batch (the counted folds). With
+``drift_meter`` every audit tick first measures the carry's drift against a
+fresh init (:func:`measure_carry_drift`, on a functional copy that never
+touches ``self.state``) into :class:`DriftMeter`.
+
 Host carries feeding the step: the grid-only policy (resolved from the
 previous tick's regime and the breadth series), the London quiet window of
 the evaluated tick's clock, and the breadth scalars of a static breadth
@@ -30,8 +62,11 @@ shapes follow the reference engine, ``async def process_tick`` included.
 
 from __future__ import annotations
 
+import asyncio
+import logging
 import math
 import time
+from collections import deque
 from datetime import datetime, timezone
 from typing import Any, NamedTuple
 
@@ -53,13 +88,19 @@ from binquant_tpu_torch.engine.step import (
     MIN_INCR_ENGINE_WINDOW,
     HostInputs,
     apply_updates_carry_step,
+    apply_updates_carry_step_counted,
     apply_updates_step,
+    apply_updates_step_counted,
     initial_engine_state,
+    measure_carry_drift,
     tick_step,
     tick_step_wire,
+    tick_step_wire_inplace,
     unpack_wire,
 )
 from binquant_tpu_torch.io.emission import RecordingSinks, extract_fired
+from binquant_tpu_torch.obs.ingest import IngestHealthMonitor
+from binquant_tpu_torch.obs.numeric import DriftMeter, NumericHealthMonitor
 from binquant_tpu_torch.regime.context import ContextConfig
 from binquant_tpu_torch.regime.grid_policy import GridOnlyPolicy
 from binquant_tpu_torch.regime.time_filter import is_quiet_hours
@@ -94,7 +135,11 @@ def breadth_scalars(
 
 
 class _PendingTick(NamedTuple):
-    wire: torch.Tensor
+    """A dispatched tick whose wire has not been read yet."""
+
+    wire: torch.Tensor  # on the engine's device
+    host: torch.Tensor  # its host copy: a pinned buffer on a card, else the wire
+    ready: Any  # torch.cuda.Event recorded after the copy (None on the CPU)
     fallback: Any  # () -> TickOutputs, for a compaction overflow
     ts_ms: int
     ts5: int
@@ -104,7 +149,8 @@ class _PendingTick(NamedTuple):
 
 
 class SignalEngine:
-    """Owns the device state and drives classic ticks from queued klines."""
+    """Owns the device state and drives the pipelined tick loop from queued
+    klines."""
 
     def __init__(
         self,
@@ -116,15 +162,16 @@ class SignalEngine:
         context_config: ContextConfig = ContextConfig(),
         btc_symbol: str = "BTCUSDT",
         enabled_strategies: set[str] | None = None,
-        pipeline_depth: int = 0,
+        pipeline_depth: int | None = None,
         breadth: dict | None = None,
         market_type: str = "FUTURES",
         exchange: str = "binance",
     ) -> None:
         self.device = resolve_device(device)
-        if int(pipeline_depth) != 0:
-            raise ValueError("this engine runs the serial path only (pipeline_depth=0)")
         self.config = config or Config()
+        depth = self.config.pipeline_depth if pipeline_depth is None else pipeline_depth
+        if int(depth) < 0:
+            raise ValueError(f"pipeline_depth {depth} < 0")
         self.sinks = sinks if sinks is not None else RecordingSinks()
         self.capacity = int(self.config.max_symbols)
         self.window = int(window if window is not None else self.config.window_bars)
@@ -137,7 +184,17 @@ class SignalEngine:
         self.enabled_strategies = (
             None if enabled_strategies is None else frozenset(enabled_strategies)
         )
-        self.pipeline_depth = 0
+        self.pipeline_depth = int(depth)
+        # dispatched ticks not finalized yet, oldest first
+        self._pending: deque[_PendingTick] = deque()
+        self.donate = bool(self.config.donate)
+        # the pinned host buffers the wire copies land in, and the next one
+        self._wire_bufs: list[torch.Tensor] | None = None
+        self._wire_slot = 0
+        self._empty: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None
+        self.inplace_ticks = 0
+        self.overflow_ticks = 0
+        self.state_resets = 0
         self.market_type = market_type
         self.exchange = exchange
         self._breadth_payload = breadth
@@ -172,9 +229,21 @@ class SignalEngine:
         self.incremental_ticks = 0
         self.full_recompute_ticks = 0
         self.full_recompute_reasons: dict[str, int] = {}
-        # the last tick's path: "incremental", the full recompute's
-        # reason, or "classic" on a classic engine
+        # the last dispatched tick's path: "incremental", the full
+        # recompute's reason, or "classic" on a classic engine
         self.last_path: str | None = None
+        # -- the wire digests and the carry-drift meter
+        self.numeric_digest = bool(self.config.numeric_digest)
+        self.ingest_digest = bool(self.config.ingest_digest)
+        self.numeric = NumericHealthMonitor(nan_budget=self.config.numeric_nan_budget)
+        self.ingest_monitor = IngestHealthMonitor(
+            enabled=self.ingest_digest, stale_budget=self.config.ingest_stale_budget
+        )
+        # the (8,) ingest counts of this tick's folds, on the device
+        self._ingest_fold_counts: torch.Tensor | None = None
+        # a classic engine has no carry to drift
+        self.drift_meter_enabled = bool(self.config.drift_meter) and self.incremental
+        self.drift = DriftMeter(tol=self.config.drift_tol)
 
     # -- ingest ---------------------------------------------------------------
 
@@ -196,39 +265,74 @@ class SignalEngine:
         )
 
     def _empty_updates(self):
-        return self._to_device(
-            (np.zeros(0, np.int32), np.zeros(0, np.int32),
-             np.zeros((0, NUM_FIELDS), np.float32))
-        )
+        if self._empty is None:
+            self._empty = self._to_device(
+                (np.zeros(0, np.int32), np.zeros(0, np.int32),
+                 np.zeros((0, NUM_FIELDS), np.float32))
+            )
+        return self._empty
+
+    def _slot_pairs(self, batches5: list, batches15: list) -> list[tuple]:
+        """The drain's (upd5, upd15) sub-batch pairs on the device, in apply
+        order; the shorter interval pads with empty batches."""
+        empty = self._empty_updates()
+        upd5 = [self._to_device(b) for b in batches5] or [empty]
+        upd15 = [self._to_device(b) for b in batches15] or [empty]
+        n = max(len(upd5), len(upd15))
+        return [
+            (upd5[i] if i < len(upd5) else empty, upd15[i] if i < len(upd15) else empty)
+            for i in range(n)
+        ]
 
     def _fold_updates(
         self,
-        batches5: list,
-        batches15: list,
+        pairs: list[tuple],
         advance_carry: bool = False,
         btc_row: int = -1,
+        inplace: bool = False,
     ):
         """Apply all but the FINAL sub-batch pair without evaluating
         (ordered replay — evaluating each would advance the dedupe carries
         and discard earlier signals); return the final pair to evaluate.
         ``advance_carry`` folds with the carry-advancing step (only when the
         caller found every sub-batch a clean append); ``btc_row`` keeps the
-        beta/corr pairing advancing through those folds."""
-        empty = self._empty_updates()
-        upd5 = [self._to_device(b) for b in batches5] or [empty]
-        upd15 = [self._to_device(b) for b in batches15] or [empty]
-        n = max(len(upd5), len(upd15))
-        for i in range(n - 1):
-            a = upd5[i] if i < len(upd5) else empty
-            b = upd15[i] if i < len(upd15) else empty
-            if advance_carry:
-                self.state = apply_updates_carry_step(self.state, a, b, btc_row=btc_row)
+        beta/corr pairing advancing through those folds. With the ingest
+        digest on, the counted folds add each pair's ingest counts to the
+        accumulator the evaluated tick's digest drains."""
+        for a, b in pairs[:-1]:
+            if self.ingest_digest:
+                if advance_carry:
+                    self.state, self._ingest_fold_counts = apply_updates_carry_step_counted(
+                        self.state, a, b, btc_row=btc_row, counts=self._ingest_fold_acc(),
+                        inplace=inplace,
+                    )
+                else:
+                    self.state, self._ingest_fold_counts = apply_updates_step_counted(
+                        self.state, a, b, self._ingest_fold_acc(), inplace=inplace
+                    )
+            elif advance_carry:
+                self.state = apply_updates_carry_step(
+                    self.state, a, b, btc_row=btc_row, inplace=inplace
+                )
             else:
-                self.state = apply_updates_step(self.state, a, b)
-        return (
-            upd5[n - 1] if n - 1 < len(upd5) else empty,
-            upd15[n - 1] if n - 1 < len(upd15) else empty,
-        )
+                self.state = apply_updates_step(self.state, a, b, inplace=inplace)
+        return pairs[-1]
+
+    def _ingest_fold_acc(self) -> torch.Tensor:
+        """The running (8,) fold-count accumulator (zeros before this
+        tick's first counted fold)."""
+        if self._ingest_fold_counts is not None:
+            return self._ingest_fold_counts
+        return torch.zeros((8,), dtype=torch.float32, device=self.device)
+
+    def _take_ingest_fold_counts(self) -> torch.Tensor | None:
+        """Consume the accumulated fold counts for the tick being
+        dispatched (None while the ingest digest is off)."""
+        if not self.ingest_digest:
+            return None
+        counts = self._ingest_fold_acc()
+        self._ingest_fold_counts = None
+        return counts
 
     def _note_applied(self, batches5: list, batches15: list) -> bool:
         """Move the host's per-row latest-open-time mirror over the
@@ -253,6 +357,8 @@ class SignalEngine:
     def _mark_carry_desynced(self, reason: str) -> None:
         """The carried state no longer matches the windows: the next tick
         runs the full recompute. The first reason wins until then."""
+        if reason == "churn":
+            self.ingest_monitor.note_churn()
         if self._carry_desync_reason is None:
             self._carry_desync_reason = reason
 
@@ -366,21 +472,117 @@ class SignalEngine:
     # -- the tick ---------------------------------------------------------------
 
     async def process_tick(self, now_ms: int | None = None) -> list:
-        """One tick: dispatch (drain → fold → wire step) and, at depth 0,
-        finalize the same tick (wire fetch → emission). Returns the emitted
-        signals, each stamped with ``tick_ms``."""
+        """One tick of the pipelined loop: finalize in-flight ticks while
+        ``max(depth, 1)`` are pending (at depth 1, tick i-1, whose wire has
+        landed meanwhile), dispatch this tick (drain → fold → wire step →
+        wire copy started), and at depth 0 finalize it too. Finalizing
+        before dispatching keeps the host carries feeding this tick one
+        tick behind, as at depth 0. Returns the emitted signals, each
+        stamped with the ``tick_ms`` of the tick that produced it."""
         t0 = time.perf_counter()
         ts_ms = now_ms if now_ms is not None else int(time.time() * 1000)
-        pending = await self._dispatch_tick_inner(ts_ms)
-        fired = await self._finalize_tick_inner(pending)
+        fired: list = []
+        while len(self._pending) >= max(self.pipeline_depth, 1):
+            fired.extend(await self._finalize_tick_inner(self._pending.popleft()))
+        self._pending.append(await self._dispatch_tick_inner(ts_ms))
+        if self.pipeline_depth == 0:
+            fired.extend(await self._finalize_tick_inner(self._pending.popleft()))
         self.tick_wall_ms.append((time.perf_counter() - t0) * 1000.0)
         self.ticks_processed += 1
         return fired
 
     async def flush_pending(self) -> list:
-        """Finalize every in-flight tick. At depth 0 each ``process_tick``
-        finalizes its own tick, so nothing is ever in flight."""
+        """Finalize every in-flight tick (replay end, shutdown), so no
+        dispatched tick's signals are lost."""
+        fired: list = []
+        while self._pending:
+            fired.extend(await self._finalize_tick_inner(self._pending.popleft()))
+        return fired
+
+    async def emit_ready(self) -> list:
+        """Land and emit the oldest in-flight tick NOW instead of when the
+        next tick evicts it: waits out only the wire copy, in a worker
+        thread so the event loop keeps running. Finalize order, and so the
+        host carries' one-tick lag, is unchanged."""
+        if not self._pending:
+            return []
+        head = self._pending[0]
+        if head.ready is not None:
+            await asyncio.to_thread(head.ready.synchronize)
+        if self._pending and self._pending[0] is head:
+            self._pending.popleft()
+            return await self._finalize_tick_inner(head)
         return []
+
+    def _donation_mode(self) -> str | None:
+        """How this dispatch treats the rings: ``"single"`` writes them in
+        place (``donate`` at depth <= 1, where a tick always finalizes before
+        the next dispatch writes the rings again, so the fallback's lazy
+        read of ``self.state`` sees the tick's own post-tick rings); None
+        runs the copying step (``donate`` off, or depth >= 2)."""
+        if self.donate and self.pipeline_depth <= 1:
+            return "single"
+        return None
+
+    def _ring_planes(self) -> list[torch.Tensor]:
+        st = self.state
+        return [st.buf5.times, st.buf5.values, st.buf15.times, st.buf15.values]
+
+    def _reset_state_cold(self, why: str) -> None:
+        """Replace an unusable engine state with a cold empty one: the
+        engine recovers like a restart (strategies stay blind until the
+        rings refill). Logged, counted in ``state_resets``."""
+        self.state_resets += 1
+        logging.error(
+            "%s; resetting the engine state cold (reset #%d)", why, self.state_resets
+        )
+        self.state = initial_engine_state(self.capacity, self.window, device=self.device)
+        for latest in self._host_latest.values():
+            latest[:] = -1
+        self._ingest_fold_counts = None
+        self._carry_desync_reason = "cold_start"
+
+    def _recover_after_inplace_failure(self, planes, versions) -> None:
+        """A dispatch raised in in-place mode: if any ring plane was written
+        (its version counter moved), the pre-tick rings are gone and the
+        state is reset cold; otherwise the state is intact."""
+        if any(p._version != v for p, v in zip(planes, versions)):
+            self._reset_state_cold("an in-place tick failed after writing the rings")
+
+    def _measure_drift(self, pairs: list[tuple], btc_row: int, ts_ms: int) -> None:
+        """The audit tick's carry-drift meter: replay this tick's
+        carry-advancing folds on a FUNCTIONAL copy of ``self.state`` (the
+        copying applies; the live rings are never written), then measure the
+        final pair's advance against a fresh init. A failure is logged and
+        counted, and the audit's resync proceeds."""
+        try:
+            st = self.state
+            for a, b in pairs[:-1]:
+                st = apply_updates_carry_step(st, a, b, btc_row=btc_row)
+            drift = measure_carry_drift(st, *pairs[-1], btc_row)
+        except Exception:
+            self.drift.note_skipped()
+            logging.exception("carry-drift metering failed; the audit proceeds unmeasured")
+            return
+        self.drift.observe(drift, tick_ms=ts_ms)
+
+    def _start_wire_copy(self, wire: torch.Tensor) -> tuple[torch.Tensor, Any]:
+        """Start the wire's copy to the host: on a card, non-blocking into
+        the next pinned buffer of the rotation, on the compute stream, with
+        an event recorded after it; on the CPU the wire is the host copy."""
+        if wire.device.type != "cuda":
+            return wire, None
+        if self._wire_bufs is None:
+            self._wire_bufs = [
+                torch.empty(wire.shape, dtype=wire.dtype, pin_memory=True)
+                for _ in range(self.pipeline_depth + 1)
+            ]
+        host = self._wire_bufs[self._wire_slot]
+        self._wire_slot = (self._wire_slot + 1) % len(self._wire_bufs)
+        host.copy_(wire, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return host, ready
 
     async def _dispatch_tick_inner(self, ts_ms: int) -> _PendingTick:
         ts_s = ts_ms // 1000
@@ -417,28 +619,71 @@ class SignalEngine:
                 )
         self.last_path = "incremental" if use_incremental else (reason or "classic")
 
-        u5, u15 = self._fold_updates(
-            batches5, batches15, advance_carry=use_incremental, btc_row=btc_row
-        )
-        inputs = self._host_inputs(btc_row, ts15, ts5, quiet)
-        prev_state = self.state
+        pairs = self._slot_pairs(batches5, batches15)
+        if reason == "audit" and self.drift_meter_enabled:
+            # before the folds: the meter measures what this tick's
+            # updates do to the carry, then the full step resyncs it
+            self._measure_drift(pairs, btc_row, ts_ms)
+
+        mode = self._donation_mode()
+        inplace = mode == "single"
         cfg, key = self.context_config, self._wire_enabled_key()
         # a classic engine never reads the carry: no rebuild on its ticks
-        paths = dict(incremental=use_incremental, maintain_carry=self.incremental)
-        self.state, wire = tick_step_wire(
-            prev_state, u5, u15, inputs, cfg, wire_enabled=key, **paths
+        flags = dict(
+            incremental=use_incremental, maintain_carry=self.incremental,
+            numeric_digest=self.numeric_digest, ingest_digest=self.ingest_digest,
         )
+        planes = self._ring_planes()
+        versions = [p._version for p in planes]
+        try:
+            u5, u15 = self._fold_updates(
+                pairs, advance_carry=use_incremental, btc_row=btc_row, inplace=inplace
+            )
+            inputs = self._host_inputs(btc_row, ts15, ts5, quiet)
+            pre = self.state
+            step = tick_step_wire_inplace if inplace else tick_step_wire
+            self.state, wire = step(
+                pre, u5, u15, inputs, cfg, wire_enabled=key,
+                ingest_fold_counts=self._take_ingest_fold_counts(), **flags,
+            )
+        except BaseException:
+            if inplace:
+                self._recover_after_inplace_failure(planes, versions)
+            raise
         if not use_incremental:
             self._carry_desync_reason = None
 
-        # a compaction overflow re-runs the SAME path from the pre-tick state
-        def fallback(_args=(prev_state, u5, u15, inputs, cfg, key, paths)):
-            st, a, b, inp, cfg_, key_, paths_ = _args
-            _, full = tick_step(st, a, b, inp, cfg_, wire_enabled=key_, **paths_)
-            return full
+        if inplace:
+            self.inplace_ticks += 1
+            # the pre-tick rings are gone: re-evaluate from the POST-tick
+            # rings (read at call time; at depth <= 1 no later dispatch has
+            # written them yet) with empty batches and the pre-tick small
+            # carries, which the step left untouched
+            small = (pre.regime_carry, pre.mrf_last_emitted, pre.pt_last_signal_close,
+                     pre.indicator_carry)
+            empty = self._empty_updates()
 
+            def fallback(_args=(small, inputs, cfg, key, flags, empty)):
+                small_, inp, cfg_, key_, flags_, emp = _args
+                st = self.state._replace(
+                    regime_carry=small_[0], mrf_last_emitted=small_[1],
+                    pt_last_signal_close=small_[2], indicator_carry=small_[3],
+                )
+                _, full = tick_step(st, emp, emp, inp, cfg_, wire_enabled=key_, **flags_)
+                return full
+        else:
+            # the copying step left the pre-tick state intact: re-run the
+            # SAME path from it
+            def fallback(_args=(pre, u5, u15, inputs, cfg, key, flags)):
+                st, a, b, inp, cfg_, key_, flags_ = _args
+                _, full = tick_step(st, a, b, inp, cfg_, wire_enabled=key_, **flags_)
+                return full
+
+        host, ready = self._start_wire_copy(wire)
         return _PendingTick(
             wire=wire,
+            host=host,
+            ready=ready,
             fallback=fallback,
             ts_ms=ts_ms,
             ts5=ts5,
@@ -449,12 +694,23 @@ class SignalEngine:
 
     async def _finalize_tick_inner(self, pending: _PendingTick) -> list:
         ts5, ts15 = pending.ts5, pending.ts15
-        # ONE device fetch per tick: the packed wire
-        self.last_wire = pending.wire.cpu().numpy()
-        unpacked = unpack_wire(self.last_wire)
+        # the tick's one device-to-host copy: wait for it to land, then
+        # read it (the pinned buffer goes back into the rotation)
+        if pending.ready is not None:
+            pending.ready.synchronize()
+        self.last_wire = pending.host.numpy().copy()
+        unpacked = unpack_wire(
+            self.last_wire, numeric_digest=self.numeric_digest,
+            ingest_digest=self.ingest_digest,
+        )
         fired_w, ctx = unpacked
+        if "numeric_digest" in ctx:
+            self.numeric.observe(ctx["numeric_digest"], tick_ms=pending.ts_ms)
+        if "ingest_digest" in ctx:
+            self.ingest_monitor.observe_digest(ctx["ingest_digest"])
         outputs = None
         if fired_w.overflow:
+            self.overflow_ticks += 1
             outputs = pending.fallback()
         regime = ctx["market_regime"]
         has_ctx = ctx["valid"]

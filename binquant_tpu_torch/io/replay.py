@@ -4,7 +4,8 @@ Feeds a JSONL file of closed klines through the engine with every sink
 stubbed: one engine tick per 15m delivery bucket, ``now_ms`` just after the
 bucket's bars close. Own copies of the reference's replay-file generator and
 tick grouping (``binquant_tpu/io/replay.py``), so the two packages replay
-identical streams.
+identical streams (and the reference's overflow drill,
+:func:`generate_burst_replay`).
 """
 
 from __future__ import annotations
@@ -28,25 +29,38 @@ def make_stub_engine(
     capacity: int = 256,
     window: int = 200,
     breadth: dict | None = None,
-    pipeline_depth: int = 0,
+    pipeline_depth: int | None = None,
     enabled_strategies: set[str] | None = None,
     context_config: ContextConfig | None = None,
     device: str | None = None,
     incremental: bool | None = None,
     carry_audit_every: int | None = None,
+    donate: bool | None = None,
+    numeric_digest: bool | None = None,
+    ingest_digest: bool | None = None,
+    drift_meter: bool | None = None,
 ) -> SignalEngine:
     """A SignalEngine wired to recording sinks (no network), futures market
     type, small-universe context gates unless ``context_config`` is given.
     Runs on ``device`` — CUDA by default; raises when CUDA is missing unless
-    ``device="cpu"``. ``incremental`` and ``carry_audit_every`` override the
-    config's defaults (the incremental path, an audit every 256 ticks)."""
+    ``device="cpu"``. Every other argument left None keeps the config's
+    production default: depth 1 with rings in place, both digests and the
+    drift meter on, the incremental path with an audit every 256 ticks."""
     config = Config(
         max_symbols=capacity, window_bars=window, env=os.environ.get("ENV", "CI")
     )
-    if incremental is not None:
-        config.incremental = bool(incremental)
-    if carry_audit_every is not None:
-        config.carry_audit_every_ticks = int(carry_audit_every)
+    overrides = {
+        "pipeline_depth": pipeline_depth,
+        "incremental": incremental,
+        "carry_audit_every_ticks": carry_audit_every,
+        "donate": donate,
+        "numeric_digest": numeric_digest,
+        "ingest_digest": ingest_digest,
+        "drift_meter": drift_meter,
+    }
+    for name, value in overrides.items():
+        if value is not None:
+            setattr(config, name, type(getattr(config, name))(value))
     return SignalEngine(
         config=config,
         sinks=RecordingSinks(),
@@ -55,7 +69,6 @@ def make_stub_engine(
         context_config=context_config
         or ContextConfig(required_fresh_symbols=4, min_coverage_ratio=0.5),
         enabled_strategies=enabled_strategies,
-        pipeline_depth=pipeline_depth,
         breadth=breadth,
     )
 
@@ -103,16 +116,22 @@ def run_replay(
     window: int = 200,
     collect: list | None = None,
     breadth: dict | None = None,
-    pipeline_depth: int = 0,
+    pipeline_depth: int | None = None,
     enabled_strategies: set | None = None,
     context_config: ContextConfig | None = None,
     device: str | None = None,
     incremental: bool | None = None,
     carry_audit_every: int | None = None,
+    donate: bool | None = None,
+    numeric_digest: bool | None = None,
+    ingest_digest: bool | None = None,
+    drift_meter: bool | None = None,
 ) -> dict:
     """Replay a JSONL kline file; returns run statistics, the routing
     counters among them. With ``collect`` a list, every fired signal is
-    appended as a :func:`signal_tuples` tuple."""
+    appended as a :func:`signal_tuples` tuple. The engine's arguments are
+    :func:`make_stub_engine`'s; the ticks still in flight at the end of the
+    file are flushed."""
     engine = make_stub_engine(
         capacity=capacity,
         window=window,
@@ -123,6 +142,10 @@ def run_replay(
         device=device,
         incremental=incremental,
         carry_audit_every=carry_audit_every,
+        donate=donate,
+        numeric_digest=numeric_digest,
+        ingest_digest=ingest_digest,
+        drift_meter=drift_meter,
     )
     seq = tick_seq(path)
     fired_total = 0
@@ -154,6 +177,9 @@ def run_replay(
         "incremental_ticks": engine.incremental_ticks,
         "full_recompute_ticks": engine.full_recompute_ticks,
         "full_recompute_reasons": dict(engine.full_recompute_reasons),
+        "overflow_ticks": engine.overflow_ticks,
+        "inplace_ticks": engine.inplace_ticks,
+        "state_resets": engine.state_resets,
     }
 
 
@@ -237,5 +263,51 @@ def generate_replay_file(
                             vol5 *= 8.0
                         new_px[i] = sub_c
                     f.write(_kline_json(symbol, ts15 + j * 300, 300, sub_o, sh, sl, sub_c, vol5))
+                    sub_o = sub_c
+            px = new_px
+
+
+def generate_burst_replay(
+    path: str | Path,
+    n_symbols: int = 160,
+    n_ticks: int = 108,
+    seed: int = 23,
+) -> None:
+    """A market-wide crash on the last tick that fires MeanReversionFade on
+    every symbol at once: more fired (strategy, row) pairs than the wire's
+    compaction slots (WIRE_MAX_FIRED = 128 at the default 160 symbols), so
+    the overflow fallback runs from dispatch to emission. Same generator,
+    same seed, same file as the reference's."""
+    rng = np.random.default_rng(seed)
+    t0 = 1_780_272_000
+    px = 20 + rng.random(n_symbols) * 100
+
+    with open(path, "w") as f:
+        for tick in range(n_ticks):
+            ts15 = t0 + tick * 900
+            # a steady market-wide downtrend keeps every symbol's RSI pinned
+            rets = rng.normal(-0.004, 0.002, n_symbols)
+            new_px = px * (1 + rets)
+            last_tick = tick == n_ticks - 1
+            for i in range(n_symbols):
+                symbol = "BTCUSDT" if i == 0 else f"S{i:03d}USDT"
+                o, c = px[i], new_px[i]
+                vol15 = abs(rng.normal(1000, 200))
+                h, low = max(o, c) * 1.002, min(o, c) * 0.998
+                if last_tick:
+                    # a green hammer, market-wide: a deep gap down below the
+                    # lower band, a green close, 3x volume
+                    o = px[i] * 0.955
+                    c = o * 1.003
+                    h, low = c * 1.001, o * 0.997
+                    new_px[i] = c
+                    vol15 *= 3.0
+                f.write(_kline_json(symbol, ts15, 900, o, h, low, c, vol15))
+                sub_o = o
+                for j in range(3):
+                    sub_c = o + (c - o) * (j + 1) / 3
+                    sh = max(sub_o, sub_c) * 1.001
+                    sl = min(sub_o, sub_c) * 0.999
+                    f.write(_kline_json(symbol, ts15 + j * 300, 300, sub_o, sh, sl, sub_c, vol15 / 3))
                     sub_o = sub_c
             px = new_px

@@ -11,7 +11,8 @@ autotrade off.
 The 92nd-percentile threshold is the repository's one hand-written kernel:
 ``ops.quantile_tail.rolling_quantile_tail`` launches ``csrc/qtail.cu`` on
 the card at both of its call sites here, :func:`abp_core` (every full tick)
-and :func:`abp_init_from_window` (every carry resync).
+and :func:`abp_init_from_window` (every carry resync, and the drift meter's
+fresh init on every audit tick, counted as the ``carry_drift`` site).
 
 The incremental tick reads the strategy from a carry instead
 (:class:`ABPCarry`): sorted windows of the shifted volume series and of the
@@ -411,18 +412,20 @@ def empty_abp_carry(
     )
 
 
-def abp_init_from_window(buf5: MarketBuffer, p: ABPParams = ABPParams()) -> ABPCarry:
+def abp_init_from_window(
+    buf5: MarketBuffer, p: ABPParams = ABPParams(), site: str = "abp_init_from_window"
+) -> ABPCarry:
     """Carry from the full tail: the series of :func:`abp_core` (one copy,
     :func:`_abp_tail`), so every readout at the init tick equals the full
-    kernel's. Its cooldown-ring threshold is the kernel's second call
-    site."""
+    kernel's. Its cooldown-ring threshold is the kernel's second call site
+    (``site`` labels the launch: the drift meter's init is ``carry_drift``)."""
     # the ring slices below pin the carry's leaf shapes
     assert buf5.window >= p.score_lookback + 1, (
         f"window {buf5.window} too short for the ABP carry init "
         f"(need >= {p.score_lookback + 1})"
     )
     bw = _baseline_window(p)
-    t = _abp_tail(buf5, p, "abp_init_from_window")
+    t = _abp_tail(buf5, p, site)
     return ABPCarry(
         vol_med=sorted_init(shift(t.volume, 2), bw),
         qvol_med=sorted_init(shift(t.quote_volume, 2), bw),

@@ -30,20 +30,42 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
 
    * classic (``incremental=False``), 8 live ticks: one qtail launch per
      tick (``abp_core``);
-   * incremental (the production default, a full-recompute audit every 8
-     ticks), 16 live ticks: a cold start on the warm tick, audits on live
-     ticks 8 and 16, every other tick incremental; two qtail launches on
-     each full tick (``abp_core``, ``abp_init_from_window``) and none on an
-     incremental one; the carry's order-free leaves equal to the CPU's bit
-     for bit; its fired set equal to the classic drive's over their common
-     ticks but for flips inside the declared gate margins. The supertrend
-     scan and the whole carry init are also timed alone.
-4. Print the kernels line, the card's name and power limit, and the result.
+   * incremental (a full-recompute audit every 8 ticks), 16 live ticks: a
+     cold start on the warm tick, audits on live ticks 8 and 16, every other
+     tick incremental; two qtail launches on each full tick (``abp_core``,
+     ``abp_init_from_window``) and none on an incremental one; the carry's
+     order-free leaves equal to the CPU's bit for bit; its fired set equal
+     to the classic drive's over their common ticks but for flips inside the
+     declared gate margins. The supertrend scan and the whole carry init are
+     also timed alone.
 
-With ``--profile`` it also drives the incremental path once more under
-``torch.profiler`` and prints, per tick kind (incremental, full), where the
-tick's time goes: host wall time, device busy time and idle share, device
-activities per tick, the costliest kernels.
+   Both run the serial loop (depth 0) with copied rings and no digests.
+4. Drive the production loop (``[slice pipelined]``): depth 1, rings
+   updated in place, both wire digests and the carry-drift meter on, an
+   audit every 8 ticks, on a market that trends down through 16 live ticks
+   and crashes on a 17th (a green hammer under the lower band on every
+   symbol, as ``generate_burst_replay`` makes), so that more pairs fire
+   than the wire's 128 slots and the in-place overflow fallback runs. The
+   reference is a CPU engine at depth 0 with copied rings and the same
+   flags; routing, fired sets, ingest digest blocks (bit for bit), numeric
+   digest blocks (counts exact, floats within the wire contract), the drift
+   meter's ``compared`` counts and alarm verdicts per audit tick, and the
+   rings after the drive must agree. qtail launches per tick and call site:
+   3 on each audit tick (``carry_drift`` too), 2 on the cold start, 0 on an
+   incremental tick. The same drive at depth 0 with copied rings on the
+   card gives the tick times and peak device memory it is printed beside.
+5. Print the kernels line, the card's name and power limit, and the result.
+
+Phase 4 times three card configurations (depth 1 in place; depth 0
+copying; depth 0 copying without the digests and the meter) over two
+rounds of the same ticks, the engines taking each tick in turns, with the
+device idle before every call, as between live ticks.
+
+With ``--profile`` it also drives the incremental path and the production
+loop once more each under ``torch.profiler`` and prints, per tick kind
+(incremental, full), where the tick's time goes: host wall time, device
+busy time and idle share, device activities per tick, the costliest
+kernels.
 
 It exits nonzero without printing a result when CUDA is unavailable or when
 run outside a checkout that holds the ``binquant_tpu_torch`` package.
@@ -63,9 +85,12 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 S, W = 2048, 400
-LIVE_TICKS = 16  # live ticks of the incremental drive
+LIVE_TICKS = 16  # live ticks of the incremental drive (and before the crash)
 CLASSIC_TICKS = 8  # live ticks of the classic drive
-AUDIT_EVERY = 8  # the incremental drive's full-recompute audit cadence
+AUDIT_EVERY = 8  # the full-recompute audit cadence of the incremental drives
+# the classic and incremental drives: the serial loop, copied rings, no digests
+SERIAL = dict(pipeline_depth=0, donate=False, numeric_digest=False, ingest_digest=False,
+              drift_meter=False)
 T_LIVE0 = 1_780_272_000 + 900 * 2000  # 15m-aligned start of the live ticks
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores
@@ -282,6 +307,48 @@ def make_market(rng: np.random.Generator):
     return m5, m15
 
 
+def make_crash_market(rng: np.random.Generator):
+    """The production drive's market: W bars of warm history as
+    :func:`make_market` makes it (a 5m random walk, the 15m bars aggregated
+    from it), then LIVE_TICKS + 1 15m bars shaped as ``generate_burst_replay``
+    shapes its own (three 5m legs from each bar's open to its close): a
+    market-wide downtrend (-0.4% +- 0.2% a bar, which pins RSI low), and on
+    the last bar the crash: every symbol gaps 4.5% under its close and
+    closes 0.3% green on 3x volume, a hammer under the lower band that fires
+    MeanReversionFade on more rows than the wire's 128 slots."""
+    n_live = LIVE_TICKS + 1
+    rets5 = rng.normal(0.0, 0.004, (S, 3 * W))
+    close5 = (20 + rng.random((S, 1)) * 100) * np.exp(np.cumsum(rets5, axis=1))
+    open5 = np.concatenate([close5[:, :1], close5[:, :-1]], axis=1)
+    vol5 = np.abs(rng.normal(1000, 200, (S, 3 * W)))
+
+    last = close5[:, -1:]
+    close = last * np.exp(np.cumsum(rng.normal(-0.004, 0.002, (S, n_live)), axis=1))
+    open_ = np.concatenate([last, close[:, :-1]], axis=1)
+    vol = np.abs(rng.normal(3000, 600, (S, n_live)))
+    open_[:, -1] *= 0.955
+    close[:, -1] = open_[:, -1] * 1.003
+    vol[:, -1] *= 3.0
+    legs = [open_ + (close - open_) * (j + 1) / 3 for j in range(3)]
+    lo5 = np.stack([open_, legs[0], legs[1]], axis=2).reshape(S, 3 * n_live)
+    lc5 = np.stack(legs, axis=2).reshape(S, 3 * n_live)
+    open5 = np.concatenate([open5, lo5], axis=1)
+    close5 = np.concatenate([close5, lc5], axis=1)
+    vol5 = np.concatenate([vol5, np.repeat(vol / 3, 3, axis=1)], axis=1)
+    high5 = np.maximum(open5, close5) * 1.001
+    low5 = np.minimum(open5, close5) * 0.999
+    m5 = dict(open=open5, high=high5, low=low5, close=close5, volume=vol5)
+    g = lambda a: a.reshape(S, W + n_live, 3)
+    m15 = dict(
+        open=g(open5)[:, :, 0], high=g(high5).max(axis=2), low=g(low5).min(axis=2),
+        close=g(close5)[:, :, 2], volume=g(vol5).sum(axis=2),
+    )
+    # the crash bar's own range: from just under its open to just over its close
+    m15["high"][:, -1] = close[:, -1] * 1.001
+    m15["low"][:, -1] = open_[:, -1] * 0.997
+    return m5, m15
+
+
 def bar_values(m: dict, cols: slice, interval_s: int) -> np.ndarray:
     """(S, n, 10) value planes in the ring's field order."""
     o, h, lo, c, v = (m[k][:, cols] for k in ("open", "high", "low", "close", "volume"))
@@ -306,6 +373,33 @@ def kline(symbol, ts_s, interval_s, m, i) -> dict:
     }
 
 
+def tick_plan(engine, m5: dict, m15: dict, live_ticks: int) -> list[tuple[int, list[dict]]]:
+    """Queue W bars of warm history per ring as ``add_batch`` sub-batches
+    (folded by the first tick) and return the ticks: the warm tick, then
+    ``live_ticks`` ticks of closed klines (one 15m and three 5m bars per
+    symbol), each as (now_ms, klines)."""
+    names = symbols()
+    rows = np.array([engine.registry.add(n) for n in names], dtype=np.int32)
+    w15 = bar_values(m15, slice(0, W), 900)
+    w5 = bar_values(m5, slice(2 * W, 3 * W), 300)
+    t15 = T_LIVE0 - 900 * W
+    t5 = T_LIVE0 - 300 * W
+    for k in range(W):
+        engine.batcher15.add_batch(rows, np.full(S, t15 + 900 * k, np.int32), w15[:, k])
+        engine.batcher5.add_batch(rows, np.full(S, t5 + 300 * k, np.int32), w5[:, k])
+
+    ticks: list[tuple[int, list[dict]]] = [(T_LIVE0 * 1000, [])]
+    for t in range(live_ticks):
+        ts15 = T_LIVE0 + 900 * t
+        klines = []
+        for r, name in enumerate(names):
+            klines.append(kline((name, r), ts15, 900, m15, W + t))
+            for j in range(3):
+                klines.append(kline((name, r), ts15 + 300 * j, 300, m5, 3 * (W + t) + j))
+        ticks.append(((ts15 + 900) * 1000, klines))
+    return ticks
+
+
 def drive(
     device: str, m5: dict, m15: dict, incremental: bool, live_ticks: int, profiler=None
 ) -> dict:
@@ -325,29 +419,9 @@ def drive(
 
     engine = make_stub_engine(
         capacity=S, window=W, context_config=ContextConfig(), device=device,
-        incremental=incremental, carry_audit_every=AUDIT_EVERY,
+        incremental=incremental, carry_audit_every=AUDIT_EVERY, **SERIAL,
     )
-    names = symbols()
-    rows = np.array([engine.registry.add(n) for n in names], dtype=np.int32)
-    # warm history: W bars per ring as add_batch sub-batches
-    w15 = bar_values(m15, slice(0, W), 900)
-    w5 = bar_values(m5, slice(2 * W, 3 * W), 300)
-    t15 = T_LIVE0 - 900 * W
-    t5 = T_LIVE0 - 300 * W
-    for k in range(W):
-        engine.batcher15.add_batch(rows, np.full(S, t15 + 900 * k, np.int32), w15[:, k])
-        engine.batcher5.add_batch(rows, np.full(S, t5 + 300 * k, np.int32), w5[:, k])
-
-    ticks: list[tuple[int, list[dict]]] = [(T_LIVE0 * 1000, [])]
-    for t in range(live_ticks):
-        ts15 = T_LIVE0 + 900 * t
-        klines = []
-        for r, name in enumerate(names):
-            klines.append(kline((name, r), ts15, 900, m15, W + t))
-            for j in range(3):
-                klines.append(kline((name, r), ts15 + 300 * j, 300, m5, 3 * (W + t) + j))
-        ticks.append(((ts15 + 900) * 1000, klines))
-
+    ticks = tick_plan(engine, m5, m15, live_ticks)
     out = {"paths": [], "launches": [], "sites": [], "tick_ms": [], "wires": [],
            "fired": [], "indicators": {}}
 
@@ -669,21 +743,314 @@ def check_incremental(m5, m15, classic: dict) -> dict:
     return result
 
 
-def profile_slice(m5, m15) -> dict:
-    """Where a tick's time goes on the card: one more drive of the
-    incremental path under ``torch.profiler``. Device activities are
-    assigned to the ``chip_smoke_tick`` range they start in, and reported
-    per tick kind (incremental, full): host wall time, device busy time
-    (the union of the activity intervals), idle share, activities per tick,
-    qtail device time, and the costliest kernels. Device numbers are
-    ``None`` when the profiler saw no CUDA activity."""
+# --------------------------------------------------------------------------
+# phase 4: the production loop (depth 1, rings in place, digests, meter)
+# --------------------------------------------------------------------------
+
+
+def _pipelined_engine(device: str, m5: dict, m15: dict, depth: int, donate: bool, digests: bool):
+    """A production engine (both digests and the drift meter on, unless
+    ``digests`` is False) at ``depth``, its monitors recording every tick,
+    with the warm history queued; returns it and its ticks."""
+    from binquant_tpu_torch.io.replay import make_stub_engine
+    from binquant_tpu_torch.regime.context import ContextConfig
+
+    engine = make_stub_engine(
+        capacity=S, window=W, context_config=ContextConfig(), device=device,
+        incremental=True, carry_audit_every=AUDIT_EVERY, pipeline_depth=depth, donate=donate,
+        numeric_digest=digests, ingest_digest=digests, drift_meter=digests,
+    )
+    for monitor in (engine.numeric, engine.ingest_monitor, engine.drift):
+        monitor.record_history = True
+    return engine, tick_plan(engine, m5, m15, LIVE_TICKS + 1)
+
+
+def _engine_summary(engine) -> dict:
+    """What the comparisons read of an engine after its drive; the engine
+    itself (and its device memory) can then go."""
+    import torch
+
+    state = engine.state
+    leaves = torch.utils._pytree.tree_leaves(state)
+    routing = dict(engine.full_recompute_reasons)
+    routing["incremental"] = engine.incremental_ticks
+    return {
+        "overflow_ticks": engine.overflow_ticks,
+        "inplace_ticks": engine.inplace_ticks,
+        "state_resets": engine.state_resets,
+        "wire_bufs_pinned": None if engine._wire_bufs is None
+        else [b.is_pinned() for b in engine._wire_bufs],
+        "drift_audits": engine.drift.audits,
+        "drift_skipped": engine.drift.skipped,
+        "drift_history": engine.drift.history,
+        "numeric_history": engine.numeric.history,
+        "ingest_digests": engine.ingest_monitor.digests,
+        "routing": routing,
+        "resident_bytes": sum(t.numel() * t.element_size() for t in leaves),
+        "rings": {
+            f"{name}.{f}": getattr(getattr(state, name), f).cpu()
+            for name in ("buf5", "buf15") for f in ("times", "values", "filled", "cursor")
+        },
+    }
+
+
+def drive_pipelined(configs: dict, m5: dict, m15: dict, profiler=None) -> dict:
+    """The warm tick, LIVE_TICKS live ticks and the crash tick, then the
+    flush, through one production engine per entry of ``configs``
+    (label -> (device, depth, donate, digests)). The engines take each tick
+    in turns, in an order that rotates from tick to tick, so that a drift of
+    the host's speed during the drive falls on all of them alike. Per call:
+    the path of the tick it dispatched, the qtail launches by site, the
+    call's wall time and, on the card, the time until the device is idle
+    again (the wire of a depth-1 tick has landed by then), the device
+    memory allocated before the call and the peak during it. A
+    ``torch.profiler.profile`` passed as ``profiler`` records the live
+    ticks, each call and the wait for the idle device inside one
+    ``chip_smoke_tick`` range."""
+    import contextlib
+
+    import torch
+
+    from binquant_tpu_torch.io.replay import signal_tuples
+    from binquant_tpu_torch.ops import quantile_tail as qt
+
+    engines, ticks = {}, None
+    for label, (device, depth, donate, digests) in configs.items():
+        engines[label], ticks = _pipelined_engine(device, m5, m15, depth, donate, digests)
+    outs = {
+        label: {"paths": [], "launches": [], "sites": [], "call_ms": [], "landed_ms": [],
+                "base_bytes": [], "peak_bytes": [], "fired": []}
+        for label in configs
+    }
+
+    def launches_since(before: dict) -> dict:
+        return {k: v - before.get(k, 0) for k, v in qt.launches_by_site.items()
+                if v != before.get(k, 0)}
+
+    async def call(label: str, n: int, now_ms: int, klines: list) -> None:
+        engine, out = engines[label], outs[label]
+        cuda = engine.device.type == "cuda"
+        for k in klines:
+            engine.ingest(k)
+        if cuda:
+            # the idle gap between ticks: the previous tick is done
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if cuda else None
+        before = dict(qt.launches_by_site)
+        rng = (
+            torch.profiler.record_function("chip_smoke_tick")
+            if profiler is not None and 0 < n <= LIVE_TICKS else contextlib.nullcontext()
+        )
+        with rng:
+            t0 = time.perf_counter()
+            fired = await engine.process_tick(now_ms=now_ms)
+            t1 = time.perf_counter()
+            if cuda:
+                torch.cuda.synchronize()
+        out["call_ms"].append((t1 - t0) * 1000.0)
+        out["landed_ms"].append((time.perf_counter() - t0) * 1000.0)
+        out["base_bytes"].append(base)
+        out["peak_bytes"].append(torch.cuda.max_memory_allocated() if cuda else None)
+        out["sites"].append(launches_since(before))
+        out["launches"].append(sum(out["sites"][-1].values()))
+        out["paths"].append(engine.last_path)
+        out["fired"].extend(signal_tuples(fired))
+
+    async def run():
+        labels = list(configs)
+        for n, (now_ms, klines) in enumerate(ticks):
+            for label in labels[n % len(labels):] + labels[: n % len(labels)]:
+                await call(label, n, now_ms, klines)
+        for label, engine in engines.items():
+            before = dict(qt.launches_by_site)
+            outs[label]["fired"].extend(signal_tuples(await engine.flush_pending()))
+            outs[label]["flush_sites"] = launches_since(before)
+
+    with profiler if profiler is not None else contextlib.nullcontext():
+        asyncio.run(run())
+    for label, out in outs.items():
+        out.update(_engine_summary(engines[label]), tick_times=[t for t, _ in ticks])
+    return outs
+
+
+def _p(values, q: float) -> float:
+    return float(np.percentile(np.asarray(values, dtype=np.float64), q))
+
+
+EXPECT_SITES = {
+    "cold_start": {"abp_core": 1, "abp_init_from_window": 1},
+    "audit": {"abp_core": 1, "abp_init_from_window": 1, "carry_drift": 1},
+    "incremental": {},
+}
+
+
+def check_pipelined(m5, m15) -> dict:
+    """The production loop on the card against the serial loop on the CPU,
+    then the tick times and device memory of three card configurations
+    taking the same ticks in turns: depth 1 with rings in place, depth 0
+    with copied rings, and depth 0 with copied rings and neither digest nor
+    the meter."""
+    import torch
+
+    from binquant_tpu_torch.engine.step import (
+        NUMERIC_STAGES,
+        STRATEGY_ORDER,
+        WIRE_MAX_FIRED,
+        numeric_digest_layout,
+    )
+    from binquant_tpu_torch.ops import quantile_tail as qt
+
+    qt.reset_launches()
+    gpu = drive_pipelined({"main": ("cuda", 1, True, True)}, m5, m15)["main"]
+    counts = _launch_report(gpu)  # read just after the drive
+    for k, v in gpu["flush_sites"].items():
+        counts["launches_by_site"][k] = counts["launches_by_site"].get(k, 0) + v
+    counts["launches"] += sum(gpu["flush_sites"].values())
+    if counts["launches"] != qt.launches or counts["launches_by_site"] != qt.launches_by_site:
+        fail(f"per-tick launch accounting {counts} != the wrapper's count {qt.launches}")
+    cpu = drive_pipelined({"cpu": ("cpu", 0, False, True)}, m5, m15)["cpu"]
+    configs = {
+        "depth1_inplace": ("cuda", 1, True, True),
+        "depth0_copying": ("cuda", 0, False, True),
+        "depth0_copying_no_digests": ("cuda", 0, False, False),
+    }
+    rounds = [drive_pipelined(configs, m5, m15) for _ in range(2)]
+
+    expect = ["cold_start"] + [
+        "audit" if t % AUDIT_EVERY == 0 else "incremental" for t in range(1, LIVE_TICKS + 2)
+    ]
+    with_digests = [(gpu, "depth 1")] + [
+        (r[k], k) for r in rounds for k in ("depth1_inplace", "depth0_copying")
+    ]
+    for run, label in (*with_digests, (cpu, "cpu"),
+                       *((r["depth0_copying_no_digests"], "no digests") for r in rounds)):
+        if run["paths"] != expect:
+            fail(f"pipelined drive ({label}) routing {run['paths']}, expected {expect}")
+        if sorted(run["fired"]) != sorted(cpu["fired"]):
+            fail(f"pipelined drive ({label}): fired set differs from the cpu engine's")
+    for run, label in with_digests:
+        want = [EXPECT_SITES[p] for p in run["paths"]]
+        if run["sites"] != want or run["flush_sites"]:
+            fail(f"pipelined drive ({label}): qtail launches by site per tick {run['sites']}, "
+                 f"flush {run['flush_sites']}")
+    if not (gpu["inplace_ticks"] == len(expect) and gpu["state_resets"] == 0
+            and gpu["wire_bufs_pinned"] == [True, True]):
+        fail(f"depth 1: in-place ticks {gpu['inplace_ticks']}, resets {gpu['state_resets']}, "
+             f"pinned wire buffers {gpu['wire_bufs_pinned']}")
+    crash_ms = gpu["tick_times"][-1]
+    crash_fired = sum(1 for f in gpu["fired"] if f[0] == crash_ms)
+    if not (gpu["overflow_ticks"] == cpu["overflow_ticks"] == 1) or crash_fired <= WIRE_MAX_FIRED:
+        fail(f"overflow ticks {gpu['overflow_ticks']}/{cpu['overflow_ticks']}, "
+             f"{crash_fired} signals on the crash tick (need > {WIRE_MAX_FIRED})")
+    if len(gpu["ingest_digests"]) != len(expect):
+        fail(f"{len(gpu['ingest_digests'])} ingest digests for {len(expect)} ticks")
+    for a, b in zip(gpu["ingest_digests"], cpu["ingest_digests"], strict=True):
+        if not np.array_equal(a.view(np.int32), b.view(np.int32)):
+            fail(f"ingest digest differs from the cpu engine's: {a} vs {b}")
+    n_counts = 2 * len(NUMERIC_STAGES) + 2 * len(STRATEGY_ORDER)
+    # a gate margin is an RSI/MFI (0-100 points) minus its threshold: the
+    # wire contract at that indicator's scale; the other floats at their own
+    margin = np.array([n.startswith("margin.") for n in numeric_digest_layout()])
+    atol = np.where(margin, 1e-4 * 100 + 1e-5, 1e-5)
+    numeric_err = 0.0
+    for (_, a), (_, b) in zip(gpu["numeric_history"], cpu["numeric_history"], strict=True):
+        if not np.array_equal(a[:n_counts], b[:n_counts]):
+            fail(f"numeric digest counts differ from the cpu engine's: {a[:n_counts]} vs {b[:n_counts]}")
+        close = np.isclose(a, b, rtol=1e-4, atol=atol, equal_nan=True)
+        if not close.all():
+            bad = np.flatnonzero(~close)
+            fail(f"numeric digest floats differ at {bad.tolist()}: {a[bad]} vs {b[bad]}")
+        fin = np.isfinite(a) & np.isfinite(b)
+        numeric_err = max(numeric_err, float(np.abs(a[fin] - b[fin]).max(initial=0.0)))
+    if gpu["drift_audits"] != 2 or gpu["drift_skipped"] or cpu["drift_audits"] != 2:
+        fail(f"drift meter: {gpu['drift_audits']} audits, {gpu['drift_skipped']} skipped")
+    for (_, dg, bg), (_, dc, bc) in zip(gpu["drift_history"], cpu["drift_history"], strict=True):
+        if bg != bc or any(dg[f]["compared"] != dc[f]["compared"] for f in dg):
+            fail(f"drift meter differs from the cpu engine's: {dg} {bg} vs {dc} {bc}")
+    for key, a in gpu["rings"].items():
+        b = cpu["rings"][key]
+        if not torch.equal(torch.nan_to_num(a.float(), nan=-1.0), torch.nan_to_num(b.float(), nan=-1.0)):
+            fail(f"pipelined drive: {key} differs between the card and the cpu")
+
+    # live ticks 1..LIVE_TICKS by kind, both rounds pooled; the warm tick and
+    # the crash tick (whose serial call also runs the overflow fallback) are
+    # left out
+    live = range(1, LIVE_TICKS + 1)
+
+    def by_kind(runs, key, kind):
+        return [run[key][i] for run in runs for i in live
+                if (run["paths"][i] == "incremental") == (kind == "incremental")]
+
+    timing = {}
+    for label in configs:
+        runs = [r[label] for r in rounds]
+        t = {"resident_bytes": runs[0]["resident_bytes"]}
+        for kind in ("incremental", "full"):
+            calls = by_kind(runs, "call_ms", kind)
+            above = [p - b for p, b in zip(by_kind(runs, "peak_bytes", kind),
+                                           by_kind(runs, "base_bytes", kind))]
+            t[kind] = {
+                "ticks": len(calls),
+                "tick_p50_ms": _p(calls, 50), "tick_p99_ms": _p(calls, 99),
+                "tick_p50_ms_per_round": [_p(by_kind((r,), "call_ms", kind), 50) for r in runs],
+                "landed_p50_ms": _p(by_kind(runs, "landed_ms", kind), 50),
+                "peak_above_resident_bytes": max(above),
+            }
+        t["crash_tick_ms"] = [r["call_ms"][-1] for r in runs]
+        timing[label] = t
+    # the main run, alone on the card: its own peak device memory
+    peak_alone = {
+        kind: max(by_kind((gpu,), "peak_bytes", kind)) for kind in ("incremental", "full")
+    }
+    result = {
+        "ticks": len(expect), **counts, "launches_per_tick": gpu["launches"],
+        "routing": gpu["routing"], "signals": len(gpu["fired"]), "crash_tick_signals": crash_fired,
+        "signals_by_strategy": _by_strategy(gpu["fired"]), "timing": timing,
+        "peak_device_bytes_depth1_alone": peak_alone,
+        "drift": [{"tick_ms": t, "breached": b, **d} for t, d, b in gpu["drift_history"]],
+        "numeric_max_abs_err_vs_cpu": numeric_err,
+    }
+    d1, d0, dn = (timing[k] for k in configs)
+    mib = 2 ** 20
+
+    def kinds(d, key, scale=1.0):
+        return "/".join(f"{d[k][key] / scale:.2f}" for k in ("incremental", "full"))
+
+    print(
+        f"[slice pipelined] S={S} W={W}: {len(expect)} ticks (1 warm + {LIVE_TICKS} live + 1 "
+        f"crash), depth 1, rings in place, both digests and the drift meter on, audit every "
+        f"{AUDIT_EVERY}; routing {gpu['routing']}; qtail launches {counts['launches']} "
+        f"{counts['launches_by_site']} (per tick {gpu['launches']}: 3 per audit, 2 on the cold "
+        f"start, 0 per incremental tick); signals {len(gpu['fired'])}, {crash_fired} on the crash "
+        f"tick (overflow fallback in place); routing, fired sets, {len(expect)} ingest digest "
+        f"blocks (bit for bit), numeric digest counts (floats within {numeric_err:.2e}), "
+        f"drift-meter compared counts and verdicts on {gpu['drift_audits']} audits and the rings "
+        f"(bit for bit) equal to the cpu engine's. Taking the ticks in turns, two rounds, "
+        f"incremental/full tick p50 ms: depth 1 in place {kinds(d1, 'tick_p50_ms')} (p99 "
+        f"{kinds(d1, 'tick_p99_ms')}, landed p50 {kinds(d1, 'landed_p50_ms')}); depth 0 copying "
+        f"{kinds(d0, 'tick_p50_ms')} (p99 {kinds(d0, 'tick_p99_ms')}); depth 0 copying without "
+        f"digests or meter {kinds(dn, 'tick_p50_ms')} (p99 {kinds(dn, 'tick_p99_ms')}). Peak device "
+        f"memory above the engine's resident {d1['resident_bytes'] / mib:.1f} MiB, "
+        f"incremental/full: depth 1 in place {kinds(d1, 'peak_above_resident_bytes', mib)} MiB, "
+        f"depth 0 copying {kinds(d0, 'peak_above_resident_bytes', mib)} MiB, without digests "
+        f"{kinds(dn, 'peak_above_resident_bytes', mib)} MiB; depth 1 alone on the card: "
+        f"{peak_alone['incremental'] / mib:.1f}/{peak_alone['full'] / mib:.1f} MiB"
+    )
+    return result
+
+
+def _profile_report(prof, paths: list[str]) -> dict:
+    """Device activities of a profiled drive assigned to the
+    ``chip_smoke_tick`` range they start in, reported per tick kind
+    (incremental, full): host wall time, device busy time (the union of the
+    activity intervals), idle share, activities per tick, qtail device time,
+    and the costliest kernels. Device numbers are ``None`` when the profiler
+    saw no CUDA activity."""
     import bisect
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    run = drive("cuda", m5, m15, incremental=True, live_ticks=LIVE_TICKS, profiler=prof)
     events = prof.events()
     cuda = torch.autograd.DeviceType.CUDA
     # the host's tick ranges; the profiler mirrors each as a range on the
@@ -692,7 +1059,7 @@ def profile_slice(m5, m15) -> dict:
         (e.time_range.start, e.time_range.end)
         for e in events if e.name == "chip_smoke_tick" and e.device_type != cuda
     )
-    kinds = ["incremental" if p == "incremental" else "full" for p in run["paths"][1:]]
+    kinds = ["incremental" if p == "incremental" else "full" for p in paths[1:]]
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name)
         for e in events
@@ -738,6 +1105,22 @@ def profile_slice(m5, m15) -> dict:
                 for k, us in top
             ],
         }
+    return result
+
+
+def profile_slice(m5, m15, cm5, cm15) -> dict:
+    """Where a tick's time goes on the card: the incremental drive (serial,
+    no digests) and the production drive (depth 1, rings in place, digests
+    and meter on) once more each under ``torch.profiler``
+    (:func:`_profile_report`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    run = drive("cuda", m5, m15, incremental=True, live_ticks=LIVE_TICKS, profiler=prof)
+    result = {"incremental": _profile_report(prof, run["paths"][: LIVE_TICKS + 1])}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    run = drive_pipelined({"main": ("cuda", 1, True, True)}, cm5, cm15, profiler=prof)["main"]
+    result["pipelined"] = _profile_report(prof, run["paths"][: LIVE_TICKS + 1])
     print(f"[profile] {json.dumps(result)}")
     return result
 
@@ -776,17 +1159,21 @@ def main() -> int:
     m5, m15 = make_market(rng)
     classic = check_classic(m5, m15)
     incremental = check_incremental(m5, m15, classic)
+    # phase 4: the production loop, on its own seeded market
+    cm5, cm15 = make_crash_market(np.random.default_rng(SEED + 1))
+    pipelined = check_pipelined(cm5, cm15)
     slices = {
         "classic": {k: v for k, v in classic.items()
                     if k not in ("fired", "indicators", "tick_times")},
         "incremental": incremental,
+        "pipelined": pipelined,
     }
     if "--profile" in sys.argv[1:]:
-        slices["profile"] = profile_slice(m5, m15)
+        slices["profile"] = profile_slice(m5, m15, cm5, cm15)
 
     abp = qreport["abp"]
     by_site: dict[str, int] = {}
-    for run in (classic, incremental):
+    for run in (classic, incremental, pipelined):
         for k, v in run["launches_by_site"].items():
             by_site[k] = by_site.get(k, 0) + v
     kernels = [
@@ -795,10 +1182,11 @@ def main() -> int:
             "route": "cuda",
             "source": "binquant_tpu_torch/csrc/qtail.cu",
             "replaces": "binquant_tpu/ops/pallas_rolling.py:40",
-            "launches": classic["launches"] + incremental["launches"],
+            "launches": classic["launches"] + incremental["launches"] + pipelined["launches"],
             "launches_by_site": by_site,
             "launches_by_drive": {
                 "classic": classic["launches"], "incremental": incremental["launches"],
+                "pipelined": pipelined["launches"],
             },
             "max_abs_err": abp["max_abs_err"],
             "ms": abp["kernel_ms"],

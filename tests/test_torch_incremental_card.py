@@ -8,7 +8,9 @@ with a CUDA card and no JAX:
 Without a card its tests skip. One seeded replay (200 symbols in 256 rows,
 104 ticks, a 200-bar ring, an audit every 100 ticks: a cold start, 98
 incremental ticks, the audit, three more incremental ticks) drives one
-engine on the card and one on the CPU. Contract:
+engine on the card and one on the CPU, both serial (depth 0) with copied
+rings and no digests; ``tests/test_torch_pipelined_card.py`` drives the
+production loop. Contract:
 
 * the routing is the same on both, tick by tick;
 * the rolling-quantile kernel launches exactly twice on every full tick
@@ -49,9 +51,12 @@ def _card() -> None:
 
 
 def _drive(device: str, seq) -> dict:
+    # the serial loop with copied rings and no digests or meter: each tick's
+    # own wire and launches are read right after it
     engine = treplay.make_stub_engine(
         capacity=CAPACITY, window=WINDOW, device=device, incremental=True,
-        carry_audit_every=AUDIT,
+        carry_audit_every=AUDIT, pipeline_depth=0, donate=False, numeric_digest=False,
+        ingest_digest=False, drift_meter=False,
     )
     paths, launches, wires, fired = [], [], [], []
 

@@ -20,6 +20,11 @@ its own classic step.
   exact; float scalars and payload at ``rtol=1e-5`` with an absolute floor
   of 1e-6 of their scale), the returned rings are bit-equal and stay
   mid-phase, and the returned carries agree as above.
+* The same tick with both digests on, after the ingest digest's counted
+  carry folds: the fold counts and the ingest block bit for bit, the
+  numeric block's counts exact and its floats within the wire contract;
+  and the port's in-place step and its overflow fallback against its
+  copying step, bit for bit.
 * The port's incremental engine against its own classic engine on one
   replay: every full recompute (cold start and audits) gives the classic
   engine's fired block exactly and its floats within the card contract,
@@ -333,11 +338,9 @@ def _inputs(tracked):
     return jin, tin
 
 
-@pytest.fixture(scope="module")
-def stepped(world, carries):
-    """Both packages fold the tick's first two sub-batch pairs with the
-    carry-advancing step, then run one incremental wire step on the last,
-    from the same state: mid-phase rings and the reference's init carry."""
+def _start(world, carries):
+    """Both packages' state before the tick — mid-phase rings and the
+    reference's init carry — with the tick's inputs and sub-batch pairs."""
     cursor = (np.arange(S) * 7 % W).astype(np.int32)
     leaves = {**_state_leaves(world), "indicator_carry": _np_tree(carries["jinit"])}
     leaves["buf5"] = _rotate(world["ring5"], cursor)
@@ -352,7 +355,15 @@ def stepped(world, carries):
     tstate = engine_state_from_numpy(leaves, "cpu")
     jin, tin = _inputs(world["ring5"]["filled"] > 0)
     cfg = dict(required_fresh_symbols=4, min_coverage_ratio=0.5)
-    pairs = _upd_pairs(world)
+    return jstate, tstate, jin, tin, cfg, _upd_pairs(world)
+
+
+@pytest.fixture(scope="module")
+def stepped(world, carries):
+    """Both packages fold the tick's first two sub-batch pairs with the
+    carry-advancing step, then run one incremental wire step on the last,
+    from the same state: mid-phase rings and the reference's init carry."""
+    jstate, tstate, jin, tin, cfg, pairs = _start(world, carries)
     for u5, u15 in pairs[:-1]:
         jstate = jstep.apply_updates_carry_step(
             jstate, tuple(map(jnp.asarray, u5)), tuple(map(jnp.asarray, u15)), btc_row=0)
@@ -400,8 +411,151 @@ def test_incremental_step_state_matches_reference(stepped):
 
 
 # --------------------------------------------------------------------------
+# the same tick with both digests on: counted carry folds, digest blocks,
+# and the same tick in place
+# --------------------------------------------------------------------------
+
+
+def _np(t):
+    return tuple(map(jnp.asarray, t)), tuple(map(torch.from_numpy, t))
+
+
+@pytest.fixture(scope="module")
+def digest_stepped(world, carries):
+    """The tick of ``stepped`` with the ingest digest's counted carry folds
+    and both digest blocks on the wire step."""
+    jstate, tstate, jin, tin, cfg, pairs = _start(world, carries)
+    jcounts = tcounts = None
+    folds = []
+    for u5, u15 in pairs[:-1]:
+        (j5, t5), (j15, t15) = _np(u5), _np(u15)
+        jstate, jcounts = jstep.apply_updates_carry_step_counted(
+            jstate, j5, j15, btc_row=0, counts=jcounts)
+        tstate, tcounts = tstep.apply_updates_carry_step_counted(
+            tstate, t5, t15, btc_row=0, counts=tcounts)
+        folds.append((np.asarray(jcounts), tcounts.numpy().copy()))
+    (j5, t5), (j15, t15) = _np(pairs[-1][0]), _np(pairs[-1][1])
+    flags = dict(wire_enabled=KEY, incremental=True, maintain_carry=True,
+                 numeric_digest=True, ingest_digest=True)
+    jnew, jwire = jstep.tick_step_wire(jstate, j5, j15, jin, JCfg(**cfg), **flags,
+                                       ingest_fold_counts=jcounts)
+    tnew, twire = tstep.tick_step_wire(tstate, t5, t15, tin, TCfg(**cfg), **flags,
+                                       ingest_fold_counts=tcounts)
+    return dict(folds=folds, jfolded=jstate, tfolded=tstate, jwire=np.asarray(jwire),
+                twire=twire.numpy(), tcounts=tcounts, targs=(t5, t15, tin, TCfg(**cfg)),
+                flags=flags)
+
+
+def test_counted_carry_folds_match_reference(digest_stepped):
+    """The (8,) fold counts bit for bit after each fold; the folded rings
+    bit for bit and the folded carry under the carry contract above."""
+    for a, b in digest_stepped["folds"]:
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+    assert digest_stepped["folds"][-1][0][:4].sum() == 60  # both 5m folds were counted
+    jst, tst = digest_stepped["jfolded"], digest_stepped["tfolded"]
+    got = engine_state_to_numpy(tst)
+    for ring in ("buf5", "buf15"):
+        for f in jbuf.MarketBuffer._fields:
+            a = np.asarray(getattr(getattr(jst, ring), f))
+            assert np.array_equal(a, got[ring][f], equal_nan=a.dtype.kind == "f"), (ring, f)
+    _compare_carries(jst.indicator_carry, tst.indicator_carry, "after the counted folds")
+
+
+def test_incremental_digest_wire_matches_reference(digest_stepped):
+    """The pre-digest wire under the contract above; the numeric digest's
+    counts exact, its stats and margins within the float contract of the
+    wire (rtol 1e-5; margins within 8 ulps of the 0-100 indicator scale);
+    the ingest digest — the tick's batch plus the two folds' counts — bit
+    for bit."""
+    jw, tw = digest_stepped["jwire"], digest_stepped["twire"]
+    assert tw.shape == jw.shape == (tstep.wire_length(S, True, True),)
+    base = tstep.wire_length(S)
+    off, K = tstep.WIRE_FIRED_COUNT_OFF, tstep.WIRE_MAX_FIRED
+    assert jw[off] == tw[off] and jw[off] > 0
+    np.testing.assert_array_equal(jw[off + 1: off + 1 + 4 * K], tw[off + 1: off + 1 + 4 * K])
+    scale = np.maximum(np.abs(jw[:base]), 1.0)
+    fin = np.isfinite(jw[:base])
+    assert np.array_equal(fin, np.isfinite(tw[:base]))
+    assert np.all(np.abs(tw[:base][fin] - jw[:base][fin]) <= 1e-5 * scale[fin])
+    _, jctx = jstep.unpack_wire(jw, numeric_digest=True, ingest_digest=True)
+    _, tctx = tstep.unpack_wire(tw, numeric_digest=True, ingest_digest=True)
+    margin_tol = 8 * float(np.spacing(np.float32(100.0)))
+    for name, a, b in zip(tstep.numeric_digest_layout(), jctx["numeric_digest"],
+                          tctx["numeric_digest"]):
+        assert np.isnan(a) == np.isnan(b), name
+        if name.startswith("margin."):
+            assert np.isnan(a) or abs(a - b) <= margin_tol, (name, a, b)
+        elif name.startswith(tuple(f"{x}." for x in tstep.NUMERIC_SERIES)):
+            assert np.isnan(a) or abs(a - b) <= 1e-5 * abs(a), (name, a, b)
+        else:
+            assert a == b, (name, a, b)
+    np.testing.assert_array_equal(jctx["ingest_digest"].view(np.int32),
+                                  tctx["ingest_digest"].view(np.int32))
+    dec = tstep.decode_ingest_digest(tctx["ingest_digest"])
+    # three 5m sub-batches (two folded) of 30 rows each, one 15m batch
+    routed = ("appends", "rewrites", "dropped")
+    assert sum(dec["5m"][k] for k in routed) == 90 and dec["15m"]["appends"] == 30
+
+
+def _leaves_equal(a, b) -> None:
+    la, _ = torch.utils._pytree.tree_flatten(a)
+    lb, _ = torch.utils._pytree.tree_flatten(b)
+    assert len(la) == len(lb)
+    for i, (x, y) in enumerate(zip(la, lb)):
+        assert x.dtype == y.dtype and x.shape == y.shape, i
+        if x.dtype.is_floating_point:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), i
+
+
+def test_inplace_incremental_step_and_its_fallback_equal_the_copying_step(digest_stepped):
+    """The incremental tick in place: wire, rings and carry equal the
+    copying step's bit for bit; the in-place fallback (post-tick rings,
+    empty batches, pre-tick small carries) re-derives the copying step's
+    TickOutputs bit for bit but for the ingest digest's counts."""
+    t5, t15, tin, tcfg = digest_stepped["targs"]
+    flags = digest_stepped["flags"]
+    folded = digest_stepped["tfolded"]
+    counts = digest_stepped["tcounts"]
+    copy_state, copy_out = tstep.tick_step(folded, t5, t15, tin, tcfg, **flags,
+                                           ingest_fold_counts=counts)
+    np.testing.assert_array_equal(copy_out.wire.numpy(), digest_stepped["twire"])
+    pre = engine_state_from_numpy(engine_state_to_numpy(folded), "cpu")
+    ring = pre.buf5.values
+    post, wire = tstep.tick_step_wire_inplace(pre, t5, t15, tin, tcfg, **flags,
+                                              ingest_fold_counts=counts)
+    assert post.buf5.values is ring and ring._version > 0  # the ring itself moved on
+    np.testing.assert_array_equal(wire.numpy().view(np.int32), copy_out.wire.numpy().view(np.int32))
+    _leaves_equal(post, copy_state)
+
+    empty = (torch.zeros(0, dtype=torch.int32), torch.zeros(0, dtype=torch.int32),
+             torch.zeros((0, F), dtype=torch.float32))
+    fb_state = post._replace(
+        regime_carry=pre.regime_carry, mrf_last_emitted=pre.mrf_last_emitted,
+        pt_last_signal_close=pre.pt_last_signal_close, indicator_carry=pre.indicator_carry,
+    )
+    _, fb = tstep.tick_step(fb_state, empty, empty, tin, tcfg, **flags)
+    n = len(wire) - tstep.INGEST_DIGEST_WIDTH
+    np.testing.assert_array_equal(fb.wire.numpy()[:n].view(np.int32),
+                                  copy_out.wire.numpy()[:n].view(np.int32))
+    jf = tstep.decode_ingest_digest(fb.wire.numpy()[n:])
+    jc = tstep.decode_ingest_digest(copy_out.wire.numpy()[n:])
+    for iv in tstep.INGEST_INTERVALS:
+        for f in tstep.INGEST_STAT_FIELDS:
+            assert jf[iv][f] == jc[iv][f], (iv, f)
+        assert all(jf[iv][f] == 0 for f in tstep.INGEST_COUNT_FIELDS)  # no batch
+    _leaves_equal(fb._replace(wire=torch.zeros(0)), copy_out._replace(wire=torch.zeros(0)))
+
+
+# --------------------------------------------------------------------------
 # the port's incremental engine against its own classic engine
 # --------------------------------------------------------------------------
+
+
+# the serial loop (depth 0) with copied rings and no digests or meter: the
+# engine tests below read each tick's own wire and keep each tick's state
+SERIAL = dict(pipeline_depth=0, donate=False, numeric_digest=False, ingest_digest=False,
+              drift_meter=False)
 
 
 def _drive(engine, seq) -> list[tuple]:
@@ -424,7 +578,7 @@ def test_incremental_engine_matches_classic_at_resync_ticks(tmp_path):
     path = tmp_path / "rp.jsonl"
     treplay.generate_replay_file(path, n_symbols=16, n_ticks=112, seed=11)
     seq = treplay.tick_seq(path)
-    kw = dict(capacity=32, window=W, device="cpu")
+    kw = dict(capacity=32, window=W, device="cpu", **SERIAL)
     incr = _drive(treplay.make_stub_engine(incremental=True, carry_audit_every=12, **kw), seq)
     classic = _drive(treplay.make_stub_engine(incremental=False, **kw), seq)
 
@@ -461,7 +615,7 @@ def test_overflow_fallback_reruns_the_same_path(tmp_path):
     path = tmp_path / "rp.jsonl"
     treplay.generate_replay_file(path, n_symbols=12, n_ticks=12, seed=5)
     engine = treplay.make_stub_engine(capacity=16, window=W, device="cpu",
-                                      incremental=True, carry_audit_every=5)
+                                      incremental=True, carry_audit_every=5, **SERIAL)
     paths = []
 
     async def run():

@@ -1,7 +1,8 @@
 """The port's replay against the reference engine's, end to end.
 
 Both packages generate the same 120-tick, 24-symbol replay file and drive it
-through their own ``run_replay`` on the classic path at depth 0 (capacity
+through their own ``run_replay`` on the classic path at depth 0 (the port
+with copied rings and no digests; capacity
 64, window 200: the drive shapes of ``tests/test_ab_parity.py``), the port
 on the CPU. The emitted signal tuples ``(tick_ms, strategy, symbol,
 direction, autotrade)`` must be EQUAL, in order, and something must fire.
@@ -42,7 +43,8 @@ def test_signal_tuples_equal_reference(replay_path):
     port_sig: list = []
     stats = treplay.run_replay(
         replay_path, capacity=CAPACITY, window=WINDOW, collect=port_sig,
-        device="cpu", incremental=False,
+        device="cpu", incremental=False, pipeline_depth=0, donate=False,
+        numeric_digest=False, ingest_digest=False,
     )
     assert stats["device"] == "cpu" and stats["ticks"] == 120
     assert len(jax_sig) > 0  # the crafted setups fire: not an empty-vs-empty match

@@ -280,3 +280,129 @@ def test_overflow_emission_reads_the_full_outputs(inputs, stepped):
     assert _signals(over) == _signals(via_wire) and over
     for a, b in zip(via_wire, over):
         _check_analytics(a.analytics, b.analytics)
+
+
+# --------------------------------------------------------------------------
+# the same tick with both digests on, a NaN close smuggled past the gate,
+# and the same tick in place
+# --------------------------------------------------------------------------
+
+# a full, tracked row (not BTC): the gate promises its values finite. Only
+# its 5m close is poisoned: a NaN 15m close would turn the market context's
+# aggregates NaN too and silence every strategy
+POISON_ROW = 10
+# a gate margin is the distance of an RSI/MFI (0-100 points) from its
+# threshold: it carries that indicator's few-ulp difference at its scale
+MARGIN_TOL = 8 * float(np.spacing(np.float32(100.0)))
+
+
+def _poisoned(upd, to):
+    rows, ts, vals = (np.array(a) for a in upd)
+    vals[POISON_ROW, jbuf.Field.CLOSE] = np.nan
+    return tuple(to(a) for a in (rows, ts, vals))
+
+
+@pytest.fixture(scope="module")
+def digest_stepped(inputs):
+    jstate, ju5, ju15, jin, jcfg = inputs["jargs"]
+    tstate, tu5, tu15, tin, tcfg = inputs["targs"]
+    jargs = (jstate, _poisoned(ju5, jnp.asarray), ju15, jin, jcfg)
+    targs = (tstate, _poisoned(tu5, torch.from_numpy), tu15, tin, tcfg)
+    paths = dict(wire_enabled=KEY, incremental=False, maintain_carry=False)
+    _, jwire = jstep.tick_step_wire(*jargs, **paths, numeric_digest=True, ingest_digest=True)
+    _, twire = tstep.tick_step_wire(*targs, **paths, numeric_digest=True, ingest_digest=True)
+    _, toff = tstep.tick_step_wire(*targs, **paths)
+    return np.asarray(jwire), twire.numpy(), toff.numpy()
+
+
+def test_digest_wire_is_an_append_to_the_plain_wire(digest_stepped):
+    jw, tw, toff = digest_stepped
+    assert tw.shape == jw.shape == (tstep.wire_length(S, True, True),)
+    assert toff.shape == (tstep.wire_length(S),)
+    np.testing.assert_array_equal(tw[: len(toff)].view(np.int32), toff.view(np.int32))
+    off, K = tstep.WIRE_FIRED_COUNT_OFF, tstep.WIRE_MAX_FIRED
+    assert jw[off] == tw[off] and jw[off] > 0
+    np.testing.assert_array_equal(jw[off + 1: off + 1 + 4 * K], tw[off + 1: off + 1 + 4 * K])
+
+
+def test_numeric_digest_matches_reference_with_nan_past_the_gate(digest_stepped):
+    """Counts (leaked NaN/Inf rows per stage, non-finite and fired counts
+    per strategy) exact; close/volume stats exact (ring columns); score
+    stats at the wire's float contract (rtol 1e-5); gate margins within
+    ``MARGIN_TOL``."""
+    jw, tw, _ = digest_stepped
+    _, jctx = jstep.unpack_wire(jw, numeric_digest=True, ingest_digest=True)
+    _, tctx = tstep.unpack_wire(tw, numeric_digest=True, ingest_digest=True)
+    jd, td = jctx["numeric_digest"], tctx["numeric_digest"]
+    layout = tstep.numeric_digest_layout()
+    for i, name in enumerate(layout):
+        a, b = jd[i], td[i]
+        if name.startswith(("margin.", "score.")):
+            assert np.isnan(a) == np.isnan(b), name
+            tol = MARGIN_TOL if name.startswith("margin.") else 1e-5 * abs(a)
+            assert np.isnan(a) or abs(a - b) <= tol, (name, a, b)
+        else:
+            assert a.view(np.int32) == b.view(np.int32), (name, a, b)
+    dec = tstep.decode_numeric_digest(td)
+    # the smuggled NaN is counted as leakage in the 5m feature stage
+    assert dec["nan_rows"]["features5"] >= 1 and dec["nan_total"] >= 1
+    assert dec["fired"] == jstep.decode_numeric_digest(jd)["fired"]
+    assert sum(dec["fired"].values()) == int(jw[tstep.WIRE_FIRED_COUNT_OFF])
+
+
+def test_ingest_digest_bit_exact(digest_stepped):
+    jw, tw, _ = digest_stepped
+    jd = jstep.unpack_wire(jw, numeric_digest=True, ingest_digest=True)[1]["ingest_digest"]
+    td = tstep.unpack_wire(tw, numeric_digest=True, ingest_digest=True)[1]["ingest_digest"]
+    np.testing.assert_array_equal(jd.view(np.int32), td.view(np.int32))
+    dec = tstep.decode_ingest_digest(td)
+    # the batches' correction and stale insert are routed and counted
+    assert dec["15m"]["rewrites"] == 1 and dec["15m"]["dropped"] == 1
+    assert dec["5m"]["appends"] > 0
+
+
+def _leaves_equal(a, b, skip_wire_tail: int = 0) -> None:
+    la, _ = torch.utils._pytree.tree_flatten(a)
+    lb, _ = torch.utils._pytree.tree_flatten(b)
+    assert len(la) == len(lb)
+    for i, (x, y) in enumerate(zip(la, lb)):
+        assert x.dtype == y.dtype and x.shape == y.shape, i
+        if x.dtype.is_floating_point:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), i
+
+
+def test_inplace_step_and_its_fallback_equal_the_copying_step(inputs):
+    """The full tick, in place: its wire and rings equal the copying
+    step's bit for bit, and the in-place fallback (post-tick rings, empty
+    batches, the pre-tick small carries) re-derives the copying step's
+    TickOutputs bit for bit — but for the ingest digest's counts, which an
+    empty batch does not have."""
+    tstate, u5, u15, tin, tcfg = inputs["targs"]
+    paths = dict(wire_enabled=KEY, incremental=False, maintain_carry=False,
+                 numeric_digest=True, ingest_digest=True)
+    copy_state, copy_out = tstep.tick_step(tstate, u5, u15, tin, tcfg, **paths)
+    pre = engine_state_from_numpy(engine_state_to_numpy(tstate), "cpu")
+    planes = (pre.buf5.values, pre.buf15.times)
+    post, wire = tstep.tick_step_wire_inplace(pre, u5, u15, tin, tcfg, **paths)
+    assert planes[0]._version > 0 and planes[1]._version > 0  # written in place
+    np.testing.assert_array_equal(wire.numpy().view(np.int32), copy_out.wire.numpy().view(np.int32))
+    _leaves_equal((post.buf5, post.buf15), (copy_state.buf5, copy_state.buf15))
+
+    empty = (torch.zeros(0, dtype=torch.int32), torch.zeros(0, dtype=torch.int32),
+             torch.zeros((0, F), dtype=torch.float32))
+    fb_state = post._replace(
+        regime_carry=pre.regime_carry, mrf_last_emitted=pre.mrf_last_emitted,
+        pt_last_signal_close=pre.pt_last_signal_close, indicator_carry=pre.indicator_carry,
+    )
+    _, fb = tstep.tick_step(fb_state, empty, empty, tin, tcfg, **paths)
+    n_counts = len(tstep.INGEST_COUNT_FIELDS)
+    width = len(tstep.INGEST_STAT_FIELDS) + n_counts
+    counts = np.concatenate([np.arange(1 + width - n_counts, 1 + width),
+                             np.arange(1 + 2 * width - n_counts, 1 + 2 * width)])
+    keep = np.ones(len(wire), bool)
+    keep[len(wire) - tstep.INGEST_DIGEST_WIDTH + counts] = False
+    np.testing.assert_array_equal(fb.wire.numpy()[keep].view(np.int32),
+                                  copy_out.wire.numpy()[keep].view(np.int32))
+    assert not fb.wire.numpy()[~keep].any()  # no batch, no counts
+    _leaves_equal(fb._replace(wire=torch.zeros(0)), copy_out._replace(wire=torch.zeros(0)))
