@@ -20,7 +20,10 @@ pipelined production loop:
   rows per tick;
 * ``drift_meter`` — every audit tick measures how far the carried
   indicator state drifted from a fresh recompute, alarming past
-  ``drift_tol`` (scale-normalized).
+  ``drift_tol`` (scale-normalized);
+* ``outcomes_enabled`` — every emitted signal registers with the outcome
+  tracker and matures at ``outcome_horizons`` 5m bars against the live
+  ring, at most ``outcome_cap`` open signals (``obs/outcomes.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +47,9 @@ class Config:
     ingest_stale_budget: int = 0
     drift_meter: bool = True
     drift_tol: float = 0.05
+    outcomes_enabled: bool = True
+    outcome_horizons: tuple[int, ...] = (1, 4, 16, 96)
+    outcome_cap: int = 1024
     env: str = field(default_factory=lambda: os.environ.get("ENV", ""))
 
     @property

@@ -1,14 +1,14 @@
 """The per-tick step: the live wire path on the card.
 
-Port of ``binquant_tpu/engine/step.py`` for the live wire step
-(``compute_all=False``): apply the candle updates to the two rings, compute
-the feature packs, the market context, the BTC-relative block and the five
-live strategies for ALL symbols at once, and pack everything the host needs
-into ONE float32 wire — context scalars, a fixed-size compaction of the
-fired (strategy, row) pairs, a per-slot emission payload, the (3, S)
-calibration rows and, behind their flags, the numeric-health digest and the
-ingest-health digest (in that order, strictly after the calibration rows,
-so every earlier offset is the same either way). The wire layout is the
+Port of ``binquant_tpu/engine/step.py``: apply the candle updates to the
+two rings, compute the feature packs, the market context, the BTC-relative
+block, the spike detector and every strategy the tick evaluates for ALL
+symbols at once, and pack everything the host needs into ONE float32 wire —
+context scalars, a fixed-size compaction of the fired (strategy, row)
+pairs, a per-slot emission payload, the (3, S) calibration rows and,
+behind their flags, the numeric-health digest and the ingest-health digest
+(in that order, strictly after the calibration rows, so every earlier
+offset is the same either way). The wire layout is the
 reference's, so :func:`unpack_wire` decodes either package's wire.
 
 The step has a copying form (the default: the rings are cloned before the
@@ -36,9 +36,18 @@ Two paths, chosen by the host per tick:
   the packs, the context's symbol features, ABP, LSP and the beta/corr
   block from the carry.
 
-Dormant strategies are not evaluated: they ride the summary as
-``no_signal`` rows, exactly as the reference's wire-only step compiles them
-away. The spike detector feeds only a dormant strategy and is skipped.
+Which strategies a tick evaluates: the five live ones that
+``wire_enabled`` names, the two carry-owning ones (PriceTracker,
+MeanReversionFade) always, and each of the nine dormant strategies that
+``wire_enabled`` names; under ``compute_all`` (the full-outputs
+:func:`tick_step`, as in the reference) every one of them. A strategy not
+evaluated rides the summary as a ``no_signal`` row; a name outside
+:data:`STRATEGY_ORDER` is ignored. The spike detector
+(:func:`~binquant_tpu_torch.strategies.spike_hunter.detect_spikes`, the
+qtail kernel's ``detect_spikes`` call site) runs when
+RangeFailedBreakoutFade is evaluated, and its verdict rides
+``TickOutputs.spikes`` (None otherwise). On the incremental path
+SupertrendSwingReversal reads the supertrend direction from the carry.
 """
 
 from __future__ import annotations
@@ -103,6 +112,18 @@ from binquant_tpu_torch.strategies.activity_burst_pump import (
     empty_abp_carry,
 )
 from binquant_tpu_torch.strategies.base import StrategyOutputs, no_signal
+from binquant_tpu_torch.strategies.dormant import (
+    BBXParams,
+    bb_extreme_reversion,
+    buy_low_sell_high,
+    buy_the_dip,
+    inverse_price_tracker,
+    range_bb_rsi_mean_reversion,
+    range_failed_breakout_fade,
+    relative_strength_reversal_range,
+    supertrend_swing_reversal,
+    twap_momentum_sniper,
+)
 from binquant_tpu_torch.strategies.features import (
     FeatureCarry,
     FeaturePack,
@@ -127,6 +148,7 @@ from binquant_tpu_torch.strategies.liquidation_sweep_pump import (
 from binquant_tpu_torch.strategies.mean_reversion_fade import mean_reversion_fade
 from binquant_tpu_torch.strategies.params import resolve_params
 from binquant_tpu_torch.strategies.price_tracker import price_tracker
+from binquant_tpu_torch.strategies.spike_hunter import SpikeSignal, detect_spikes
 
 I32 = torch.int32
 F32 = torch.float32
@@ -304,6 +326,7 @@ class TickOutputs(NamedTuple):
     long_gate: torch.Tensor
     pack5: FeaturePack
     pack15: FeaturePack
+    spikes: SpikeSignal | None  # None when RangeFailedBreakoutFade was not evaluated
     btc_beta: torch.Tensor
     btc_corr: torch.Tensor
     btc_price_change_96: torch.Tensor
@@ -468,11 +491,14 @@ def _advance_tail_floor(params=None) -> int:
     )
 
 
-def _incr_tail_width(window: int, wire_enabled: tuple[str, ...], params=None) -> int:
+def _incr_tail_width(
+    window: int, wire_enabled: tuple[str, ...], compute_all: bool = False, params=None
+) -> int:
     """Width of the incremental tick's materialized tail: the whole window
-    when a deep-window strategy is on the wire, else the advance's floor.
-    Values read through either width are identical."""
-    if any(s in DEEP_WINDOW_STRATEGIES for s in wire_enabled):
+    under ``compute_all`` or when a deep-window strategy is on the wire,
+    else the advance's floor. Values read through either width are
+    identical, so the wire is the same either way."""
+    if compute_all or any(s in DEEP_WINDOW_STRATEGIES for s in wire_enabled):
         return window
     return min(window, _advance_tail_floor(params))
 
@@ -1108,6 +1134,7 @@ def _tick_step_impl(
     ingest_digest: bool = False,
     ingest_fold_counts: torch.Tensor | None = None,
     inplace: bool = False,
+    compute_all: bool = False,
 ) -> tuple[EngineState, TickOutputs]:
     """One tick: apply the (row_idx, ts_s, vals) update batches, evaluate,
     pack the wire.
@@ -1123,7 +1150,9 @@ def _tick_step_impl(
 
     Only the strategies in ``wire_enabled`` are evaluated, except the two
     carry-owning ones (PriceTracker, MeanReversionFade), which always run so
-    their device dedupe state advances identically whatever is enabled.
+    their device dedupe state advances identically whatever is enabled;
+    ``compute_all`` evaluates every strategy (the full-outputs variant).
+    The wire's fired block and payload carry the ``wire_enabled`` set only.
 
     ``numeric_digest`` and ``ingest_digest`` append their blocks to the
     wire; both off, the wire is the pre-digest layout bit for bit.
@@ -1150,9 +1179,11 @@ def _tick_step_impl(
     # mid-phase; the full tick gathers whole windows and its returned
     # rings are canonical (cursor 0)
     if incremental:
-        buf5 = materialize_tail(ring5, _incr_tail_width(ring5.window, wire_enabled, params))
+        buf5 = materialize_tail(
+            ring5, _incr_tail_width(ring5.window, wire_enabled, compute_all, params)
+        )
         buf15 = materialize_tail(
-            ring15, _incr_tail_width(ring15.window, wire_enabled, params)
+            ring15, _incr_tail_width(ring15.window, wire_enabled, compute_all, params)
         )
     else:
         ring5 = materialize(ring5)
@@ -1242,7 +1273,7 @@ def _tick_step_impl(
     skipped = no_signal(S, device=dev)
 
     def want(name: str) -> bool:
-        return name in wire_enabled
+        return compute_all or name in wire_enabled
 
     if not want("activity_burst_pump"):
         abp = skipped
@@ -1286,16 +1317,69 @@ def _tick_step_impl(
         else skipped
     )
 
-    strategies = {name: skipped for name in STRATEGY_ORDER}
-    strategies.update(
-        {
-            "activity_burst_pump": abp,
-            "coinrule_price_tracker": pt,
-            "liquidation_sweep_pump": lsp,
-            "mean_reversion_fade": mrf,
-            "grid_ladder": ladder,
-        }
-    )
+    # --- the dormant set, in the reference's order
+    ok5f, ok15f = ok5 & fresh5, ok15 & fresh15
+    spikes = detect_spikes(buf15) if want("range_failed_breakout_fade") else None
+    sts = twap = blsh = btd = bbx = ipt = rbr = rfbf = rsr = skipped
+    if want("coinrule_supertrend_swing_reversal"):
+        st_up_carry = None
+        if incremental:
+            # the carried supertrend readout under the scan's own validity
+            # rules (ATR warm and unpoisoned); stale rows read not-up
+            stc = indicator_carry.st5
+            st_up_carry = (
+                (stc.n_seen >= ST_WINDOW) & torch.isfinite(stc.atr) & (stc.direction > 0)
+                & ~stale5
+            )
+        sts = _mask_outputs(
+            supertrend_swing_reversal(
+                buf5, pack5, context, long_gate, inputs.adp_diff, inputs.adp_diff_prev,
+                inputs.dominance_is_losers, st_up=st_up_carry,
+            ),
+            ok5f,
+        )
+    if want("coinrule_twap_momentum_sniper"):
+        twap = _mask_outputs(twap_momentum_sniper(buf15, pack5), ok5f)
+    if want("coinrule_buy_low_sell_high"):
+        blsh = _mask_outputs(
+            buy_low_sell_high(buf15, pack15, inputs.market_domination_reversal), ok15f
+        )
+    if want("coinrule_buy_the_dip"):
+        btd = _mask_outputs(buy_the_dip(buf15, pack15, context, quiet_suppressed), ok15f)
+    if want("bb_extreme_reversion"):
+        # the reference ships BBX disabled: naming it on the wire enables it
+        bbx = _mask_outputs(
+            bb_extreme_reversion(
+                buf15, pack15, context,
+                BBXParams(enabled="bb_extreme_reversion" in wire_enabled),
+            ),
+            ok15f,
+        )
+    if want("inverse_price_tracker"):
+        ipt = _mask_outputs(inverse_price_tracker(pack5, context), ok5f)
+    if want("range_bb_rsi_mean_reversion"):
+        rbr = _mask_outputs(range_bb_rsi_mean_reversion(buf15, pack15, context), ok15f)
+    if want("range_failed_breakout_fade"):
+        rfbf = _mask_outputs(range_failed_breakout_fade(spikes, context), ok15f)
+    if want("relative_strength_reversal_range"):
+        rsr = _mask_outputs(relative_strength_reversal_range(buf15, pack15, context), ok15f)
+
+    strategies = {
+        "activity_burst_pump": abp,
+        "coinrule_price_tracker": pt,
+        "liquidation_sweep_pump": lsp,
+        "mean_reversion_fade": mrf,
+        "grid_ladder": ladder,
+        "coinrule_supertrend_swing_reversal": sts,
+        "coinrule_twap_momentum_sniper": twap,
+        "coinrule_buy_low_sell_high": blsh,
+        "coinrule_buy_the_dip": btd,
+        "bb_extreme_reversion": bbx,
+        "inverse_price_tracker": ipt,
+        "range_bb_rsi_mean_reversion": rbr,
+        "range_failed_breakout_fade": rfbf,
+        "relative_strength_reversal_range": rsr,
+    }
     summary = build_summary(strategies)
     digest = ingest_block = None
     if numeric_digest:
@@ -1349,6 +1433,7 @@ def _tick_step_impl(
         long_gate=long_gate,
         pack5=pack5,
         pack15=pack15,
+        spikes=spikes,
         btc_beta=btc_beta,
         btc_corr=btc_corr,
         btc_price_change_96=btc_change_96,
@@ -1372,11 +1457,16 @@ def tick_step(
     numeric_digest: bool = False,
     ingest_digest: bool = False,
     ingest_fold_counts: torch.Tensor | None = None,
+    compute_all: bool = True,
 ) -> tuple[EngineState, TickOutputs]:
-    """The copying step with every output (tests, overflow fallback)."""
+    """The copying step with every output (tests, overflow fallback). By
+    default it evaluates every strategy (``compute_all``), as the
+    reference's full-outputs step does; the wire's fired block still
+    carries the ``wire_enabled`` set only."""
     return _tick_step_impl(
         state, upd5, upd15, inputs, cfg, wire_enabled, incremental,
         maintain_carry, params, numeric_digest, ingest_digest, ingest_fold_counts,
+        compute_all=compute_all,
     )
 
 

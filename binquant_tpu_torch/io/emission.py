@@ -60,6 +60,8 @@ __all__ = [
 # strategies that trade FUTURES in their bot params
 _FUTURES_BOT_STRATEGIES = {"activity_burst_pump", "mean_reversion_fade"}
 _NO_REVERSAL = {"coinrule_price_tracker", "mean_reversion_fade"}
+# BuyTheDip's bot reverses into a margin short
+_WITH_REVERSAL = {"coinrule_buy_the_dip"}
 
 
 def _name(enum_cls, code: int, fallback: str | None = "UNAVAILABLE") -> str | None:
@@ -266,6 +268,8 @@ def extract_fired(
                     bot_kwargs["market_type"] = MarketType(market_type)
                 if strategy in _NO_REVERSAL:
                     bot_kwargs["margin_short_reversal"] = False
+                if strategy in _WITH_REVERSAL:
+                    bot_kwargs["margin_short_reversal"] = True
                 if strategy == "mean_reversion_fade":
                     bot_kwargs["dynamic_trailing"] = True
                     bot_kwargs["stop_loss"] = stop_loss

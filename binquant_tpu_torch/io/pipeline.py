@@ -53,10 +53,18 @@ counts cover every folded sub-batch (the counted folds). With
 fresh init (:func:`measure_carry_drift`, on a functional copy that never
 touches ``self.state``) into :class:`DriftMeter`.
 
+Signal outcomes (``outcomes_enabled``, production on): at finalize, every
+emitted signal registers with :class:`OutcomeTracker`, anchored on the
+evaluated 5m bar, and everything due matures against the engine's current
+5m ring in one gather (timestamp-bounded, so reading the ring a tick later
+at depth 1 matures the same set).
+
 Host carries feeding the step: the grid-only policy (resolved from the
 previous tick's regime and the breadth series), the London quiet window of
-the evaluated tick's clock, and the breadth scalars of a static breadth
-series (the stub's; the REST client is not ported). Method names and call
+the evaluated tick's clock, the breadth scalars of a static breadth series
+(the stub's; the REST client is not ported), and the market-dominance
+flags ``dominance_is_losers`` and ``market_domination_reversal`` (False, the
+reference's NEUTRAL, unless a caller scripts them). Method names and call
 shapes follow the reference engine, ``async def process_tick`` included.
 """
 
@@ -101,6 +109,7 @@ from binquant_tpu_torch.engine.step import (
 from binquant_tpu_torch.io.emission import RecordingSinks, extract_fired
 from binquant_tpu_torch.obs.ingest import IngestHealthMonitor
 from binquant_tpu_torch.obs.numeric import DriftMeter, NumericHealthMonitor
+from binquant_tpu_torch.obs.outcomes import OutcomeTracker
 from binquant_tpu_torch.regime.context import ContextConfig
 from binquant_tpu_torch.regime.grid_policy import GridOnlyPolicy
 from binquant_tpu_torch.regime.time_filter import is_quiet_hours
@@ -244,6 +253,14 @@ class SignalEngine:
         # a classic engine has no carry to drift
         self.drift_meter_enabled = bool(self.config.drift_meter) and self.incremental
         self.drift = DriftMeter(tol=self.config.drift_tol)
+        # -- the signal-outcome observatory and the dominance flags
+        self.outcomes = OutcomeTracker(
+            enabled=bool(self.config.outcomes_enabled),
+            horizons=tuple(self.config.outcome_horizons),
+            cap=int(self.config.outcome_cap),
+        )
+        self.dominance_is_losers = False
+        self.market_domination_reversal = False
 
     # -- ingest ---------------------------------------------------------------
 
@@ -435,8 +452,8 @@ class SignalEngine:
                 quiet,
                 self.grid_only_policy.allow_grid_ladder,
                 str(self.market_type).upper().endswith("FUTURES"),
-                False,  # dominance_is_losers: NEUTRAL
-                False,  # market_domination_reversal
+                bool(self.dominance_is_losers),
+                bool(self.market_domination_reversal),
             ],
             dtype=torch.bool,
         ).to(self.device)
@@ -734,6 +751,19 @@ class SignalEngine:
         for signal in fired:
             signal.tick_ms = pending.ts_ms
             self.sinks.dispatch(signal)
+        # the emitted set enters the open registry anchored on this tick's
+        # evaluated 5m bar; everything due matures against the current ring
+        if self.outcomes.enabled:
+            for signal in fired:
+                self.outcomes.register(
+                    strategy=signal.strategy,
+                    symbol=signal.symbol,
+                    row=signal.row,
+                    entry_ts5=ts5,
+                    direction=signal.value.direction,
+                    tick_ms=pending.ts_ms,
+                )
+            self.outcomes.on_tick(ts5, self.state.buf5)
         return fired
 
     def _already_emitted(

@@ -4,8 +4,10 @@ Feeds a JSONL file of closed klines through the engine with every sink
 stubbed: one engine tick per 15m delivery bucket, ``now_ms`` just after the
 bucket's bars close. Own copies of the reference's replay-file generator and
 tick grouping (``binquant_tpu/io/replay.py``), so the two packages replay
-identical streams (and the reference's overflow drill,
-:func:`generate_burst_replay`).
+identical streams: the reference's overflow drill
+(:func:`generate_burst_replay`), its two dormant-strategy markets
+(:func:`generate_dormant_replay`, :func:`generate_dormant_extended_replay`)
+and its signal-outcome stream (:func:`generate_outcome_replay`).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 from binquant_tpu_torch.config import Config
 from binquant_tpu_torch.io.emission import RecordingSinks
 from binquant_tpu_torch.io.pipeline import SignalEngine
+from binquant_tpu_torch.obs.events import get_event_log
 from binquant_tpu_torch.regime.context import ContextConfig
 
 
@@ -39,13 +42,16 @@ def make_stub_engine(
     numeric_digest: bool | None = None,
     ingest_digest: bool | None = None,
     drift_meter: bool | None = None,
+    outcomes: bool | None = None,
+    outcome_horizons: tuple[int, ...] | None = None,
 ) -> SignalEngine:
     """A SignalEngine wired to recording sinks (no network), futures market
     type, small-universe context gates unless ``context_config`` is given.
     Runs on ``device`` — CUDA by default; raises when CUDA is missing unless
     ``device="cpu"``. Every other argument left None keeps the config's
-    production default: depth 1 with rings in place, both digests and the
-    drift meter on, the incremental path with an audit every 256 ticks."""
+    production default: depth 1 with rings in place, both digests, the drift
+    meter and the outcome tracker on, the incremental path with an audit
+    every 256 ticks."""
     config = Config(
         max_symbols=capacity, window_bars=window, env=os.environ.get("ENV", "CI")
     )
@@ -57,10 +63,13 @@ def make_stub_engine(
         "numeric_digest": numeric_digest,
         "ingest_digest": ingest_digest,
         "drift_meter": drift_meter,
+        "outcomes_enabled": outcomes,
     }
     for name, value in overrides.items():
         if value is not None:
             setattr(config, name, type(getattr(config, name))(value))
+    if outcome_horizons is not None:
+        config.outcome_horizons = tuple(int(h) for h in outcome_horizons)
     return SignalEngine(
         config=config,
         sinks=RecordingSinks(),
@@ -126,12 +135,21 @@ def run_replay(
     numeric_digest: bool | None = None,
     ingest_digest: bool | None = None,
     drift_meter: bool | None = None,
+    dominance_is_losers: bool = False,
+    market_domination_reversal: bool = False,
+    outcomes: bool | None = None,
+    outcome_horizons: tuple[int, ...] | None = None,
+    collect_outcomes: list | None = None,
 ) -> dict:
     """Replay a JSONL kline file; returns run statistics, the routing
     counters among them. With ``collect`` a list, every fired signal is
     appended as a :func:`signal_tuples` tuple. The engine's arguments are
     :func:`make_stub_engine`'s; the ticks still in flight at the end of the
-    file are flushed."""
+    file are flushed. ``dominance_is_losers`` and
+    ``market_domination_reversal`` script the host's market-dominance flags
+    (the dominance-gated dormant strategies read them). With the outcome
+    tracker on, the stats carry its scoreboard under ``outcomes`` and
+    ``collect_outcomes`` (a list) receives the sorted matured set."""
     engine = make_stub_engine(
         capacity=capacity,
         window=window,
@@ -146,7 +164,11 @@ def run_replay(
         numeric_digest=numeric_digest,
         ingest_digest=ingest_digest,
         drift_meter=drift_meter,
+        outcomes=outcomes,
+        outcome_horizons=outcome_horizons,
     )
+    engine.dominance_is_losers = dominance_is_losers
+    engine.market_domination_reversal = market_domination_reversal
     seq = tick_seq(path)
     fired_total = 0
     t_start = time.perf_counter()
@@ -167,7 +189,14 @@ def run_replay(
     asyncio.run(drive())
     wall = time.perf_counter() - t_start
     lat = np.asarray(engine.tick_wall_ms, dtype=np.float64)
+    outcome_summary = None
+    if engine.outcomes.enabled:
+        if collect_outcomes is not None:
+            collect_outcomes.extend(sorted(engine.outcomes.matured_set()))
+        outcome_summary = engine.outcomes.scoreboard()
+        get_event_log().emit("outcome_summary", **outcome_summary)
     return {
+        **({"outcomes": outcome_summary} if outcome_summary else {}),
         "device": str(engine.device),
         "ticks": len(seq),
         "signals": fired_total,
@@ -309,5 +338,281 @@ def generate_burst_replay(
                     sh = max(sub_o, sub_c) * 1.001
                     sl = min(sub_o, sub_c) * 0.999
                     f.write(_kline_json(symbol, ts15 + j * 300, 300, sub_o, sh, sl, sub_c, vol15 / 3))
+                    sub_o = sub_c
+            px = new_px
+
+
+def _write_bars(path: str | Path, bars: dict, t0: int) -> None:
+    """Write :func:`dormant_market_bars`-shaped bars as a kline file: per
+    tick, per symbol, the 15m bar then its three 5m sub-bars."""
+    b15, b5 = bars["15m"], bars["5m"]
+    n_ticks, n_symbols = b15["close"].shape
+    with open(path, "w") as f:
+        for tick in range(n_ticks):
+            ts15 = t0 + tick * 900
+            for i in range(n_symbols):
+                symbol = "BTCUSDT" if i == 0 else f"S{i:03d}USDT"
+                f.write(_kline_json(symbol, ts15, 900, *(b15[k][tick, i] for k in _OHLCV)))
+                for j in range(3):
+                    f.write(_kline_json(symbol, ts15 + j * 300, 300,
+                                        *(b5[k][tick, i, j] for k in _OHLCV)))
+
+
+_OHLCV = ("open", "high", "low", "close", "volume")
+
+
+def _with_sub_bars(o, h, low, c, vol15, wick: float) -> dict:
+    """The 15m bars and their three 5m sub-bars splitting each 15m move
+    (open to close in thirds, wicks of ``wick`` either side, a third of the
+    volume each); arrays (n_ticks, n_symbols) and (n_ticks, n_symbols, 3)."""
+    sub_c = np.stack([o + (c - o) * ((j + 1) / 3) for j in range(3)], axis=-1)
+    sub_o = np.concatenate([o[..., None], sub_c[..., :2]], axis=-1)
+    return {
+        "15m": dict(open=o, high=h, low=low, close=c, volume=vol15),
+        "5m": dict(
+            open=sub_o,
+            high=np.maximum(sub_o, sub_c) * (1 + wick),
+            low=np.minimum(sub_o, sub_c) * (1 - wick),
+            close=sub_c,
+            volume=np.repeat((vol15 / 3)[..., None], 3, axis=-1),
+        ),
+    }
+
+
+def dormant_market_bars(n_symbols: int = 24, n_ticks: int = 130, seed: int = 23) -> dict:
+    """The bars of :func:`generate_dormant_replay` as arrays: a calm RANGE
+    market with crafted setups for three dormant strategies on the last
+    tick (BuyTheDip, BBExtremeReversion, RangeBbRsiMeanReversion):
+
+    * S002 — BuyTheDip: a −4% shelf drop starting ~22 bars before the end
+      (inside the 24-bar lookback), a flat base, then a green reclaim bar
+      over prev close + EMA20 on the final tick;
+    * S003 — BBExtremeReversion: two consecutive hard red 15m bars ending
+      below the 20-bar −2σ band (Connors RSI(2) pins to 0);
+    * S004 — RangeBbRsiMeanReversion: a choppy zig-zag bleed (keeps the
+      rolling-sum ADX under 32 while RSI(14) sits ≤35) ending in a hammer
+      that undershoots −2σ, closes green near its high, below the mid.
+
+    The rest of the universe oscillates gently so the macro regime stays
+    RANGE with low stress.
+    """
+    rng = np.random.default_rng(seed)
+    levels = 20 + rng.random(n_symbols) * 100
+    closes = np.zeros((n_ticks, n_symbols))
+    # base: per-symbol sine oscillation ±0.25% + tiny noise; BTC flat-ish
+    phase = rng.random(n_symbols) * 2 * np.pi
+    for i in range(n_symbols):
+        wave = 0.0025 * np.sin(2 * np.pi * np.arange(n_ticks) / 16.0 + phase[i])
+        noise = rng.normal(0, 0.0006, n_ticks).cumsum() * 0.2
+        closes[:, i] = levels[i] * (1 + wave + noise)
+    last = n_ticks - 1
+
+    # S002 BuyTheDip: drop over [last-22, last-16], flat base, green pop
+    s = 2
+    base = closes[last - 30, s]
+    for k, t in enumerate(range(last - 22, last - 16)):
+        closes[t, s] = base * (1 - 0.007 * (k + 1))
+    shelf = base * (1 - 0.042)
+    for t in range(last - 16, last):
+        closes[t, s] = shelf * (1 + rng.normal(0, 0.0003))
+    closes[last, s] = shelf * 1.011  # reclaim: > prev close and > EMA20
+
+    # S003 BBX: two hard red bars to below the lower band
+    s = 3
+    lvl = closes[last - 2, s]
+    closes[last - 1, s] = lvl * 0.975
+    closes[last, s] = lvl * 0.950
+
+    # S004 RBR: choppy bleed then hammer (bar shapes set below)
+    s = 4
+    lvl = closes[last - 20, s]
+    px_s4 = lvl
+    for k, t in enumerate(range(last - 19, last)):
+        px_s4 *= (1 - 0.0035) if k % 2 == 0 else (1 + 0.0015)
+        closes[t, s] = px_s4
+    closes[last, s] = closes[last - 1, s] * 0.988  # green close, set shapes below
+
+    c = closes
+    o = np.concatenate([closes[:1], closes[:-1]])  # each bar opens at the last close
+    h, low = np.maximum(o, c) * 1.001, np.minimum(o, c) * 0.999
+    # one volume draw per (tick, symbol), in tick-major order
+    vol15 = np.abs(rng.normal(1000, 150, (n_ticks, n_symbols)))
+    # RBR bleed's up-bars carry tall high wicks: +DM then balances the
+    # down-bars' −DM so the rolling-sum ADX stays under the 32 veto while
+    # closes still bleed (RSI ≤ 35) — the shape the strategy hunts: choppy
+    # range, not a trend
+    up = np.arange(last - 18, last, 2)
+    h[up, 4] = np.maximum(o[up, 4], c[up, 4]) * 1.0075
+    # RBR hammer: gap down, deep low poke through −2σ, green close near
+    # the candle high
+    o[last, 4] = closes[last - 1, 4] * 0.986
+    low[last, 4] = o[last, 4] * 0.9875
+    h[last, 4] = c[last, 4] * 1.0008
+    # BTD reclaim bar: clean green, modest wicks
+    h[last, 2], low[last, 2] = c[last, 2] * 1.0005, o[last, 2] * 0.9995
+    return _with_sub_bars(o, h, low, c, vol15, wick=0.0005)
+
+
+def generate_dormant_replay(
+    path: str | Path,
+    n_symbols: int = 24,
+    n_ticks: int = 130,
+    seed: int = 23,
+) -> None:
+    """Write :func:`dormant_market_bars` as a kline file (15m bars with
+    their 5m sub-bars), the reference's dormant market byte for byte."""
+    _write_bars(path, dormant_market_bars(n_symbols, n_ticks, seed), 1_780_272_000)
+
+
+def dormant_extended_market_bars(
+    n_symbols: int = 24, n_ticks: int = 130, seed: int = 31
+) -> dict:
+    """The bars of :func:`generate_dormant_extended_replay` as arrays: a
+    market for the other dormant strategies (twap sniper, supertrend swing
+    reversal, buy-low-sell-high, inverse price tracker, RS reversal range):
+
+    * most symbols drift mildly up (advancers-heavy TRANSITIONAL/TREND_UP
+      market for IPT's routing; BTC drifts with them);
+    * S005 — a strong 15m rally with wide bars (supertrend pinned up,
+      micro TREND_UP), then six final ticks of tiny red 5m sub-bars: the
+      5m RSI/MFI pin low with MACD negative while the supertrend band
+      holds — SupertrendSwingReversal and InversePriceTracker arm at tick
+      last-1 (with rising scripted breadth + LOSERS dominance for STS);
+    * S006 — an early +15% rally then a slow −0.15%/bar bleed: RSI(14)
+      pins ~0 while price stays above MA25 (BuyLowSellHigh with scripted
+      domination reversal) and under its 80-bar TWAP (TwapMomentumSniper);
+    * final tick — BTC and S008..S017 drop ~5% while S007 pumps +3.5%: on
+      the 24-symbol default, half the universe in a broad RANGE selloff
+      with an RS leader (RelativeStrengthReversalRange).
+    """
+    rng = np.random.default_rng(seed)
+    levels = 20 + rng.random(n_symbols) * 100
+    closes = np.zeros((n_ticks, n_symbols))
+    for i in range(n_symbols):
+        drift = 0.0012 * np.arange(n_ticks)  # mild up-drift (advancers-heavy)
+        noise = rng.normal(0, 0.0008, n_ticks).cumsum() * 0.3
+        closes[:, i] = levels[i] * (1 + drift + noise)
+    last = n_ticks - 1
+
+    # S005: strong rally, then a fade of tiny red 5m sub-bars over the
+    # final six ticks
+    s = 5
+    closes[:, s] = levels[s] * (1 + 0.003 * np.arange(n_ticks))
+    fade_start = last - 5
+    peak = closes[fade_start - 1, s]
+    for k, t in enumerate(range(fade_start, last + 1)):
+        closes[t, s] = peak * (1 - 0.0012 * (k + 1))
+
+    # S006: flat base → STEEP 14-bar rally (+2%/bar) ending 18 bars before
+    # the end → 17-bar slow bleed. The 25-bar MA window then spans the
+    # rally's low prices, so the bleed's close stays ABOVE ma25 while the
+    # all-red last 14 bars pin RSI(14) at 0 — the BLSH transient.
+    s = 6
+    rally_end = last - 17
+    rally_len = 14
+    base = levels[s]
+    # gently rising base — a perfectly flat price makes twap == price, an
+    # f32-vs-f64 knife edge a comparison can land on either side of
+    closes[: rally_end - rally_len, s] = base * (
+        1 + 0.0004 * np.arange(rally_end - rally_len)
+    )
+    base = closes[rally_end - rally_len - 1, s]
+    for k, t in enumerate(range(rally_end - rally_len, rally_end)):
+        closes[t, s] = base * (1.02 ** (k + 1))
+    top = closes[rally_end - 1, s]
+    for k, t in enumerate(range(rally_end, last + 1)):
+        closes[t, s] = top * (1 - 0.0015 * (k + 1))
+
+    # final-tick broad selloff with an RS leader
+    droppers = [0] + list(range(8, 18))  # BTC + ten others
+    for i in droppers:
+        closes[last, i] = closes[last - 1, i] * 0.948
+    closes[last, 7] = closes[last - 1, 7] * 1.035  # S007: the leader
+
+    c = closes
+    o = np.concatenate([closes[:1], closes[:-1]])
+    vol15 = np.abs(rng.normal(1000, 150, (n_ticks, n_symbols)))
+    h, low = np.maximum(o, c) * 1.001, np.minimum(o, c) * 0.999
+    # wide rally bars keep the supertrend band ~1.5% below
+    h[:fade_start, 5] = np.maximum(o[:fade_start, 5], c[:fade_start, 5]) * 1.005
+    low[:fade_start, 5] = np.minimum(o[:fade_start, 5], c[:fade_start, 5]) * 0.995
+    # the fade's sub-bars are strictly monotone red by construction
+    return _with_sub_bars(o, h, low, c, vol15, wick=0.0005)
+
+
+def generate_dormant_extended_replay(
+    path: str | Path,
+    n_symbols: int = 24,
+    n_ticks: int = 130,
+    seed: int = 31,
+) -> None:
+    """Write :func:`dormant_extended_market_bars` as a kline file, the
+    reference's extended dormant market byte for byte."""
+    _write_bars(path, dormant_extended_market_bars(n_symbols, n_ticks, seed), 1_780_272_000)
+
+
+def generate_outcome_replay(
+    path: str | Path,
+    n_symbols: int = 8,
+    n_ticks: int = 128,
+    fire_ticks: tuple[int, int] = (104, 110),
+    seed: int = 11,
+) -> None:
+    """MID-stream MeanReversionFade hammers with scripted aftermaths, the
+    signal-outcome tracker's fixture. Unlike the other generators
+    (whose crafted setups land on the LAST tick, leaving nothing to
+    mature), this stream fires early enough that every 5m-bar horizon up
+    to ``3 * (n_ticks - fire_ticks[1] - 1)`` completes before EOF, with
+    deliberately opposite aftermaths:
+
+    * S005 — steady bleed, green hammer at ``fire_ticks[0]``, then a
+      +0.35%/tick RECOVERY: positive forward returns, small MAE;
+    * S006 — the same recipe at ``fire_ticks[1]``, then the bleed simply
+      CONTINUES at −0.4%/tick: negative forward returns, deep MAE, tiny
+      MFE.
+
+    The rest of the universe random-walks gently (BTC row 0 flat-ish).
+    """
+    rng = np.random.default_rng(seed)
+    t0 = 1_780_272_000
+    assert t0 % 900 == 0
+    assert n_symbols >= 7 and n_ticks > max(fire_ticks) + 2
+    px = 20 + rng.random(n_symbols) * 100
+
+    with open(path, "w") as f:
+        for tick in range(n_ticks):
+            ts15 = t0 + tick * 900
+            rets = rng.normal(0, 0.003, n_symbols)
+            for s, fire in zip((5, 6), fire_ticks):
+                if tick < fire:
+                    rets[s] = -0.006  # bleed: RSI pins low pre-hammer
+                elif tick > fire:
+                    rets[s] = 0.0035 if s == 5 else -0.004
+            new_px = px * (1 + rets)
+            for i in range(n_symbols):
+                symbol = "BTCUSDT" if i == 0 else f"S{i:03d}USDT"
+                o, c = px[i], new_px[i]
+                vol15 = abs(rng.normal(1000, 200))
+                h, low = max(o, c) * 1.002, min(o, c) * 0.998
+                if i in (5, 6) and tick == fire_ticks[0 if i == 5 else 1]:
+                    # the green-hammer recipe (generate_replay_file): deep
+                    # gap below the 20-bar lower band, green close, 3x vol
+                    o = px[i] * 0.955
+                    c = o * 1.003
+                    h, low = c * 1.001, o * 0.997
+                    new_px[i] = c
+                    vol15 *= 3.0
+                f.write(_kline_json(symbol, ts15, 900, o, h, low, c, vol15))
+                sub_o = o
+                for j in range(3):
+                    sub_c = o + (c - o) * (j + 1) / 3
+                    sh = max(sub_o, sub_c) * 1.001
+                    sl = min(sub_o, sub_c) * 0.999
+                    f.write(
+                        _kline_json(
+                            symbol, ts15 + j * 300, 300,
+                            sub_o, sh, sl, sub_c, vol15 / 3,
+                        )
+                    )
                     sub_o = sub_c
             px = new_px

@@ -6,8 +6,9 @@ calls: ``true_range`` (feature packs, market context), ``log_returns`` and
 ``rolling_beta_corr`` (the BTC-relative block), and the supertrend
 recursion (``_supertrend_step``, ``supertrend_scan_init``,
 ``_supertrend_scan``), whose final carry every full recompute of the
-incremental engine keeps. Connors RSI feeds only a dormant strategy and is
-not ported yet.
+incremental engine keeps, and whose series :func:`supertrend_from` gives
+the dormant SupertrendSwingReversal. The reference's other indicators
+(``connors_rsi``, ``adx``, ...) feed no ported path and are not ported.
 """
 
 from __future__ import annotations
@@ -162,3 +163,25 @@ def _supertrend_scan(
         lines.append(line)
         dirs.append(dirn)
     return carry, torch.stack(lines, dim=-1), torch.stack(dirs, dim=-1)
+
+
+class SupertrendResult(NamedTuple):
+    line: torch.Tensor  # (..., W) supertrend line, NaN until warm
+    direction: torch.Tensor  # (..., W) +1 up / -1 down, NaN until warm
+
+
+def supertrend_from(
+    high: torch.Tensor,
+    low: torch.Tensor,
+    close: torch.Tensor,
+    start: torch.Tensor,
+    window: int = 10,
+    multiplier: float = 3.0,
+) -> SupertrendResult:
+    """Supertrend whose series BEGINS at each lane's index ``start``: TR,
+    the Wilder ATR and the band ratchet all restart there and bars before
+    it are ignored, as the reference computes supertrend on the frame left
+    after the indicator warm-up is dropped. The one scan is
+    :func:`_supertrend_scan`."""
+    _, line, direction = _supertrend_scan(high, low, close, start, window, multiplier)
+    return SupertrendResult(line, direction)

@@ -37,6 +37,7 @@ from binquant_tpu_torch.ops.incremental import (
 )
 from binquant_tpu_torch.ops.indicators import true_range
 from binquant_tpu_torch.ops.rolling import (
+    ewm_last_state,
     ewm_mean,
     fixed_order_sum,
     ewm_mean_last,
@@ -119,6 +120,13 @@ def _rsi(avg_gain: torch.Tensor, avg_loss: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(avg_gain) & torch.isfinite(avg_loss), out, NAN)
 
 
+def _ewm_last_fixed(x: torch.Tensor, alpha: float) -> torch.Tensor:
+    """``ewm_mean(x, alpha, min_periods=1)[..., -1]`` summed in the fixed
+    order of :func:`fixed_order_sum`."""
+    mean, _, any_valid = ewm_last_state(x, alpha, fixed_order=True)
+    return torch.where(any_valid, mean, NAN)
+
+
 def compute_feature_pack(buf: MarketBuffer) -> FeaturePack:
     v = buf.values
     close = v[:, :, Field.CLOSE]
@@ -137,15 +145,21 @@ def compute_feature_pack(buf: MarketBuffer) -> FeaturePack:
     )
     rsi_sma = _rsi(rolling_mean_last(gain, 14), rolling_mean_last(loss, 14))
 
-    # MACD: the signal EMA needs the line's full series
+    # MACD: the signal EMA needs the line's full series; the line's last
+    # value is summed in the carry init's fixed order, so the card and the
+    # CPU give the same bits (a score adds 30 x |MACD|, which would carry a
+    # matrix product's price-scale rounding into the score)
     macd_line = ewm_mean(close, span=12, min_periods=1) - ewm_mean(
         close, span=26, min_periods=1
     )
-    macd_last = macd_line[:, -1]
+    macd_last = _ewm_last_fixed(close, _A(MACD_FAST)) - _ewm_last_fixed(close, _A(MACD_SLOW))
     macd_signal = ewm_mean_last(macd_line, span=9, min_periods=1)
 
     # MFI(14) from the trailing 15 bars
-    tp = (high + low + close) / 3.0
+    # a division by a device tensor: the card divides by a Python scalar as
+    # a multiplication by its rounded reciprocal, which rounds some typical
+    # prices the other way and flips MFI's up/down classification of a bar
+    tp = (high + low + close) / torch.full((), 3.0, device=close.device)
     flow = tp * volume
     tp_delta = tp - shift(tp, 1)
     pos_flow = torch.where(tp_delta > 0, flow, 0.0)[:, -14:]

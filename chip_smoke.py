@@ -39,8 +39,22 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
      declared gate margins. The supertrend scan and the whole carry init are
      also timed alone.
 
-   Both run the serial loop (depth 0) with copied rings and no digests.
-4. Drive the production loop (``[slice pipelined]``): depth 1, rings
+   Both run the serial loop (depth 0) with copied rings, no digests and no
+   outcome tracker.
+4. Drive the dormant strategy set (``[slice dormant]``) on the reference's
+   two dormant markets (``dormant_market_bars`` and
+   ``dormant_extended_market_bars`` of the port's replay module, made at S
+   symbols with their crafted setups on the last live tick; the second
+   with its rising breadth series and its scripted dominance flags), W
+   bars of warm history and 8 live ticks, every strategy on the wire, the
+   classic and the incremental drive (an audit on the last tick), each on
+   the card and on the CPU: routing equal, fired sets equal but for flips
+   inside ``declared_gate_margins()`` (each printed), wires within the
+   contract on every tick without a flip, rings bit for bit, every dormant
+   strategy that fires on the CPU firing on the card too, and exactly one
+   qtail launch at ``detect_spikes`` on every tick. On the first market the
+   live set alone also drives the card, for the tick times beside it.
+5. Drive the production loop (``[slice pipelined]``): depth 1, rings
    updated in place, both wire digests and the carry-drift meter on, an
    audit every 8 ticks, on a market that trends down through 16 live ticks
    and crashes on a 17th (a green hammer under the lower band on every
@@ -52,11 +66,16 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    meter's ``compared`` counts and alarm verdicts per audit tick, and the
    rings after the drive must agree. qtail launches per tick and call site:
    3 on each audit tick (``carry_drift`` too), 2 on the cold start, 0 on an
-   incremental tick. The same drive at depth 0 with copied rings on the
-   card gives the tick times and peak device memory it is printed beside.
-5. Print the kernels line, the card's name and power limit, and the result.
+   incremental tick. The outcome tracker is on, as in production: its
+   matured tuples and its registered, matured, truncated and eviction
+   counts must equal the CPU engine's (the crash tick's pairs pass its cap
+   of 1024), horizons 1, 4 and 16 mature within the drive and 96 does not;
+   the host ms of each maturation tick (gather, copy, fold) is printed. The
+   same drive at depth 0 with copied rings on the card gives the tick times
+   and peak device memory it is printed beside.
+6. Print the kernels line, the card's name and power limit, and the result.
 
-Phase 4 times three card configurations (depth 1 in place; depth 0
+Phase 5 times three card configurations (depth 1 in place; depth 0
 copying; depth 0 copying without the digests and the meter) over two
 rounds of the same ticks, the engines taking each tick in turns, with the
 device idle before every call, as between live ticks.
@@ -88,9 +107,17 @@ S, W = 2048, 400
 LIVE_TICKS = 16  # live ticks of the incremental drive (and before the crash)
 CLASSIC_TICKS = 8  # live ticks of the classic drive
 AUDIT_EVERY = 8  # the full-recompute audit cadence of the incremental drives
-# the classic and incremental drives: the serial loop, copied rings, no digests
+DORMANT_TICKS = 8  # live ticks of each dormant-market drive
+# the classic, incremental and dormant-market drives: the serial loop, copied
+# rings, no digests, no outcome tracker
 SERIAL = dict(pipeline_depth=0, donate=False, numeric_digest=False, ingest_digest=False,
-              drift_meter=False)
+              drift_meter=False, outcomes=False)
+# the extended dormant market's scripted breadth: rising twice
+RISING_BREADTH = {
+    "timestamp": [1, 2, 3, 4],
+    "market_breadth": [0.30, 0.34, 0.38, 0.42],
+    "market_breadth_ma": [0.30, 0.36],
+}
 T_LIVE0 = 1_780_272_000 + 900 * 2000  # 15m-aligned start of the live ticks
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores
@@ -401,14 +428,18 @@ def tick_plan(engine, m5: dict, m15: dict, live_ticks: int) -> list[tuple[int, l
 
 
 def drive(
-    device: str, m5: dict, m15: dict, incremental: bool, live_ticks: int, profiler=None
+    device: str, m5: dict, m15: dict, incremental: bool, live_ticks: int, profiler=None,
+    enabled: set | None = None, breadth: dict | None = None, host_flags: dict | None = None,
 ) -> dict:
     """Warm tick plus ``live_ticks`` live ticks through one engine on
     ``device``. Per tick it records the path the engine took, the qtail
     launches (and their call sites) the tick made, the host wall time, the
     wire and the fired signals with their indicator payloads. A
     ``torch.profiler.profile`` passed as ``profiler`` records the live ticks
-    only, each inside a ``chip_smoke_tick`` range."""
+    only, each inside a ``chip_smoke_tick`` range. ``enabled`` names the
+    strategies on the wire (the live set by default), ``breadth`` the
+    stub's breadth series, ``host_flags`` the engine's scripted host flags
+    (the market-dominance flags)."""
     import contextlib
 
     import torch
@@ -419,11 +450,14 @@ def drive(
 
     engine = make_stub_engine(
         capacity=S, window=W, context_config=ContextConfig(), device=device,
-        incremental=incremental, carry_audit_every=AUDIT_EVERY, **SERIAL,
+        incremental=incremental, carry_audit_every=AUDIT_EVERY, enabled_strategies=enabled,
+        breadth=breadth, **SERIAL,
     )
+    for name, value in (host_flags or {}).items():
+        setattr(engine, name, value)
     ticks = tick_plan(engine, m5, m15, live_ticks)
     out = {"paths": [], "launches": [], "sites": [], "tick_ms": [], "wires": [],
-           "fired": [], "indicators": {}}
+           "fired": [], "indicators": {}, "overflowed": []}
 
     async def tick(now_ms, klines, live):
         for k in klines:
@@ -431,6 +465,7 @@ def drive(
         if device == "cuda":
             torch.cuda.synchronize()
         before, sites = qt.launches, dict(qt.launches_by_site)
+        overflows = engine.overflow_ticks
         rng = (
             torch.profiler.record_function("chip_smoke_tick")
             if profiler is not None and live else contextlib.nullcontext()
@@ -446,6 +481,7 @@ def drive(
             k: v - sites.get(k, 0) for k, v in qt.launches_by_site.items() if v != sites.get(k, 0)
         })
         out["paths"].append(engine.last_path)
+        out["overflowed"].append(engine.overflow_ticks > overflows)
         out["wires"].append(engine.last_wire)
         for sig, tup in zip(fired, signal_tuples(fired)):
             out["fired"].append(tup)
@@ -744,21 +780,248 @@ def check_incremental(m5, m15, classic: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phase 4: the production loop (depth 1, rings in place, digests, meter)
+# phase 4: the dormant strategy set with the spike detector
+# --------------------------------------------------------------------------
+
+
+def market_from_bars(bars: dict) -> tuple[dict, dict]:
+    """The replay generators' (n_ticks, S) 15m bars and (n_ticks, S, 3) 5m
+    sub-bars as the (S, n) and (S, 3n) market planes :func:`tick_plan`
+    reads."""
+    m15 = {k: v.T.copy() for k, v in bars["15m"].items()}
+    m5 = {k: v.transpose(1, 0, 2).reshape(S, -1).copy() for k, v in bars["5m"].items()}
+    return m5, m15
+
+
+def _gated_flip_ok(flip: tuple, ind: dict, margins: dict) -> bool:
+    """Whether a fired/not-fired flip sits inside its strategy's declared
+    gate margin: the row's gated RSI/MFI within the margin of a threshold."""
+    from binquant_tpu_torch.strategies.params import StrategyParams
+
+    p = StrategyParams()
+    gates = {
+        "coinrule_price_tracker": [("rsi", p.pt.rsi_oversold), ("mfi", p.pt.mfi_oversold)],
+        "mean_reversion_fade": [("rsi", p.mrf.rsi_long_max), ("rsi", p.mrf.rsi_short_min)],
+        "inverse_price_tracker": [("rsi", 30.0), ("mfi", 20.0)],
+    }
+    dists = [
+        abs(float(ind[k]) - thr) for k, thr in gates.get(flip[1], ())
+        if ind.get(k) is not None and np.isfinite(float(ind[k]))
+    ]
+    return flip[1] in margins and bool(dists) and min(dists) <= margins[flip[1]]
+
+
+def compare_dormant(gpu: dict, cpu: dict, label: str) -> tuple[list, float]:
+    """A dormant-market drive on the card against the CPU's: routing equal,
+    fired sets equal but for flips inside the declared gate margins (each
+    printed), on every tick without a flip the wire's fired block exact and
+    its floats within ``rtol=1e-4, atol=1e-5``, rings bit for bit. Returns
+    the flips and the largest finite wire difference."""
+    import torch
+
+    from binquant_tpu_torch.engine.step import WIRE_FIRED_COUNT_OFF, WIRE_MAX_FIRED
+    from binquant_tpu_torch.strategies.params import declared_gate_margins
+
+    if gpu["paths"] != cpu["paths"]:
+        fail(f"{label}: routing differs between the card and the CPU")
+    margins = declared_gate_margins()
+    flips = sorted(set(gpu["fired"]) ^ set(cpu["fired"]))
+    for f in flips:
+        ind = gpu["indicators"].get(f) or cpu["indicators"].get(f) or {}
+        side = "card" if f in gpu["indicators"] else "cpu"
+        print(f"[slice dormant] {label}: flip {f} fired on the {side} only, "
+              f"gated indicators {{rsi: {ind.get('rsi')}, mfi: {ind.get('mfi')}}}")
+        if not _gated_flip_ok(f, ind, margins):
+            fail(f"{label}: fired sets differ outside the declared gate margins: {f}")
+    flip_ticks = {f[0] for f in flips}
+    off, K = WIRE_FIRED_COUNT_OFF, WIRE_MAX_FIRED
+    max_wire_err = 0.0
+    problems = []  # every tick's, so one run shows them all
+    for t, wg, wc in zip(gpu["tick_times"], gpu["wires"], cpu["wires"], strict=True):
+        if wg.shape != wc.shape:
+            fail(f"{label}: wire lengths differ: {wg.shape} vs {wc.shape}")
+        if t in flip_ticks:
+            continue
+        blk_g = wg[off: off + 1 + 6 * K]
+        blk_c = wc[off: off + 1 + 6 * K]
+        if not np.array_equal(blk_g[: 1 + 4 * K], blk_c[: 1 + 4 * K]):
+            problems.append(f"fired blocks differ at tick {t}")
+        ok = np.isclose(wg, wc, rtol=1e-4, atol=1e-5, equal_nan=True)
+        if not ok.all():
+            bad = np.flatnonzero(~ok)[:5]
+            problems.append(f"tick {t}: wire floats differ at {bad.tolist()}: {wg[bad]} vs "
+                            f"{wc[bad]}")
+        fin = np.isfinite(wg) & np.isfinite(wc)
+        max_wire_err = max(max_wire_err, float(np.abs(wg[fin] - wc[fin]).max()))
+    if problems:
+        fail(f"{label}: " + "; ".join(problems))
+    st, cst = gpu["engine"].state, cpu["engine"].state
+    for name in ("buf5", "buf15"):
+        for f in ("times", "values", "filled", "cursor"):
+            a = getattr(getattr(st, name), f).cpu()
+            b = getattr(getattr(cst, name), f)
+            if not torch.equal(torch.nan_to_num(a.float(), nan=-1.0),
+                               torch.nan_to_num(b.float(), nan=-1.0)):
+                fail(f"{label}: {name}.{f} differs between the card and the CPU")
+    return flips, max_wire_err
+
+
+def _expected_sites(path: str, dormant: bool, overflowed: bool = False) -> dict:
+    """qtail launches by call site on one tick of a serial drive: the wire
+    step's, and on a tick whose fired pairs overflowed the wire the
+    fallback's too, which re-runs the tick's path evaluating every strategy
+    (the reference's full-outputs step), the spike detector included."""
+    full = path != "incremental"
+    want = {"abp_core": 1} if full else {}
+    if path in ("cold_start", "audit"):
+        want["abp_init_from_window"] = 1
+    if dormant:
+        want["detect_spikes"] = 1
+    if overflowed:
+        for k, v in _expected_sites(path, dormant=True).items():
+            want[k] = want.get(k, 0) + v
+    return want
+
+
+def check_dormant() -> dict:
+    """The dormant strategy set with the spike detector at full width: the
+    reference's two dormant markets, made at S symbols with W + DORMANT_TICKS
+    15m bars (the crafted setups on the last live tick), W bars of warm
+    history, DORMANT_TICKS live ticks. Every strategy is on the wire. On each
+    market the classic and the incremental drive (an audit on the last live
+    tick), card against CPU; on the first market the live set alone on the
+    card as well, for the tick times beside it."""
+    from binquant_tpu_torch.engine.step import LIVE_STRATEGIES, STRATEGY_ORDER, WIRE_MAX_FIRED
+    from binquant_tpu_torch.io.replay import (
+        dormant_extended_market_bars,
+        dormant_market_bars,
+    )
+    from binquant_tpu_torch.ops import quantile_tail as qt
+
+    n = W + DORMANT_TICKS
+    markets = {
+        "dormant": (market_from_bars(dormant_market_bars(S, n)), None, {}),
+        "extended": (
+            market_from_bars(dormant_extended_market_bars(S, n)), RISING_BREADTH,
+            {"dominance_is_losers": True, "market_domination_reversal": True},
+        ),
+    }
+    every = set(STRATEGY_ORDER)
+    dormant_set = [s for s in STRATEGY_ORDER if s not in LIVE_STRATEGIES]
+    launches = {"launches": 0, "launches_by_site": {}}
+    detect_spikes_per_tick: list[int] = []
+
+    def count(run: dict, dormant: bool) -> None:
+        rep = _launch_report(run)
+        launches["launches"] += rep["launches"]
+        for k, v in rep["launches_by_site"].items():
+            launches["launches_by_site"][k] = launches["launches_by_site"].get(k, 0) + v
+        want = [_expected_sites(p, dormant, ov) for p, ov in zip(run["paths"], run["overflowed"])]
+        if run["sites"] != want:
+            fail(f"dormant phase: qtail launches by site per tick {run['sites']}, expected {want}")
+        if dormant:
+            # the wire step's own launch: what the tick launched at the site
+            # less the overflow fallback's
+            detect_spikes_per_tick.extend(
+                d.get("detect_spikes", 0) - int(ov) for d, ov in zip(run["sites"], run["overflowed"])
+            )
+
+    result: dict = {"markets": {}}
+    any_dormant = 0
+    for name, ((m5, m15), breadth, flags) in markets.items():
+        per_market: dict = {}
+        for incremental in (False, True):
+            path = "incremental" if incremental else "classic"
+            label = f"{name} {path}"
+            kw = dict(enabled=every, breadth=breadth, host_flags=flags)
+            qt.reset_launches()  # launches made elsewhere do not count
+            gpu = drive("cuda", m5, m15, incremental, DORMANT_TICKS, **kw)
+            count(gpu, dormant=True)  # read just after the drive
+            live_only = None
+            if name == "dormant":
+                qt.reset_launches()
+                live_only = drive("cuda", m5, m15, incremental, DORMANT_TICKS,
+                                  breadth=breadth, host_flags=flags)
+                count(live_only, dormant=False)
+            cpu = drive("cpu", m5, m15, incremental, DORMANT_TICKS, **kw)
+            expect = ["classic"] * (DORMANT_TICKS + 1) if not incremental else (
+                ["cold_start"] + ["audit" if t % AUDIT_EVERY == 0 else "incremental"
+                                  for t in range(1, DORMANT_TICKS + 1)]
+            )
+            if gpu["paths"] != expect:
+                fail(f"{label}: routing {gpu['paths']}, expected {expect}")
+            flips, err = compare_dormant(gpu, cpu, label)
+            card_by, cpu_by = _by_strategy(gpu["fired"]), _by_strategy(cpu["fired"])
+            missing = {s for s in dormant_set if cpu_by.get(s)} - set(card_by)
+            if missing:
+                fail(f"{label}: dormant strategies fired on the cpu but not on the card: {missing}")
+            any_dormant += sum(card_by.get(s, 0) for s in dormant_set)
+            kinds = {"incremental": [], "full": []}
+            for t, p in zip(gpu["tick_ms"][1:], gpu["paths"][1:]):
+                kinds["incremental" if p == "incremental" else "full"].append(t)
+            entry = {
+                "overflow_ticks": gpu["engine"].overflow_ticks,
+                "signals_by_strategy": card_by,
+                "cpu_signals_by_strategy": cpu_by,
+                "flips": [list(f) for f in flips],
+                "max_wire_abs_err_vs_cpu": err,
+                "tick_ms": gpu["tick_ms"],
+                "tick_p50_ms": {k: _p(v, 50) for k, v in kinds.items() if v},
+                "cpu_tick_p50_ms": _p(cpu["tick_ms"][1:], 50),
+            }
+            if live_only is not None:
+                lk = {"incremental": [], "full": []}
+                for t, p in zip(live_only["tick_ms"][1:], live_only["paths"][1:]):
+                    lk["incremental" if p == "incremental" else "full"].append(t)
+                entry["live_set_tick_p50_ms"] = {k: _p(v, 50) for k, v in lk.items() if v}
+                entry["live_set_signals_by_strategy"] = _by_strategy(live_only["fired"])
+                entry["live_set_overflow_ticks"] = live_only["engine"].overflow_ticks
+            per_market[path] = entry
+            print(
+                f"[slice dormant] {label}: S={S} W={W}, 1 warm + {DORMANT_TICKS} live ticks, "
+                f"all {len(every)} strategies; routing {gpu['paths'][1:]}; signals on the card "
+                f"{card_by} (cpu {cpu_by}); {len(flips)} flips inside the gate margins; "
+                f"tick p50 ms {entry['tick_p50_ms']}"
+                + (f" vs the live set alone {entry['live_set_tick_p50_ms']} "
+                   f"({entry['live_set_overflow_ticks']} of whose ticks overflowed)"
+                   if live_only is not None else "")
+                + f"; {entry['overflow_ticks']} of its ticks overflowed the wire's "
+                f"{WIRE_MAX_FIRED} slots; wire max abs err vs cpu {err:.3g}"
+            )
+        result["markets"][name] = per_market
+    if not any_dormant:
+        fail("no dormant strategy fired on the dormant markets")
+    if set(detect_spikes_per_tick) != {1}:
+        fail(f"qtail launches at detect_spikes per tick {detect_spikes_per_tick}, expected 1 each")
+    result.update(launches, detect_spikes_per_tick=detect_spikes_per_tick,
+                  dormant_signals=any_dormant)
+    print(
+        f"[slice dormant] qtail launches {launches['launches']} {launches['launches_by_site']}: "
+        f"exactly 1 at detect_spikes in the wire step of each of {len(detect_spikes_per_tick)} "
+        f"ticks with the dormant set on, plus 1 in the fallback of each tick that overflowed "
+        f"the wire; {any_dormant} dormant signals on the card, routing, fired sets and rings "
+        f"equal to the cpu engine's"
+    )
+    return result
+
+
+# --------------------------------------------------------------------------
+# phase 5: the production loop (depth 1, rings in place, digests, meter)
 # --------------------------------------------------------------------------
 
 
 def _pipelined_engine(device: str, m5: dict, m15: dict, depth: int, donate: bool, digests: bool):
-    """A production engine (both digests and the drift meter on, unless
-    ``digests`` is False) at ``depth``, its monitors recording every tick,
-    with the warm history queued; returns it and its ticks."""
+    """A production engine (both digests, the drift meter and the outcome
+    tracker on, unless ``digests`` is False) at ``depth``, its monitors
+    recording every tick, with the warm history queued; returns it and its
+    ticks."""
     from binquant_tpu_torch.io.replay import make_stub_engine
     from binquant_tpu_torch.regime.context import ContextConfig
 
     engine = make_stub_engine(
         capacity=S, window=W, context_config=ContextConfig(), device=device,
         incremental=True, carry_audit_every=AUDIT_EVERY, pipeline_depth=depth, donate=donate,
-        numeric_digest=digests, ingest_digest=digests, drift_meter=digests,
+        numeric_digest=digests, ingest_digest=digests, drift_meter=digests, outcomes=digests,
     )
     for monitor in (engine.numeric, engine.ingest_monitor, engine.drift):
         monitor.record_history = True
@@ -774,7 +1037,14 @@ def _engine_summary(engine) -> dict:
     leaves = torch.utils._pytree.tree_leaves(state)
     routing = dict(engine.full_recompute_reasons)
     routing["incremental"] = engine.incremental_ticks
+    board = engine.outcomes.scoreboard()
     return {
+        "outcomes": {
+            "matured_set": sorted(engine.outcomes.matured_set()),
+            **{k: board[k] for k in ("registered", "matured", "truncated", "evictions", "open")},
+            "timings": list(engine.outcomes.timings),
+        },
+        "outcome_cap": engine.outcomes.cap,
         "overflow_ticks": engine.overflow_ticks,
         "inplace_ticks": engine.inplace_ticks,
         "state_resets": engine.state_resets,
@@ -929,9 +1199,19 @@ def check_pipelined(m5, m15) -> dict:
             fail(f"pipelined drive ({label}) routing {run['paths']}, expected {expect}")
         if sorted(run["fired"]) != sorted(cpu["fired"]):
             fail(f"pipelined drive ({label}): fired set differs from the cpu engine's")
+    # the crash tick's overflow fallback evaluates every strategy, as the
+    # reference's full-outputs step does: one more launch at detect_spikes,
+    # in the flush at depth 1 (which finalizes the crash tick), in the crash
+    # tick's own call at depth 0
+    fallback_sites = {"detect_spikes": 1}
     for run, label in with_digests:
-        want = [EXPECT_SITES[p] for p in run["paths"]]
-        if run["sites"] != want or run["flush_sites"]:
+        want = [dict(EXPECT_SITES[p]) for p in run["paths"]]
+        want_flush = {}
+        if label == "depth0_copying":
+            want[-1].update(fallback_sites)
+        else:
+            want_flush = fallback_sites
+        if run["sites"] != want or run["flush_sites"] != want_flush:
             fail(f"pipelined drive ({label}): qtail launches by site per tick {run['sites']}, "
                  f"flush {run['flush_sites']}")
     if not (gpu["inplace_ticks"] == len(expect) and gpu["state_resets"] == 0
@@ -972,6 +1252,20 @@ def check_pipelined(m5, m15) -> dict:
         b = cpu["rings"][key]
         if not torch.equal(torch.nan_to_num(a.float(), nan=-1.0), torch.nan_to_num(b.float(), nan=-1.0)):
             fail(f"pipelined drive: {key} differs between the card and the cpu")
+    # the outcome tracker: the matured tuples and counters exactly the cpu's
+    go, co = gpu["outcomes"], cpu["outcomes"]
+    for k in ("matured_set", "registered", "matured", "truncated", "evictions", "open"):
+        if go[k] != co[k]:
+            fail(f"pipelined drive: outcome {k} differs from the cpu engine's: "
+                 f"{str(go[k])[:200]} vs {str(co[k])[:200]}")
+    horizons = sorted({t[3] for t in go["matured_set"]})
+    if horizons != [1, 4, 16] or not go["evictions"] or go["truncated"]:
+        fail(f"pipelined drive: matured horizons {horizons} (expected 1, 4, 16: 96 bars need "
+             f"32 ticks), evictions {go['evictions']}, truncated {go['truncated']}")
+    maturation = {
+        k: _p([t[k] for t in go["timings"]], 50) for k in ("gather_ms", "copy_ms", "fold_ms")
+    }
+    maturation.update(ticks=len(go["timings"]), pairs_max=max(t["pairs"] for t in go["timings"]))
 
     # live ticks 1..LIVE_TICKS by kind, both rounds pooled; the warm tick and
     # the crash tick (whose serial call also runs the overflow fallback) are
@@ -1010,6 +1304,8 @@ def check_pipelined(m5, m15) -> dict:
         "peak_device_bytes_depth1_alone": peak_alone,
         "drift": [{"tick_ms": t, "breached": b, **d} for t, d, b in gpu["drift_history"]],
         "numeric_max_abs_err_vs_cpu": numeric_err,
+        "outcomes": {k: go[k] for k in ("registered", "matured", "truncated", "evictions", "open")}
+        | {"matured_horizons": horizons, "maturation_host_ms_p50": maturation},
     }
     d1, d0, dn = (timing[k] for k in configs)
     mib = 2 ** 20
@@ -1022,7 +1318,8 @@ def check_pipelined(m5, m15) -> dict:
         f"crash), depth 1, rings in place, both digests and the drift meter on, audit every "
         f"{AUDIT_EVERY}; routing {gpu['routing']}; qtail launches {counts['launches']} "
         f"{counts['launches_by_site']} (per tick {gpu['launches']}: 3 per audit, 2 on the cold "
-        f"start, 0 per incremental tick); signals {len(gpu['fired'])}, {crash_fired} on the crash "
+        f"start, 0 per incremental tick; 1 at detect_spikes in the crash tick's fallback, "
+        f"finalized by the flush); signals {len(gpu['fired'])}, {crash_fired} on the crash "
         f"tick (overflow fallback in place); routing, fired sets, {len(expect)} ingest digest "
         f"blocks (bit for bit), numeric digest counts (floats within {numeric_err:.2e}), "
         f"drift-meter compared counts and verdicts on {gpu['drift_audits']} audits and the rings "
@@ -1036,6 +1333,16 @@ def check_pipelined(m5, m15) -> dict:
         f"depth 0 copying {kinds(d0, 'peak_above_resident_bytes', mib)} MiB, without digests "
         f"{kinds(dn, 'peak_above_resident_bytes', mib)} MiB; depth 1 alone on the card: "
         f"{peak_alone['incremental'] / mib:.1f}/{peak_alone['full'] / mib:.1f} MiB"
+    )
+    print(
+        f"[slice pipelined] outcomes: registered {go['registered']}, matured {go['matured']} "
+        f"pairs at horizons {horizons} (1, 4 and 16 bars mature within the {LIVE_TICKS} live "
+        f"ticks, 96 does not: it needs 32), evictions {go['evictions']} (the crash tick's pairs "
+        f"pass the cap of {gpu['outcome_cap']}), truncated {go['truncated']}, open "
+        f"{go['open']}; matured set and counters equal to the cpu engine's; host ms per "
+        f"maturation tick p50 over {maturation['ticks']} ticks: gather "
+        f"{maturation['gather_ms']:.3f}, copy {maturation['copy_ms']:.3f}, fold "
+        f"{maturation['fold_ms']:.3f} (up to {maturation['pairs_max']} pairs)"
     )
     return result
 
@@ -1110,14 +1417,25 @@ def _profile_report(prof, paths: list[str]) -> dict:
 
 def profile_slice(m5, m15, cm5, cm15) -> dict:
     """Where a tick's time goes on the card: the incremental drive (serial,
-    no digests) and the production drive (depth 1, rings in place, digests
-    and meter on) once more each under ``torch.profiler``
+    no digests), the dormant market's classic and incremental drives with
+    every strategy on the wire, and the production drive (depth 1, rings in
+    place, digests and meter on) once more each under ``torch.profiler``
     (:func:`_profile_report`)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from binquant_tpu_torch.engine.step import STRATEGY_ORDER
+    from binquant_tpu_torch.io.replay import dormant_market_bars
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     run = drive("cuda", m5, m15, incremental=True, live_ticks=LIVE_TICKS, profiler=prof)
     result = {"incremental": _profile_report(prof, run["paths"][: LIVE_TICKS + 1])}
+    dm5, dm15 = market_from_bars(dormant_market_bars(S, W + DORMANT_TICKS))
+    for incremental in (False, True):
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        run = drive("cuda", dm5, dm15, incremental, DORMANT_TICKS, profiler=prof,
+                    enabled=set(STRATEGY_ORDER))
+        key = "dormant_incremental" if incremental else "dormant_classic"
+        result[key] = _profile_report(prof, run["paths"])
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     run = drive_pipelined({"main": ("cuda", 1, True, True)}, cm5, cm15, profiler=prof)["main"]
     result["pipelined"] = _profile_report(prof, run["paths"][: LIVE_TICKS + 1])
@@ -1159,13 +1477,16 @@ def main() -> int:
     m5, m15 = make_market(rng)
     classic = check_classic(m5, m15)
     incremental = check_incremental(m5, m15, classic)
-    # phase 4: the production loop, on its own seeded market
+    # phase 4: the dormant strategy set with the spike detector
+    dormant = check_dormant()
+    # phase 5: the production loop, on its own seeded market
     cm5, cm15 = make_crash_market(np.random.default_rng(SEED + 1))
     pipelined = check_pipelined(cm5, cm15)
     slices = {
         "classic": {k: v for k, v in classic.items()
                     if k not in ("fired", "indicators", "tick_times")},
         "incremental": incremental,
+        "dormant": dormant,
         "pipelined": pipelined,
     }
     if "--profile" in sys.argv[1:]:
@@ -1173,7 +1494,7 @@ def main() -> int:
 
     abp = qreport["abp"]
     by_site: dict[str, int] = {}
-    for run in (classic, incremental, pipelined):
+    for run in (classic, incremental, dormant, pipelined):
         for k, v in run["launches_by_site"].items():
             by_site[k] = by_site.get(k, 0) + v
     kernels = [
@@ -1182,11 +1503,11 @@ def main() -> int:
             "route": "cuda",
             "source": "binquant_tpu_torch/csrc/qtail.cu",
             "replaces": "binquant_tpu/ops/pallas_rolling.py:40",
-            "launches": classic["launches"] + incremental["launches"] + pipelined["launches"],
+            "launches": sum(r["launches"] for r in (classic, incremental, dormant, pipelined)),
             "launches_by_site": by_site,
             "launches_by_drive": {
                 "classic": classic["launches"], "incremental": incremental["launches"],
-                "pipelined": pipelined["launches"],
+                "dormant": dormant["launches"], "pipelined": pipelined["launches"],
             },
             "max_abs_err": abp["max_abs_err"],
             "ms": abp["kernel_ms"],

@@ -502,6 +502,9 @@ def _leaves_equal(a, b) -> None:
     lb, _ = torch.utils._pytree.tree_flatten(b)
     assert len(la) == len(lb)
     for i, (x, y) in enumerate(zip(la, lb)):
+        if x is None or y is None:  # an output the step did not compute
+            assert x is None and y is None, i
+            continue
         assert x.dtype == y.dtype and x.shape == y.shape, i
         if x.dtype.is_floating_point:
             x, y = x.view(torch.int32), y.view(torch.int32)
@@ -517,8 +520,10 @@ def test_inplace_incremental_step_and_its_fallback_equal_the_copying_step(digest
     flags = digest_stepped["flags"]
     folded = digest_stepped["tfolded"]
     counts = digest_stepped["tcounts"]
+    # the wire step's strategy set: the full-outputs default (compute_all)
+    # would also count the dormant strategies' triggers in the digest
     copy_state, copy_out = tstep.tick_step(folded, t5, t15, tin, tcfg, **flags,
-                                           ingest_fold_counts=counts)
+                                           ingest_fold_counts=counts, compute_all=False)
     np.testing.assert_array_equal(copy_out.wire.numpy(), digest_stepped["twire"])
     pre = engine_state_from_numpy(engine_state_to_numpy(folded), "cpu")
     ring = pre.buf5.values
@@ -534,7 +539,7 @@ def test_inplace_incremental_step_and_its_fallback_equal_the_copying_step(digest
         regime_carry=pre.regime_carry, mrf_last_emitted=pre.mrf_last_emitted,
         pt_last_signal_close=pre.pt_last_signal_close, indicator_carry=pre.indicator_carry,
     )
-    _, fb = tstep.tick_step(fb_state, empty, empty, tin, tcfg, **flags)
+    _, fb = tstep.tick_step(fb_state, empty, empty, tin, tcfg, **flags, compute_all=False)
     n = len(wire) - tstep.INGEST_DIGEST_WIDTH
     np.testing.assert_array_equal(fb.wire.numpy()[:n].view(np.int32),
                                   copy_out.wire.numpy()[:n].view(np.int32))

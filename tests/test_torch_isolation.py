@@ -21,6 +21,9 @@ def test_import_pulls_in_no_jax_and_no_reference_module():
         "import sys\n"
         "import binquant_tpu_torch.io.replay, binquant_tpu_torch.engine.convert\n"
         "import binquant_tpu_torch.obs.numeric, binquant_tpu_torch.obs.ingest\n"
+        "import binquant_tpu_torch.strategies.dormant, binquant_tpu_torch.strategies.spike_hunter\n"
+        "import binquant_tpu_torch.obs.outcomes, binquant_tpu_torch.obs.events\n"
+        "import binquant_tpu_torch.obs.registry, binquant_tpu_torch.obs.instruments\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'binquant_tpu'))\n"
         "print(','.join(bad))\n"
