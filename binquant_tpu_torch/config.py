@@ -23,7 +23,14 @@ pipelined production loop:
   ``drift_tol`` (scale-normalized);
 * ``outcomes_enabled`` — every emitted signal registers with the outcome
   tracker and matures at ``outcome_horizons`` 5m bars against the live
-  ring, at most ``outcome_cap`` open signals (``obs/outcomes.py``).
+  ring, at most ``outcome_cap`` open signals (``obs/outcomes.py``);
+* ``checkpoint_path`` — where :class:`CheckpointManager` snapshots the
+  engine every ``checkpoint_every_ticks`` ticks (empty: no checkpoints);
+  ``ckpt_shards`` above 1 asks for a sharded archive, which the port does
+  not write yet (``io/checkpoint.py``);
+* ``binbot_timeout_s``, ``binbot_retry_max``, ``binbot_retry_backoff_s`` —
+  the binbot REST client's deadline per request and its bounded, jittered
+  retries (``io/binbot.py``).
 """
 
 from __future__ import annotations
@@ -50,6 +57,12 @@ class Config:
     outcomes_enabled: bool = True
     outcome_horizons: tuple[int, ...] = (1, 4, 16, 96)
     outcome_cap: int = 1024
+    checkpoint_path: str = ""
+    checkpoint_every_ticks: int = 60
+    ckpt_shards: int = 0
+    binbot_timeout_s: float = 10.0
+    binbot_retry_max: int = 2
+    binbot_retry_backoff_s: float = 0.2
     env: str = field(default_factory=lambda: os.environ.get("ENV", ""))
 
     @property

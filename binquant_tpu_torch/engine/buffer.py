@@ -327,6 +327,22 @@ class SymbolRegistry:
             self.version += 1
         return row
 
+    def restore(self, mapping: dict[str, int]) -> None:
+        """Rebuild the exact symbol↔row assignment of a checkpoint, so the
+        restored rings line up with their symbols."""
+        self._name_to_row = {}
+        self._row_to_name = {}
+        for symbol, row in mapping.items():
+            row = int(row)
+            if not 0 <= row < self.capacity:
+                raise ValueError(f"checkpoint row {row} outside capacity {self.capacity}")
+            key = self._norm(symbol)
+            self._name_to_row[key] = row
+            self._row_to_name[row] = key
+        used = set(self._row_to_name)
+        self._free = [r for r in range(self.capacity - 1, -1, -1) if r not in used]
+        self.version += 1
+
     @property
     def active_rows(self) -> np.ndarray:
         """(S,) bool mask of occupied rows."""

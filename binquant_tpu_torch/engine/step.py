@@ -1521,6 +1521,13 @@ def tick_step_wire_inplace(
     return new_state, outputs.wire
 
 
+def canonicalize_state(state: EngineState) -> EngineState:
+    """Both rings materialized to the canonical right-aligned layout
+    (cursor 0), new tensors that no later in-place tick writes: what a
+    checkpoint persists. Every other leaf passes through."""
+    return state._replace(buf5=materialize(state.buf5), buf15=materialize(state.buf15))
+
+
 def apply_updates_step(
     state: EngineState, upd5, upd15, inplace: bool = False
 ) -> EngineState:

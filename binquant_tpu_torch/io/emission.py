@@ -7,8 +7,8 @@ uniform key/value line shape) and the analytics record, all from the ONE
 fetched wire — its per-slot payload carries every value needed. When the
 compaction overflowed, the full step's summary is read instead.
 
-The sinks are recording stubs in this slice (:class:`RecordingSinks`): the
-network clients (binbot REST, Telegram, autotrade admission) are not ported.
+The sinks are recording stubs (:class:`RecordingSinks`): the delivery
+plane, the Telegram client and autotrade admission are not ported yet.
 """
 
 from __future__ import annotations
@@ -97,17 +97,27 @@ class FiredSignal:
 
 class RecordingSinks:
     """The three sinks as in-memory recorders: analytics records, Telegram
-    messages and autotrade payloads, in dispatch order."""
+    messages and autotrade payloads, in dispatch order; ``fired`` keeps the
+    dispatched signals and ``digests`` the regime notifier's messages (which
+    go to the Telegram channel too)."""
 
     def __init__(self) -> None:
         self.analytics: list[dict[str, Any]] = []
         self.telegram: list[str] = []
         self.autotrade: list[SignalsConsumer] = []
+        self.fired: list[FiredSignal] = []
+        self.digests: list[str] = []
 
     def dispatch(self, signal: FiredSignal) -> None:
         self.analytics.append(signal.analytics)
         self.telegram.append(signal.message)
         self.autotrade.append(signal.value)
+        self.fired.append(signal)
+
+    def notify(self, text: str) -> None:
+        """A Telegram message that is not a signal (the regime digest)."""
+        self.telegram.append(text)
+        self.digests.append(text)
 
 
 def _cast_diag(kind: str, v: float):

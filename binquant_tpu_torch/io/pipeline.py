@@ -61,20 +61,35 @@ at depth 1 matures the same set).
 
 Host carries feeding the step: the grid-only policy (resolved from the
 previous tick's regime and the breadth series), the London quiet window of
-the evaluated tick's clock, the breadth scalars of a static breadth series
-(the stub's; the REST client is not ported), and the market-dominance
-flags ``dominance_is_losers`` and ``market_domination_reversal`` (False, the
+the evaluated tick's clock, the breadth scalars of the market-breadth
+series (fetched through the binbot client once per 15m bucket; a failed
+fetch keeps the previous series), and the market-dominance flags
+``dominance_is_losers`` and ``market_domination_reversal`` (False, the
 reference's NEUTRAL, unless a caller scripts them). Method names and call
 shapes follow the reference engine, ``async def process_tick`` included.
+
+The service around the tick (``main.py``'s boot and
+``SignalEngine.consume_loop`` in the reference): every finalize hands the
+regime notifier's digest to the sinks' Telegram channel and, once per 15m
+bucket, schedules leverage calibration on the wire's calibration rows as a
+single-flight background worker (host numpy only; inline when no event
+loop runs). :meth:`backfill` tops the rings up from REST history (the next
+tick recomputes in full, reason ``backfill``); :meth:`host_carries`,
+:meth:`restore_host_carries` and :meth:`note_state_restored` carry the host
+state a checkpoint needs (``io/checkpoint.py``), under the reference's JSON
+keys; :meth:`consume_loop` drains an ingest queue, ticks once per interval
+and saves checkpoints.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import logging
 import math
 import time
 from collections import deque
+from collections.abc import Callable
 from datetime import datetime, timezone
 from typing import Any, NamedTuple
 
@@ -88,6 +103,7 @@ from binquant_tpu_torch.engine.buffer import (
     IngestBatcher,
     SymbolRegistry,
     reset_rows,
+    ring_latest_times,
 )
 from binquant_tpu_torch.engine.step import (
     EMISSION_LAYOUTS,
@@ -106,14 +122,17 @@ from binquant_tpu_torch.engine.step import (
     tick_step_wire_inplace,
     unpack_wire,
 )
+from binquant_tpu_torch.io.binbot import BinbotApi
 from binquant_tpu_torch.io.emission import RecordingSinks, extract_fired
+from binquant_tpu_torch.io.leverage import CalibrationInputs, LeverageCalibrator
 from binquant_tpu_torch.obs.ingest import IngestHealthMonitor
 from binquant_tpu_torch.obs.numeric import DriftMeter, NumericHealthMonitor
 from binquant_tpu_torch.obs.outcomes import OutcomeTracker
 from binquant_tpu_torch.regime.context import ContextConfig
 from binquant_tpu_torch.regime.grid_policy import GridOnlyPolicy
 from binquant_tpu_torch.regime.time_filter import is_quiet_hours
-from binquant_tpu_torch.schemas import MarketBreadthSeries
+from binquant_tpu_torch.schemas import MarketBreadthSeries, SymbolModel
+from binquant_tpu_torch.strategies.market_regime_notifier import MarketRegimeNotifier
 
 FIFTEEN_MIN_S = 900
 FIVE_MIN_S = 300
@@ -172,7 +191,8 @@ class SignalEngine:
         btc_symbol: str = "BTCUSDT",
         enabled_strategies: set[str] | None = None,
         pipeline_depth: int | None = None,
-        breadth: dict | None = None,
+        binbot_api: BinbotApi | None = None,
+        all_symbols: list[SymbolModel] | None = None,
         market_type: str = "FUTURES",
         exchange: str = "binance",
     ) -> None:
@@ -206,10 +226,31 @@ class SignalEngine:
         self.state_resets = 0
         self.market_type = market_type
         self.exchange = exchange
-        self._breadth_payload = breadth
+        # the binbot REST client (None: no breadth refresh, no leverage
+        # PUTs) and the autotrade consumer's symbol list, which leverage
+        # calibration diffs against
+        self.binbot_api = binbot_api
+        self.all_symbols: list[SymbolModel] = list(all_symbols or [])
         self.market_breadth: MarketBreadthSeries | None = None
         self._last_breadth_bucket = -1
         self.grid_only_policy = GridOnlyPolicy.disabled("not_evaluated")
+        self.notifier = MarketRegimeNotifier(env=self.config.env)
+        self.leverage_calibrator = LeverageCalibrator(binbot_api, exchange)
+        self._last_calibration_bucket = -1
+        self._calibration_task: asyncio.Task | None = None
+        # host ms of each calibration run
+        self.calibration_ms: list[float] = []
+        # the last valid regime and its transition strength (checkpointed)
+        self._last_regime: int | None = None
+        self._last_transition_strength = 0.0
+        self.signals_emitted = 0
+        # the CheckpointManager the consume loop saves through (None: no saves)
+        self.checkpoint = None
+        self.early_emit = bool(self.config.early_emit)
+        # readers of the state that a dispatch must not overlap (a save)
+        self._state_holds = 0
+        # the last backfill's bars, fetches and seconds
+        self.backfill_stats: dict | None = None
         # per-bar emission dedupe: (strategy, symbol) -> last emitted bar ts
         self._last_emitted: dict[tuple[str, str], int] = {}
         self._tracked_cache: tuple[int, torch.Tensor] | None = None
@@ -421,13 +462,143 @@ class SignalEngine:
         self._mark_carry_desynced("churn")
         return len(stale)
 
+    # -- startup backfill ---------------------------------------------------------
+
+    def _flush_batchers(self) -> None:
+        """Drain both batchers into the rings, update-only. The carry is not
+        advanced (hundreds of bars fold in), so the next tick recomputes in
+        full from the final windows (reason ``backfill``). The folds write
+        the ring planes in place: with no tick in flight and none
+        dispatched meanwhile, nothing else reads the pre-fold rings."""
+        self._refuse_while_held("a backfill flush")
+        if self._pending:
+            raise RuntimeError("backfill with a tick in flight: flush_pending() first")
+        batches5, batches15 = self.batcher5.drain(), self.batcher15.drain()
+        if not (batches5 or batches15):
+            return
+        self._note_applied(batches5, batches15)
+        self._mark_carry_desynced("backfill")
+        u5, u15 = self._fold_updates(self._slot_pairs(batches5, batches15), inplace=True)
+        if self.ingest_digest:
+            # the last slot is update-only too: counted into the accumulator
+            # the next evaluated tick drains
+            self.state, self._ingest_fold_counts = apply_updates_step_counted(
+                self.state, u5, u15, self._ingest_fold_acc(), inplace=True
+            )
+        else:
+            self.state = apply_updates_step(self.state, u5, u15, inplace=True)
+
+    def backfill(
+        self,
+        symbols: list[str],
+        fetch: Callable[[str, str], list[dict]],
+        now_ms: int | None = None,
+        chunk: int = 50,
+        concurrency: int = 8,
+    ) -> int:
+        """Seed both rings from REST history before going live (and top
+        them up after a restore: a bar the archive already holds is written
+        again unchanged). ``fetch(symbol, "5m" | "15m")`` returns kline
+        dicts; only bars closed by ``now_ms`` load. The BTC symbol goes
+        first; fetches run ``concurrency``-way in a thread pool while the
+        batchers are fed on the calling thread; a failed fetch is logged
+        and skipped; the batchers flush every ``chunk`` symbols. Returns the
+        bars loaded; ``backfill_stats`` keeps the counts and seconds."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        t_start = time.perf_counter()
+        now = int(now_ms if now_ms is not None else time.time() * 1000)
+        ordered = [self.btc_symbol] + [s for s in symbols if s != self.btc_symbol]
+        loaded = requests = failures = 0
+
+        def fetch_symbol(symbol: str):
+            out = []
+            for interval_key in ("5m", "15m"):
+                try:
+                    out.append((interval_key, fetch(symbol, interval_key)))
+                except Exception:
+                    logging.exception(
+                        "backfill fetch failed for %s %s; skipping", symbol, interval_key
+                    )
+                    out.append((interval_key, None))
+            return out
+
+        with ThreadPoolExecutor(max_workers=max(1, concurrency)) as pool:
+            for i, results in enumerate(pool.map(fetch_symbol, ordered)):
+                for interval_key, klines in results:
+                    if klines is None:
+                        failures += 1
+                        continue
+                    requests += 1
+                    batcher = self.batcher5 if interval_key == "5m" else self.batcher15
+                    for k in klines:
+                        if int(k["close_time"]) <= now:
+                            batcher.add(k)
+                            loaded += 1
+                if (i + 1) % chunk == 0:
+                    self._flush_batchers()
+        self._flush_batchers()
+        seconds = time.perf_counter() - t_start
+        self.backfill_stats = {
+            "bars": loaded, "symbols": len(ordered), "fetches_ok": requests,
+            "fetches_failed": failures, "seconds": seconds,
+        }
+        logging.info(
+            "backfill complete: %d bars across %d symbols in %.1fs "
+            "(%d fetches ok, %d failed, %d-way)",
+            loaded, len(ordered), seconds, requests, failures, concurrency,
+        )
+        return loaded
+
     # -- host carries ---------------------------------------------------------
 
     async def _refresh_market_breadth(self, bucket: int) -> None:
         if bucket == self._last_breadth_bucket:
             return
         self._last_breadth_bucket = bucket
-        self.market_breadth = MarketBreadthSeries.from_payload(self._breadth_payload)
+        if self.binbot_api is None:
+            return
+        try:
+            self.market_breadth = await self.binbot_api.get_market_breadth()
+        except Exception:
+            logging.exception("market breadth refresh failed; keeping previous")
+
+    def _run_leverage_calibration(self, bucket: int, context, rows=None) -> None:
+        """Schedule the bucket's leverage diff as a background worker: the
+        PUTs must not ride the tick. The tick hands over only host inputs
+        (the wire-decoded calibration rows, or a context) and the
+        dispatch-time rows. Single-flight: a bucket whose predecessor's run
+        is still in flight is skipped (an accelerated clock); with no
+        running event loop the run is inline."""
+        if bucket == self._last_calibration_bucket:
+            return
+        self._last_calibration_bucket = bucket
+        task = self._calibration_task
+        if task is not None and not task.done():
+            logging.warning(
+                "leverage calibration for bucket %s skipped: previous run still in "
+                "flight (accelerated clock)",
+                bucket,
+            )
+            return
+        rows = rows if rows is not None else self.registry.frozen_rows()
+        symbols = self.all_symbols
+
+        def work() -> None:
+            t0 = time.perf_counter()
+            try:
+                self.leverage_calibrator.calibrate_all(context, rows, symbols)
+            except Exception:
+                logging.exception("leverage calibration crashed; continuing")
+            finally:
+                self.calibration_ms.append((time.perf_counter() - t0) * 1000.0)
+
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            work()
+            return
+        self._calibration_task = loop.create_task(asyncio.to_thread(work))
 
     def _tracked_mask(self) -> torch.Tensor:
         cached = self._tracked_cache
@@ -602,6 +773,7 @@ class SignalEngine:
         return host, ready
 
     async def _dispatch_tick_inner(self, ts_ms: int) -> _PendingTick:
+        self._refuse_while_held("a tick dispatch")
         ts_s = ts_ms // 1000
         # evaluate against the bar that just CLOSED
         bucket15 = ts_s // FIFTEEN_MIN_S
@@ -734,6 +906,32 @@ class SignalEngine:
         self.grid_only_policy = GridOnlyPolicy.resolve(
             regime if has_ctx else None, self.market_breadth
         )
+        # the regime-transition digest
+        digest = self.notifier.build_message(ctx)
+        if digest:
+            self.sinks.notify(digest)
+        if has_ctx:
+            # leverage calibration once per 15m bucket, from the wire's
+            # calibration rows (the full outputs' context where absent)
+            if "calib_valid" in ctx:
+                calib = CalibrationInputs(
+                    valid=ctx["calib_valid"],
+                    close=ctx["calib_close"],
+                    atr_pct=ctx["calib_atr_pct"],
+                    regime=regime,
+                    stress=ctx["market_stress_score"],
+                    confidence=1.0,
+                )
+            else:
+                if outputs is None:
+                    outputs = pending.fallback()
+                calib = outputs.context
+            self._run_leverage_calibration(pending.bucket15, calib, rows=pending.rows)
+            self._last_regime = regime
+            self._last_transition_strength = ctx["market_regime_transition_strength"]
+        else:
+            self._last_regime = None
+            self._last_transition_strength = 0.0
         fired = extract_fired(
             outputs,
             pending.rows,
@@ -751,6 +949,7 @@ class SignalEngine:
         for signal in fired:
             signal.tick_ms = pending.ts_ms
             self.sinks.dispatch(signal)
+        self.signals_emitted += len(fired)
         # the emitted set enters the open registry anchored on this tick's
         # evaluated 5m bar; everything due matures against the current ring
         if self.outcomes.enabled:
@@ -787,3 +986,159 @@ class SignalEngine:
             self._last_emitted[key] = bar_ts
             kept.append(signal)
         return kept
+
+    # -- checkpoint/resume ----------------------------------------------------------
+
+    @contextlib.contextmanager
+    def hold_state(self, why: str):
+        """Hold the state for a reader (a checkpoint save, perhaps in a
+        worker thread): a tick dispatched or a backfill flushed meanwhile
+        raises instead of writing the rings under the reader."""
+        self._state_holds += 1
+        try:
+            yield
+        finally:
+            self._state_holds -= 1
+
+    def _refuse_while_held(self, what: str) -> None:
+        if self._state_holds:
+            raise RuntimeError(f"{what} while the engine state is held (a checkpoint save)")
+
+    def host_carries(self) -> dict:
+        """The JSON-serializable host state a restart needs for an identical
+        next tick, under the reference's keys: the per-bar emission dedupe,
+        the last regime, the notifier's last transition, the open outcome
+        registry. The breadth and calibration bucket marks are not carried:
+        the breadth series does not survive a restart."""
+        return {
+            "saved_at_s": time.time(),
+            "ticks_processed": self.ticks_processed,
+            "signals_emitted": self.signals_emitted,
+            "last_regime": self._last_regime,
+            "last_transition_strength": self._last_transition_strength,
+            "last_emitted": [
+                [strategy, symbol, ts] for (strategy, symbol), ts in self._last_emitted.items()
+            ],
+            "notifier_last_transition": self.notifier.last_transition_sent,
+            "outcomes_open": self.outcomes.snapshot_open(),
+        }
+
+    def restore_host_carries(self, carries: dict) -> None:
+        self.ticks_processed = int(carries.get("ticks_processed", 0))
+        self.signals_emitted = int(carries.get("signals_emitted", 0))
+        regime = carries.get("last_regime")
+        self._last_regime = None if regime is None else int(regime)
+        self._last_transition_strength = float(carries.get("last_transition_strength", 0.0))
+        self._last_emitted = {
+            (strategy, symbol): int(ts) for strategy, symbol, ts in carries.get("last_emitted", [])
+        }
+        notifier_last = carries.get("notifier_last_transition")
+        self.notifier.last_transition_sent = None if notifier_last is None else int(notifier_last)
+        self.outcomes.restore_open(carries.get("outcomes_open"))
+
+    def note_state_restored(self, migrated: bool = False) -> None:
+        """After a restore: rebuild the host's latest-open-time mirror from
+        the restored rings (one copy to the host) and judge the carry. It
+        is trusted only when its last bar times equal the rings' (an
+        archive of a classic engine, or of an older version, holds none
+        that match): otherwise the first tick recomputes in full
+        (``cold_start``)."""
+        st = self.state
+        ic = st.indicator_carry
+        latest = torch.stack([ring_latest_times(st.buf5), ring_latest_times(st.buf15)])
+        carry_ts = (
+            None if ic is None else torch.stack([ic.pack5.last_ts, ic.pack15.last_ts])
+        )
+        latest = latest.cpu().numpy().astype(np.int64)
+        self._host_latest = {"5m": latest[0].copy(), "15m": latest[1].copy()}
+        synced = (
+            not migrated
+            and carry_ts is not None
+            and np.array_equal(carry_ts.cpu().numpy().astype(np.int64), latest)
+        )
+        self._carry_desync_reason = None if synced else "cold_start"
+
+    def recover_if_state_poisoned(self) -> None:
+        """After a swallowed tick error: a failed device computation
+        surfaces at the first use of its outputs, so probe one small leaf
+        with a synchronizing copy and reset the engine cold if the probe
+        fails. A healthy state passes in microseconds."""
+        try:
+            self.state.mrf_last_emitted[:1].cpu()
+            return
+        except Exception:
+            pass
+        self._reset_state_cold("engine state poisoned by a failed device computation")
+
+    # -- the live loop ------------------------------------------------------------
+
+    async def consume_loop(
+        self,
+        queue: asyncio.Queue,
+        tick_interval_s: float = 1.0,
+        clock: Callable[[], int] | None = None,
+    ) -> None:
+        """Drain the ingest queue continuously; evaluate once per interval.
+
+        Each interval that brought candles runs one :meth:`process_tick`
+        (at ``clock()`` ms, the wall clock by default), then with
+        ``early_emit`` lands and emits that tick as soon as its wire copy
+        completes, then on the checkpoint cadence finalizes what is in
+        flight and saves in a worker thread (no tick is dispatched until
+        the save returns). A quiet interval finalizes what is still in
+        flight. A tick error is logged, the state is probed
+        (:meth:`recover_if_state_poisoned`) and the loop goes on. On
+        cancellation the ticks in flight are flushed. The reference's loop
+        also starts and drains its delivery plane and fan-out hub here;
+        neither is ported yet (ROADMAP queue A), and emission goes straight
+        to ``self.sinks``."""
+        try:
+            await self._consume_loop_body(queue, tick_interval_s, clock)
+        finally:
+            if self._pending:
+                try:
+                    await self.flush_pending()
+                except asyncio.CancelledError:
+                    logging.warning("shutdown flush interrupted mid-emission")
+                except Exception:
+                    logging.exception("shutdown flush failed")
+
+    async def _consume_loop_body(
+        self,
+        queue: asyncio.Queue,
+        tick_interval_s: float,
+        clock: Callable[[], int] | None,
+    ) -> None:
+        last_tick = 0.0
+        while True:
+            try:
+                timeout = max(tick_interval_s - (time.monotonic() - last_tick), 0.01)
+                try:
+                    self.ingest(await asyncio.wait_for(queue.get(), timeout=timeout))
+                    while True:
+                        try:
+                            self.ingest(queue.get_nowait())
+                        except asyncio.QueueEmpty:
+                            break
+                except (TimeoutError, asyncio.TimeoutError):
+                    pass
+                if time.monotonic() - last_tick >= tick_interval_s:
+                    if len(self.batcher5) or len(self.batcher15):
+                        last_tick = time.monotonic()
+                        await self.process_tick(None if clock is None else clock())
+                        if self.early_emit and self._pending:
+                            await self.emit_ready()
+                        if self.checkpoint is not None and self.checkpoint.should_save(self):
+                            # the snapshot's host carries must match the
+                            # state: finalize what is in flight first
+                            await self.flush_pending()
+                            await asyncio.to_thread(self.checkpoint.maybe_save, self)
+                    elif self._pending:
+                        # a quiet interval: land the last burst's signals now
+                        last_tick = time.monotonic()
+                        await self.flush_pending()
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                logging.exception("tick processing failed; continuing")
+                self.recover_if_state_poisoned()

@@ -7,7 +7,8 @@ tick grouping (``binquant_tpu/io/replay.py``), so the two packages replay
 identical streams: the reference's overflow drill
 (:func:`generate_burst_replay`), its two dormant-strategy markets
 (:func:`generate_dormant_replay`, :func:`generate_dormant_extended_replay`)
-and its signal-outcome stream (:func:`generate_outcome_replay`).
+and its signal-outcome stream (:func:`generate_outcome_replay`). The binbot
+backend is :class:`StubSession`, an in-memory fake behind the real client.
 """
 
 from __future__ import annotations
@@ -18,14 +19,70 @@ import json
 import os
 import time
 from pathlib import Path
+from typing import Any
 
 import numpy as np
 
 from binquant_tpu_torch.config import Config
+from binquant_tpu_torch.io.binbot import BinbotApi
 from binquant_tpu_torch.io.emission import RecordingSinks
 from binquant_tpu_torch.io.pipeline import SignalEngine
 from binquant_tpu_torch.obs.events import get_event_log
 from binquant_tpu_torch.regime.context import ContextConfig
+
+
+class StubSession:
+    """An in-memory binbot backend: records every request and answers it.
+
+    ``breadth`` scripts the market-breadth payload (None: the empty
+    series, which leaves the breadth-gated strategies dormant). A dict
+    with a ``"schedule"`` key scripts one payload per market-breadth call
+    instead (the engine refreshes once per 15m bucket, so entry k feeds
+    bucket k); the last entry repeats, and the entry ``"error"`` answers
+    HTTP 500, a stalled upstream whose engine keeps its previous series."""
+
+    class _Resp:
+        def __init__(self, payload: Any, status_code: int = 200) -> None:
+            self._payload = payload
+            self.status_code = status_code
+            self.text = json.dumps(payload)
+
+        def json(self) -> Any:
+            return self._payload
+
+    def __init__(self, breadth: dict | None = None) -> None:
+        self.requests: list[tuple[str, str, Any]] = []
+        self.breadth = breadth
+        self._breadth_calls = 0
+
+    def _breadth_payload(self):
+        breadth = self.breadth
+        if isinstance(breadth, dict) and "schedule" in breadth:
+            schedule = breadth["schedule"]
+            idx = min(self._breadth_calls, len(schedule) - 1)
+            self._breadth_calls += 1
+            entry = schedule[idx] if schedule else None
+            if entry == "error":
+                return self._Resp({"error": "breadth upstream down"}, 500)
+            return self._Resp({"data": entry or {}})
+        return self._Resp({"data": breadth or {}})
+
+    def request(self, method: str, url: str, **kwargs):
+        self.requests.append((method, url, kwargs.get("json")))
+        if "available-fiat" in url:
+            return self._Resp({"data": {"amount": 1000.0}})
+        if "active-pairs" in url or "excluded" in url or "grid-ladders/active" in url:
+            return self._Resp({"data": []})
+        if "/bot" in url and method == "POST":
+            return self._Resp(
+                {"message": "ok", "error": 0,
+                 "data": {"pair": "X", "id": "00000000-0000-0000-0000-000000000000"}}
+            )
+        if "activate" in url:
+            return self._Resp({"message": "ok", "error": 0, "data": {"pair": "X"}})
+        if "market-breadth" in url:
+            return self._breadth_payload()
+        return self._Resp({"data": {}})
 
 
 def make_stub_engine(
@@ -44,9 +101,14 @@ def make_stub_engine(
     drift_meter: bool | None = None,
     outcomes: bool | None = None,
     outcome_horizons: tuple[int, ...] | None = None,
+    session=None,
+    all_symbols: list | None = None,
 ) -> SignalEngine:
-    """A SignalEngine wired to recording sinks (no network), futures market
-    type, small-universe context gates unless ``context_config`` is given.
+    """A SignalEngine wired to recording sinks and a binbot client over
+    ``session`` (a :class:`StubSession` serving ``breadth`` by default; no
+    network), futures market type, small-universe context gates unless
+    ``context_config`` is given. ``all_symbols`` is the symbol list
+    leverage calibration diffs against (none by default).
     Runs on ``device`` — CUDA by default; raises when CUDA is missing unless
     ``device="cpu"``. Every other argument left None keeps the config's
     production default: depth 1 with rings in place, both digests, the drift
@@ -78,7 +140,10 @@ def make_stub_engine(
         context_config=context_config
         or ContextConfig(required_fresh_symbols=4, min_coverage_ratio=0.5),
         enabled_strategies=enabled_strategies,
-        breadth=breadth,
+        binbot_api=BinbotApi(
+            "http://stub", session=session if session is not None else StubSession(breadth)
+        ),
+        all_symbols=all_symbols,
     )
 
 

@@ -1,7 +1,8 @@
 """The metric families the port emits, defined once.
 
-Port of the signal-outcome families of ``binquant_tpu/obs/instruments.py``
-under the reference's names, so a dashboard reads either package. Labels
+Port of the signal-outcome, binbot-client and checkpoint families of
+``binquant_tpu/obs/instruments.py`` under the reference's names, so a
+dashboard reads either package. Labels
 are bounded sets (strategy names, horizons); symbols go in events, never in
 labels.
 """
@@ -61,4 +62,26 @@ OUTCOME_TRUNCATED = REGISTRY.counter(
     "bqt_signal_outcomes_truncated_total",
     "Matured pairs excluded from the scoreboard because the ring no "
     "longer held the full horizon window or the row's history vanished.",
+)
+
+# -- the binbot REST client (io/binbot.py) and checkpoints (io/checkpoint.py) -
+
+BINBOT_REQUESTS = REGISTRY.counter(
+    "bqt_binbot_requests_total",
+    "Binbot backend REST calls by method and outcome "
+    "(ok / http_error / backend_error / transport_error).",
+    labels=("method", "outcome"),
+)
+BINBOT_RETRIES = REGISTRY.counter(
+    "bqt_binbot_retries_total",
+    "Binbot REST retry outcomes: retry (a capped, jittered in-client "
+    "retry ran after a transport error / 5xx) and exhausted (the retry "
+    "budget was spent; the error surfaced to the caller and a "
+    "binbot_retry_exhausted event recorded it).",
+    labels=("outcome",),
+)
+CHECKPOINT_SAVES = REGISTRY.counter(
+    "bqt_checkpoint_saves_total",
+    "Engine-state snapshot attempts by outcome (ok / error).",
+    labels=("outcome",),
 )

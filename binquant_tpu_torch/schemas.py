@@ -1,17 +1,23 @@
 """The emitted payload shapes, as plain dataclasses.
 
 The port's own copy of the parts of ``binquant_tpu/schemas.py`` emission
-builds: ``SignalsConsumer`` (the signal every sink receives), ``BotBase``,
-``GridDeploymentRequest``, ``HABollinguerSpread`` and the market-breadth
-series the host policies read. Field names and defaults follow the
+and the service around the tick use: ``SignalsConsumer`` (the signal every
+sink receives), ``BotBase``, ``GridDeploymentRequest``,
+``HABollinguerSpread``, the market-breadth series the host policies read,
+and the binbot client's ``SymbolModel``, ``AutotradeSettingsSchema`` and
+``TestAutotradeSettingsSchema``. Field names and defaults follow the
 reference models so a payload serializes to the same JSON body;
 ``model_dump()`` is the JSON view (enums as their values, datetimes as ISO
-strings).
+strings) and ``model_validate(dict)`` builds a model from a JSON body,
+keeping the known fields (others are ignored) and coercing scalars to the
+field's type as the reference's models do.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
+import typing
 from dataclasses import dataclass, field
 from datetime import datetime
 from enum import Enum
@@ -34,9 +40,35 @@ def _jsonable(value: Any) -> Any:
     return value
 
 
+def _coerce(kind: Any, value: Any) -> Any:
+    """``value`` as a field of type ``kind``: optional fields keep None,
+    scalars and enums are converted, anything else passes through."""
+    if typing.get_origin(kind) in (typing.Union, types.UnionType):
+        args = [a for a in typing.get_args(kind) if a is not type(None)]
+        if value is None:
+            return None
+        return _coerce(args[0], value) if len(args) == 1 else value
+    if kind in (float, int, str, bool):
+        return kind(value)
+    if isinstance(kind, type) and issubclass(kind, Enum):
+        return kind(value)
+    return value
+
+
 class _Model:
     def model_dump(self, mode: str = "json") -> dict[str, Any]:
         return _jsonable(self)
+
+    @classmethod
+    def model_validate(cls, data: Any):
+        if isinstance(data, cls):
+            return data
+        hints = typing.get_type_hints(cls)
+        return cls(**{
+            f.name: _coerce(hints[f.name], data[f.name])
+            for f in dataclasses.fields(cls)
+            if f.name in data
+        })
 
 
 @dataclass
@@ -131,3 +163,59 @@ class MarketBreadthSeries(_Model):
             market_breadth=list(data.get("market_breadth", [])),
             market_breadth_ma=list(data.get("market_breadth_ma", [])),
         )
+
+    @classmethod
+    def model_validate(cls, data: Any) -> "MarketBreadthSeries":
+        if isinstance(data, cls):
+            return data
+        return cls.from_payload(data)
+
+
+# -- symbols and settings (the binbot client's models) -------------------------
+
+
+@dataclass
+class SymbolModel(_Model):
+    id: str
+    base_asset: str = ""
+    quote_asset: str = "USDT"
+    active: bool = True
+    is_margin_trading_allowed: bool = False
+    price_precision: int = 6
+    qty_precision: int = 6
+    min_notional: float = 5.0
+    cooldown: int = 0
+    cooldown_start_ts: int = 0
+    leverage: float = 1.0
+    futures_leverage: float = 1.0
+    blacklist_reason: str = ""
+
+
+@dataclass
+class AutotradeSettingsSchema(_Model):
+    autotrade: bool = False
+    exchange_id: str = "binance"
+    market_type: MarketType = MarketType.SPOT
+    candlestick_interval: str = "15m"
+    fiat: str = "USDT"
+    base_order_size: float = 15.0
+    stop_loss: float = 3.0
+    take_profit: float = 2.3
+    trailing: bool = True
+    trailing_deviation: float = 0.63
+    trailing_profit: float = 2.3
+    autoswitch: bool = False
+    max_active_autotrade_bots: int = 10
+    grid_total_margin: float = 10.0
+    grid_level_count: int = 7
+    max_active_grid_ladders: int = 3
+    grid_allocation_pct: float | None = 60.0
+    grid_cash_reserve_pct: float | None = 40.0
+    test_autotrade: bool = False
+
+
+@dataclass
+class TestAutotradeSettingsSchema(AutotradeSettingsSchema):
+    __test__ = False  # a model, not a pytest class
+
+    test_autotrade: bool = True

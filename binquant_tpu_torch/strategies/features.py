@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from binquant_tpu_torch.engine.buffer import Field, MarketBuffer
@@ -72,6 +73,8 @@ F32 = torch.float32
 # add/subtract residue (an MFI near 0 IS that residue). A product rounds
 # alike on both. (The full-window pack keeps the reference's division.)
 THIRD = 1.0 / 3.0
+# the float32 value a float32 tensor multiplies by for THIRD, as a float64
+THIRD_F64 = float(np.float32(THIRD))
 
 
 def _A(span: float) -> float:
@@ -373,13 +376,23 @@ def _gain_loss_at(buf: MarketBuffer, pos: int):
 
 
 def _flows_at(buf: MarketBuffer, pos: int):
-    def tp_at(p):
-        return (
-            _col(buf, p, Field.HIGH) + _col(buf, p, Field.LOW) + _col(buf, p, Field.CLOSE)
-        ) * THIRD
+    """The bar's MFI flow on its up or down side, as the reference's
+    compiled advance books it. XLA turns ``(h+l+c)/3.0 - (h'+l'+c')/3.0``
+    into ``s·0.333333343 - s'·0.333333343`` inside one loop fusion, where
+    the newer bar's product also feeds the flow; the CPU backend then
+    contracts the subtraction with the OLDER bar's single-use product:
+    ``fma(-s', THIRD, round(s·THIRD))``. So two bars with equal ``h+l+c``
+    give a typical-price delta of one rounding residue, not 0, and the flat
+    bar is booked up or down by that residue's sign. A product of two f32
+    values is exact in f64, so the f64 difference below has the FMA's sign
+    (the delta is read only for its sign and finiteness), alike on the card
+    and the CPU. (The full-window init and pack book such a bar as flat, as
+    the reference's do.)"""
+    def hlc(p):
+        return _col(buf, p, Field.HIGH) + _col(buf, p, Field.LOW) + _col(buf, p, Field.CLOSE)
 
-    tp = tp_at(pos)
-    tpd = tp - tp_at(pos - 1)
+    tp = hlc(pos) * THIRD
+    tpd = (tp.double() - hlc(pos - 1).double() * THIRD_F64).float()
     flow = tp * _col(buf, pos, Field.VOLUME)
     fin = torch.isfinite(tpd)
     pos_f = torch.where(fin, torch.where(tpd > 0, flow, 0.0), NAN)

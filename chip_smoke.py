@@ -54,6 +54,12 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    strategy that fires on the CPU firing on the card too, and exactly one
    qtail launch at ``detect_spikes`` on every tick. On the first market the
    live set alone also drives the card, for the tick times beside it.
+   Then the reference's two 24-symbol markets at their own 130 bars, tiled
+   over S rows (one BTC row, the other 23 cycled under distinct names, so
+   the cross-sectional shares the breadth gates read stay theirs), classic,
+   the last two bars live: there RangeBbRsi, RangeFailedBreakoutFade, RS
+   reversal and SupertrendSwingReversal fire, card against CPU, their
+   counts printed.
 5. Drive the production loop (``[slice pipelined]``): depth 1, rings
    updated in place, both wire digests and the carry-drift meter on, an
    audit every 8 ticks, on a market that trends down through 16 live ticks
@@ -73,7 +79,27 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    the host ms of each maturation tick (gather, copy, fold) is printed. The
    same drive at depth 0 with copied rings on the card gives the tick times
    and peak device memory it is printed beside.
-6. Print the kernels line, the card's name and power limit, and the result.
+6. Drive the service around the tick (``[slice service]``): the
+   production loop, an audit and a checkpoint every 8 ticks, a binbot
+   client over the stub backend with a scripted breadth schedule (one
+   stalled bucket) and a seeded symbol list to calibrate. Boot A: a cold
+   engine finds no archive, ``backfill`` loads 400 bars per interval and
+   symbol from a fake REST source (one symbol's fetches raise, a bar that
+   has not closed is served and dropped), then ``consume_loop`` takes 16
+   live ticks of the production drive's downtrend from an
+   ``asyncio.Queue``, bucket by bucket, and is cancelled. Boot B restores
+   A's archive of tick 8, tops the rings up by ``backfill`` (at the
+   production flush cadence) and consumes ticks 9-16. A CPU engine (depth
+   0, copied rings) takes boot A's stream. Routing, fired tuples, notifier
+   digests, leverage PUTs, host carries and rings must equal the CPU's
+   (wires within the contract) and B's ticks must equal A's bit for bit
+   (but for the ingest counts of B's own backfill); qtail launches per tick
+   and site must be 2 on each first tick after a backfill (``cold_start``
+   for A, ``backfill`` for B), 3 on the audit, 0 on an incremental tick,
+   plus an overflowing tick's fallback. It prints the backfill's seconds
+   and bars per second, the save and restore ms, the first tick's ms after
+   each backfill and the calibration worker's ms.
+7. Print the kernels line, the card's name and power limit, and the result.
 
 Phase 5 times three card configurations (depth 1 in place; depth 0
 copying; depth 0 copying without the digests and the meter) over two
@@ -93,10 +119,13 @@ run outside a checkout that holds the ``binquant_tpu_torch`` package.
 from __future__ import annotations
 
 import asyncio
+import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -108,6 +137,8 @@ LIVE_TICKS = 16  # live ticks of the incremental drive (and before the crash)
 CLASSIC_TICKS = 8  # live ticks of the classic drive
 AUDIT_EVERY = 8  # the full-recompute audit cadence of the incremental drives
 DORMANT_TICKS = 8  # live ticks of each dormant-market drive
+TILED_BARS = 130  # the reference's dormant markets' own length, tiled over S rows
+TILED_TICKS = 2  # live ticks of each tiled drive (the setups are on the last two)
 # the classic, incremental and dormant-market drives: the serial loop, copied
 # rings, no digests, no outcome tracker
 SERIAL = dict(pipeline_depth=0, donate=False, numeric_digest=False, ingest_digest=False,
@@ -400,36 +431,47 @@ def kline(symbol, ts_s, interval_s, m, i) -> dict:
     }
 
 
-def tick_plan(engine, m5: dict, m15: dict, live_ticks: int) -> list[tuple[int, list[dict]]]:
-    """Queue W bars of warm history per ring as ``add_batch`` sub-batches
-    (folded by the first tick) and return the ticks: the warm tick, then
-    ``live_ticks`` ticks of closed klines (one 15m and three 5m bars per
-    symbol), each as (now_ms, klines)."""
+def live_ticks_of(m5: dict, m15: dict, live_ticks: int, warm: int = W):
+    """The ticks after ``warm`` 15m bars of history: ``live_ticks`` ticks of
+    closed klines (one 15m and three 5m bars per symbol), each as (now_ms,
+    klines)."""
     names = symbols()
-    rows = np.array([engine.registry.add(n) for n in names], dtype=np.int32)
-    w15 = bar_values(m15, slice(0, W), 900)
-    w5 = bar_values(m5, slice(2 * W, 3 * W), 300)
-    t15 = T_LIVE0 - 900 * W
-    t5 = T_LIVE0 - 300 * W
-    for k in range(W):
-        engine.batcher15.add_batch(rows, np.full(S, t15 + 900 * k, np.int32), w15[:, k])
-        engine.batcher5.add_batch(rows, np.full(S, t5 + 300 * k, np.int32), w5[:, k])
-
-    ticks: list[tuple[int, list[dict]]] = [(T_LIVE0 * 1000, [])]
+    ticks: list[tuple[int, list[dict]]] = []
     for t in range(live_ticks):
         ts15 = T_LIVE0 + 900 * t
         klines = []
         for r, name in enumerate(names):
-            klines.append(kline((name, r), ts15, 900, m15, W + t))
+            klines.append(kline((name, r), ts15, 900, m15, warm + t))
             for j in range(3):
-                klines.append(kline((name, r), ts15 + 300 * j, 300, m5, 3 * (W + t) + j))
+                klines.append(kline((name, r), ts15 + 300 * j, 300, m5, 3 * (warm + t) + j))
         ticks.append(((ts15 + 900) * 1000, klines))
     return ticks
+
+
+def tick_plan(
+    engine, m5: dict, m15: dict, live_ticks: int, warm: int = W
+) -> list[tuple[int, list[dict]]]:
+    """Queue ``warm`` bars of 15m history (and up to W of their 5m bars) as
+    ``add_batch`` sub-batches (folded by the first tick) and return the
+    ticks: the warm tick, then the live ticks of :func:`live_ticks_of`."""
+    names = symbols()
+    rows = np.array([engine.registry.add(n) for n in names], dtype=np.int32)
+    n5 = min(3 * warm, W)
+    w15 = bar_values(m15, slice(0, warm), 900)
+    w5 = bar_values(m5, slice(3 * warm - n5, 3 * warm), 300)
+    t15 = T_LIVE0 - 900 * warm
+    t5 = T_LIVE0 - 300 * n5
+    for k in range(warm):
+        engine.batcher15.add_batch(rows, np.full(S, t15 + 900 * k, np.int32), w15[:, k])
+    for k in range(n5):
+        engine.batcher5.add_batch(rows, np.full(S, t5 + 300 * k, np.int32), w5[:, k])
+    return [(T_LIVE0 * 1000, [])] + live_ticks_of(m5, m15, live_ticks, warm)
 
 
 def drive(
     device: str, m5: dict, m15: dict, incremental: bool, live_ticks: int, profiler=None,
     enabled: set | None = None, breadth: dict | None = None, host_flags: dict | None = None,
+    warm: int = W,
 ) -> dict:
     """Warm tick plus ``live_ticks`` live ticks through one engine on
     ``device``. Per tick it records the path the engine took, the qtail
@@ -439,7 +481,8 @@ def drive(
     only, each inside a ``chip_smoke_tick`` range. ``enabled`` names the
     strategies on the wire (the live set by default), ``breadth`` the
     stub's breadth series, ``host_flags`` the engine's scripted host flags
-    (the market-dominance flags)."""
+    (the market-dominance flags), ``warm`` the 15m bars of history before
+    the live ticks."""
     import contextlib
 
     import torch
@@ -455,7 +498,7 @@ def drive(
     )
     for name, value in (host_flags or {}).items():
         setattr(engine, name, value)
-    ticks = tick_plan(engine, m5, m15, live_ticks)
+    ticks = tick_plan(engine, m5, m15, live_ticks, warm)
     out = {"paths": [], "launches": [], "sites": [], "tick_ms": [], "wires": [],
            "fired": [], "indicators": {}, "overflowed": []}
 
@@ -793,6 +836,15 @@ def market_from_bars(bars: dict) -> tuple[dict, dict]:
     return m5, m15
 
 
+def tiled_bars(bars: dict, n_rows: int) -> dict:
+    """A market's bars over ``n_rows`` symbols: its BTC row once, then its
+    other rows cycled (each copy a symbol of its own), so the
+    cross-sectional shares the breadth gates read stay the source's."""
+    src = bars["15m"]["close"].shape[1]
+    cols = np.concatenate([[0], 1 + np.arange(n_rows - 1) % (src - 1)])
+    return {iv: {k: v[:, cols] for k, v in planes.items()} for iv, planes in bars.items()}
+
+
 def _gated_flip_ok(flip: tuple, ind: dict, margins: dict) -> bool:
     """Whether a fired/not-fired flip sits inside its strategy's declared
     gate margin: the row's gated RSI/MFI within the margin of a threshold."""
@@ -873,7 +925,7 @@ def _expected_sites(path: str, dormant: bool, overflowed: bool = False) -> dict:
     (the reference's full-outputs step), the spike detector included."""
     full = path != "incremental"
     want = {"abp_core": 1} if full else {}
-    if path in ("cold_start", "audit"):
+    if path in ("cold_start", "audit", "backfill"):
         want["abp_init_from_window"] = 1
     if dormant:
         want["detect_spikes"] = 1
@@ -989,6 +1041,46 @@ def check_dormant() -> dict:
                 f"{WIRE_MAX_FIRED} slots; wire max abs err vs cpu {err:.3g}"
             )
         result["markets"][name] = per_market
+    # the reference's 24-symbol markets tiled across S rows at their own
+    # length: the four strategies that fire nowhere above fire here
+    for name, (bars, breadth, flags, want) in {
+        "dormant_tiled": (dormant_market_bars(24, TILED_BARS), None, {},
+                          ("range_bb_rsi_mean_reversion",)),
+        "extended_tiled": (
+            dormant_extended_market_bars(24, TILED_BARS), RISING_BREADTH,
+            {"dominance_is_losers": True, "market_domination_reversal": True},
+            ("range_failed_breakout_fade", "relative_strength_reversal_range",
+             "coinrule_supertrend_swing_reversal"),
+        ),
+    }.items():
+        m5, m15 = market_from_bars(tiled_bars(bars, S))
+        kw = dict(enabled=every, breadth=breadth, host_flags=flags, warm=TILED_BARS - TILED_TICKS)
+        qt.reset_launches()
+        gpu = drive("cuda", m5, m15, False, TILED_TICKS, **kw)
+        count(gpu, dormant=True)
+        cpu = drive("cpu", m5, m15, False, TILED_TICKS, **kw)
+        if gpu["paths"] != ["classic"] * (TILED_TICKS + 1):
+            fail(f"{name}: routing {gpu['paths']}")
+        flips, err = compare_dormant(gpu, cpu, f"{name} classic")
+        card_by, cpu_by = _by_strategy(gpu["fired"]), _by_strategy(cpu["fired"])
+        fired_want = {s: card_by.get(s, 0) for s in want}
+        if not all(fired_want.values()) or any(cpu_by.get(s, 0) != n for s, n in fired_want.items()):
+            fail(f"{name}: {fired_want} fired on the card, {cpu_by} on the cpu; each of "
+                 f"{want} must fire, alike on both")
+        any_dormant += sum(card_by.get(s, 0) for s in dormant_set)
+        result["markets"][name] = {
+            "classic": {"signals_by_strategy": card_by, "cpu_signals_by_strategy": cpu_by,
+                        "flips": [list(f) for f in flips], "max_wire_abs_err_vs_cpu": err,
+                        "overflow_ticks": gpu["engine"].overflow_ticks,
+                        "tick_ms": gpu["tick_ms"]},
+        }
+        print(
+            f"[slice dormant] {name} classic: the reference's 24-symbol market ({TILED_BARS} "
+            f"bars) tiled over S={S} rows, {TILED_BARS - TILED_TICKS} bars of history + "
+            f"{TILED_TICKS} live ticks; fired on the card {fired_want} (cpu "
+            f"{ {s: cpu_by.get(s, 0) for s in want} }); all signals {card_by}; "
+            f"{len(flips)} flips inside the gate margins; wire max abs err vs cpu {err:.3g}"
+        )
     if not any_dormant:
         fail("no dormant strategy fired on the dormant markets")
     if set(detect_spikes_per_tick) != {1}:
@@ -1347,6 +1439,344 @@ def check_pipelined(m5, m15) -> dict:
     return result
 
 
+# --------------------------------------------------------------------------
+# phase 6: the service around the tick (restore, backfill, the consume loop,
+# leverage calibration, the regime notifier, checkpoints)
+# --------------------------------------------------------------------------
+
+SERVICE_TICKS = 16  # live ticks of the service drive
+SERVICE_EVERY = 8  # its checkpoint and audit cadence
+BACKFILL_FAILING = "S0007USDT"  # the symbol whose history fetch raises
+KLINE_KEYS = ("open_time", "close_time", "open", "high", "low", "close", "volume",
+              "quote_asset_volume", "number_of_trades", "taker_buy_base_volume",
+              "taker_buy_quote_volume")
+
+
+def service_breadth() -> list:
+    """One breadth payload per 15m bucket of the service drive (its first
+    tick's bucket first), a stalled upstream (HTTP 500) on the fifth."""
+    out: list = []
+    for t in range(SERVICE_TICKS + 1):
+        vals = [0.55 - 0.02 * (t + k) for k in range(4)]
+        out.append("error" if t == 4 else {
+            "timestamp": [t + k for k in range(4)],
+            "market_breadth": vals,
+            "market_breadth_ma": [v + 0.01 for v in vals],
+        })
+    return out
+
+
+def make_fetch(m5: dict, m15: dict, upto15: int):
+    """A fake REST history source: ``fetch(symbol, interval)`` returns the
+    symbol's 400 bars that closed before 15m bar ``upto15`` opens, and the
+    next bar, which has not closed yet (the backfill drops it), as kline
+    dicts; :data:`BACKFILL_FAILING`'s fetches raise."""
+    row_of = {name: r for r, name in enumerate(symbols())}
+    planes = {}
+    for interval, m, step, hi in (("15m", m15, 900, upto15), ("5m", m5, 300, 3 * upto15)):
+        ts = (T_LIVE0 - 900 * W + step * np.arange(hi - 400, hi + 1))[None, :].repeat(S, 0)
+        o, h, lo, c, v = (m[k][:, hi - 400: hi + 1] for k in ("open", "high", "low", "close",
+                                                               "volume"))
+        planes[interval] = np.stack(
+            [ts * 1000, (ts + step) * 1000 - 1, o, h, lo, c, v, v * c,
+             np.full_like(c, 300.0), v / 2, v * c / 2], axis=-1,
+        )
+
+    def fetch(symbol: str, interval: str) -> list[dict]:
+        if symbol == BACKFILL_FAILING:
+            raise ConnectionError(f"{symbol}: history unavailable")
+        rows = planes[interval][row_of[symbol]].tolist()
+        return [dict(zip(KLINE_KEYS, row), symbol=symbol) for row in rows]
+
+    return fetch
+
+
+def service_symbols(rng: np.random.Generator) -> list:
+    """The autotrade consumer's symbol list: every symbol, its current
+    futures leverage seeded from 1x-3x (most rows will need a PUT)."""
+    from binquant_tpu_torch.schemas import SymbolModel
+
+    levels = rng.choice([1.0, 2.0, 3.0], size=S)
+    return [SymbolModel(id=name, futures_leverage=float(lv)) for name, lv in zip(symbols(), levels)]
+
+
+def service_drive(device: str, m5: dict, m15: dict, first: int, ckpt_path, symbols_list,
+                  production: bool, restore: bool, keep_at: int | None = None,
+                  chunk: int = S) -> dict:
+    """One boot of the service: a cold engine, ``try_restore`` from
+    ``ckpt_path`` (``restore``), ``backfill`` from the fake REST source as
+    of the first tick's bucket, then ``consume_loop`` over live ticks
+    ``first``..SERVICE_TICKS-1 fed bucket by bucket through an
+    ``asyncio.Queue``, a checkpoint every SERVICE_EVERY ticks, cancelled
+    at the end. ``production``: depth 1, rings in place (else depth 0,
+    copied rings); both digests, the drift meter and outcomes either way.
+    Per tick: path, qtail launches by site, the ms from queueing its klines
+    until its wire landed, the wire, the fired tuples, digests and PUTs
+    it brought. ``keep_at``: after that many ticks, the archive is copied
+    aside and the symbol list snapshotted (the restart's starting point).
+    ``chunk``: the backfill's flush cadence in symbols (one flush by
+    default: at the production default of 50 the CPU engine's ~16,000 ring
+    folds would take minutes)."""
+    import torch
+
+    from binquant_tpu_torch.io.checkpoint import CheckpointManager
+    from binquant_tpu_torch.io.replay import StubSession, make_stub_engine, signal_tuples
+    from binquant_tpu_torch.ops import quantile_tail as qt
+    from binquant_tpu_torch.regime.context import ContextConfig
+
+    session = StubSession({"schedule": service_breadth()[first:]})
+    flags = {} if production else dict(pipeline_depth=0, donate=False)
+    engine = make_stub_engine(
+        capacity=S, window=W, context_config=ContextConfig(), device=device, incremental=True,
+        carry_audit_every=SERVICE_EVERY, session=session, all_symbols=symbols_list, **flags,
+    )
+    engine.checkpoint = CheckpointManager(ckpt_path, every_ticks=SERVICE_EVERY)
+    out = {"restored": engine.checkpoint.try_restore(engine),
+           "paths": [], "sites": [], "tick_ms": [], "wires": [], "fired": [], "digests": [],
+           "puts": [], "saves_ms": [], "overflowed": [], "kept": None}
+    if out["restored"] != restore:
+        fail(f"service drive on {device}: try_restore gave {out['restored']}, expected {restore}")
+    out["restore_ms"] = engine.checkpoint.last_restore_ms
+    now_ms = (T_LIVE0 + 900 * first) * 1000
+    loaded = engine.backfill(symbols(), make_fetch(m5, m15, W + first), now_ms=now_ms,
+                             chunk=chunk)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out["backfill"] = dict(engine.backfill_stats, loaded=loaded,
+                           failing_registered=BACKFILL_FAILING in engine.registry)
+    ticks = live_ticks_of(m5, m15, SERVICE_TICKS)[first:]
+
+    def puts() -> list:
+        return [(u.rsplit("/", 1)[-1], body["futures_leverage"])
+                for m, u, body in session.requests if m == "PUT"]
+
+    async def run() -> None:
+        queue: asyncio.Queue = asyncio.Queue()
+        clock = {"now": 0}
+        task = asyncio.create_task(
+            engine.consume_loop(queue, tick_interval_s=0.0, clock=lambda: clock["now"]))
+        for n, (tick_now, klines) in enumerate(ticks, start=first + 1):
+            clock["now"] = tick_now
+            before, ticks0 = dict(qt.launches_by_site), engine.ticks_processed
+            d0, p0 = len(engine.sinks.digests), len(puts())
+            f0, o0 = len(engine.sinks.fired), engine.overflow_ticks
+            t0 = time.perf_counter()
+            for k in klines:
+                queue.put_nowait(k)
+            while engine.ticks_processed == ticks0 or engine._pending:
+                await asyncio.sleep(0.0002)
+            out["tick_ms"].append((time.perf_counter() - t0) * 1000.0)
+            if engine._calibration_task is not None:
+                await engine._calibration_task  # this bucket's PUTs land first
+            if engine.checkpoint.should_save(engine):
+                while engine.checkpoint.last_saved_tick != engine.ticks_processed:
+                    await asyncio.sleep(0.0002)
+                out["saves_ms"].append(engine.checkpoint.last_save_ms)
+            out["sites"].append({k: v - before.get(k, 0) for k, v in qt.launches_by_site.items()
+                                 if v != before.get(k, 0)})
+            out["paths"].append(engine.last_path)
+            out["overflowed"].append(engine.overflow_ticks > o0)
+            out["wires"].append(engine.last_wire)
+            out["fired"].append(signal_tuples(engine.sinks.fired[f0:]))
+            out["digests"].append(engine.sinks.digests[d0:])
+            out["puts"].append(puts()[p0:])
+            if n == keep_at:
+                kept = Path(str(ckpt_path) + f".tick{n}")
+                shutil.copy(ckpt_path, kept)
+                out["kept"] = (kept, copy.deepcopy(engine.all_symbols))
+        task.cancel()
+        try:
+            await task
+        except asyncio.CancelledError:
+            pass
+        else:
+            fail("the consume loop returned instead of being cancelled")
+
+    asyncio.run(run())
+    carries = engine.host_carries()
+    carries.pop("saved_at_s")
+    out.update(
+        carries=carries, registry=engine.registry.to_mapping(), calibration_ms=list(engine.calibration_ms),
+        overflow_ticks=engine.overflow_ticks, state_bytes=sum(
+            t.numel() * t.element_size() for t in torch.utils._pytree.tree_leaves(engine.state)),
+        rings={f"{name}.{f}": getattr(getattr(engine.state, name), f).cpu()
+               for name in ("buf5", "buf15") for f in ("times", "values", "filled")},
+        canonical=_canonical_rings(engine.state),
+    )
+    return out
+
+
+def _canonical_rings(state) -> dict:
+    from binquant_tpu_torch.engine.step import canonicalize_state
+
+    canon = canonicalize_state(state)
+    return {f"{name}.{f}": getattr(getattr(canon, name), f).cpu()
+            for name in ("buf5", "buf15") for f in ("times", "values", "filled")}
+
+
+def _compare_service(a: dict, b: dict, label: str, exact: bool, skip_first_ingest=False) -> float:
+    """Two service drives tick for tick: routing, fired tuples, digests,
+    PUTs; wires bit for bit (``exact``) or within the wire contract (fired
+    block exact, floats ``rtol=1e-4, atol=1e-5``). ``skip_first_ingest``
+    leaves out the first tick's ingest digest block (it counts the folds of
+    a backfill only one drive made). Returns the largest finite wire
+    difference."""
+    from binquant_tpu_torch.engine.step import (
+        INGEST_DIGEST_WIDTH,
+        WIRE_FIRED_COUNT_OFF,
+        WIRE_MAX_FIRED,
+    )
+
+    for key in ("paths", "fired", "digests", "puts"):
+        if a[key] != b[key]:
+            bad = next(i for i, (x, y) in enumerate(zip(a[key], b[key])) if x != y)
+            fail(f"{label}: {key} differ at tick {bad}: {a[key][bad]!r} vs {b[key][bad]!r}")
+    off, K = WIRE_FIRED_COUNT_OFF, WIRE_MAX_FIRED
+    err = 0.0
+    for i, (wa, wb) in enumerate(zip(a["wires"], b["wires"], strict=True)):
+        if skip_first_ingest and i == 0:
+            wa, wb = wa[:-INGEST_DIGEST_WIDTH], wb[:-INGEST_DIGEST_WIDTH]
+        if exact:
+            if not np.array_equal(wa, wb, equal_nan=True):
+                fail(f"{label}: wires differ at tick {i}")
+            continue
+        if not np.array_equal(wa[off: off + 1 + 4 * K], wb[off: off + 1 + 4 * K]):
+            fail(f"{label}: fired blocks differ at tick {i}")
+        if not np.isclose(wa, wb, rtol=1e-4, atol=1e-5, equal_nan=True).all():
+            fail(f"{label}: wire floats differ beyond the contract at tick {i}")
+        fin = np.isfinite(wa) & np.isfinite(wb)
+        err = max(err, float(np.abs(wa[fin] - wb[fin]).max()))
+    return err
+
+
+def _carries_match(a: dict, b: dict) -> bool:
+    """Host carries equal; the transition strength (a wire float) to the
+    wire contract."""
+    a, b = dict(a), dict(b)
+    x, y = a.pop("last_transition_strength"), b.pop("last_transition_strength")
+    return a == b and bool(np.isclose(x, y, rtol=1e-4, atol=1e-5))
+
+
+def check_service(m5, m15) -> dict:
+    """Boot A on the card: no archive, backfill, SERVICE_TICKS live ticks
+    through the consume loop (checkpoints at ticks 8 and 16; the archive of
+    tick 8 kept). Boot B on the card: restore tick 8's archive, backfill
+    again (the top-up: bars the archive holds are written again), live
+    ticks 9..16. The CPU engine runs boot A's stream at depth 0 with copied
+    rings."""
+    import torch
+
+    from binquant_tpu_torch.ops import quantile_tail as qt
+
+    sym_a = service_symbols(np.random.default_rng(SEED + 3))
+    sym_cpu = copy.deepcopy(sym_a)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        qt.reset_launches()  # launches made elsewhere do not count
+        a = service_drive("cuda", m5, m15, 0, tmp / "a.npz", sym_a, production=True,
+                          restore=False, keep_at=SERVICE_EVERY)
+        kept, sym_b = a["kept"]
+        # the restart's top-up flushes at the production default, every 50
+        # symbols (the rings it leaves are the same)
+        b = service_drive("cuda", m5, m15, SERVICE_EVERY, kept, sym_b, production=True,
+                          restore=True, chunk=50)
+        launches = dict(qt.launches_by_site)  # read just after the card drives
+        n_launches = qt.launches
+        cpu = service_drive("cpu", m5, m15, 0, tmp / "cpu.npz", sym_cpu, production=False,
+                            restore=False)
+    want_a = ["cold_start"] + ["audit" if t == SERVICE_EVERY else "incremental"
+                               for t in range(1, SERVICE_TICKS)]
+    if a["paths"] != want_a:
+        fail(f"service boot A routing {a['paths']}, expected {want_a}")
+    if b["paths"] != ["backfill"] + ["incremental"] * (SERVICE_TICKS - SERVICE_EVERY - 1):
+        fail(f"service boot B routing {b['paths']}")
+    sites = dict(EXPECT_SITES, backfill=EXPECT_SITES["cold_start"])
+    for run, label in ((a, "A"), (b, "B")):
+        # an overflowing tick's fallback (the full-outputs step, every
+        # strategy) launches its path's sites again, detect_spikes too
+        want = []
+        for p, ov in zip(run["paths"], run["overflowed"]):
+            w = dict(sites[p])
+            for k, v in (_expected_sites(p, dormant=True) if ov else {}).items():
+                w[k] = w.get(k, 0) + v
+            want.append(w)
+        if run["sites"] != want:
+            fail(f"service boot {label}: qtail launches by site per tick {run['sites']}, "
+                 f"expected {want}")
+    err = _compare_service(a, cpu, "service boot A card vs cpu", exact=False)
+    tail = {k: a[k][SERVICE_EVERY:] for k in ("paths", "fired", "digests", "puts", "wires")}
+    tail["paths"] = ["backfill"] + tail["paths"][1:]  # A audits where B resyncs its top-up
+    _compare_service(tail, b, "service boot B vs boot A, ticks 9-16", exact=True,
+                     skip_first_ingest=True)
+    if not _carries_match(a["carries"], cpu["carries"]):
+        fail("service: host carries differ between the card and the cpu")
+    if b["carries"] != a["carries"]:
+        fail("service: boot B's host carries differ from boot A's")
+    if not (a["registry"] == b["registry"] == cpu["registry"]):
+        fail("service: the registries differ")
+    for k, v in a["canonical"].items():
+        for other, label in ((cpu["canonical"][k], "cpu"), (b["canonical"][k], "boot B")):
+            if not torch.equal(torch.nan_to_num(v.float(), nan=-1.0),
+                               torch.nan_to_num(other.float(), nan=-1.0)):
+                fail(f"service: ring {k} differs between boot A and {label}")
+    n_digests = sum(len(d) for d in a["digests"])
+    n_puts = sum(len(p) for p in a["puts"])
+    if n_digests < 2 or n_puts == 0:
+        fail(f"service: the drive made {n_digests} notifier digests and {n_puts} PUTs; "
+             "the market must cross a regime transition and change leverage")
+    if (a["backfill"]["fetches_failed"] != 2 or a["backfill"]["bars"] != (S - 1) * 800
+            or a["backfill"]["failing_registered"]):
+        fail(f"service: backfill counts {a['backfill']}")
+    fired = [t for f in a["fired"] for t in f]
+    result = {
+        "routing": {"A": a["paths"], "B": b["paths"]},
+        "overflowed": {"A": a["overflowed"], "B": b["overflowed"]},
+        "launches": n_launches,
+        "launches_by_site": launches,
+        "signals": len(fired),
+        "digests": n_digests,
+        "digest_events": [d.splitlines()[2].strip() for ds in a["digests"] for d in ds],
+        "puts": n_puts,
+        "puts_per_tick": [len(p) for p in a["puts"]],
+        "max_wire_abs_err_vs_cpu": err,
+        "backfill": {"A": a["backfill"], "B": b["backfill"], "cpu": cpu["backfill"]},
+        "backfill_bars_per_s": {k: r["backfill"]["bars"] / r["backfill"]["seconds"]
+                                for k, r in (("A", a), ("B", b), ("cpu", cpu))},
+        "save_ms": {"A": a["saves_ms"], "B": b["saves_ms"]},
+        "restore_ms": b["restore_ms"],
+        "state_bytes": a["state_bytes"],
+        "first_tick_ms": {"A": a["tick_ms"][0], "B": b["tick_ms"][0], "cpu": cpu["tick_ms"][0]},
+        "tick_ms": {"A": a["tick_ms"], "B": b["tick_ms"]},
+        "incremental_tick_p50_ms": _p([t for t, p in zip(a["tick_ms"], a["paths"])
+                                       if p == "incremental"], 50),
+        "calibration_ms": {"p50": _p(a["calibration_ms"], 50), "max": max(a["calibration_ms"]),
+                           "runs": len(a["calibration_ms"])},
+    }
+    print(
+        f"[slice service] S={S} W={W}: boot A (no archive) backfilled "
+        f"{a['backfill']['bars']} bars in {a['backfill']['seconds']:.2f} s "
+        f"({result['backfill_bars_per_s']['A']:.0f} bars/s; {a['backfill']['fetches_failed']} "
+        f"fetches failed), then {SERVICE_TICKS} ticks through the consume loop, routing "
+        f"{a['paths']} ({sum(a['overflowed'])} ticks overflowed the wire); boot B restored tick {SERVICE_EVERY}'s archive in "
+        f"{b['restore_ms']:.1f} ms ({a['state_bytes'] / 2**20:.1f} MiB), topped up "
+        f"{b['backfill']['bars']} bars in {b['backfill']['seconds']:.2f} s (a flush every 50 "
+        f"symbols, the production default; A and the cpu engine flush once), ticks 9-16 "
+        f"routing {b['paths']}, equal to boot A's bit for bit"
+    )
+    print(
+        f"[slice service] the cpu engine's backfill {cpu['backfill']['seconds']:.2f} s; "
+        f"saves ms {a['saves_ms']} (D2H + savez); first post-backfill tick ms "
+        f"A {a['tick_ms'][0]:.1f} B {b['tick_ms'][0]:.1f}; incremental tick p50 "
+        f"{result['incremental_tick_p50_ms']:.1f} ms (queue to landed); calibration worker ms "
+        f"p50 {result['calibration_ms']['p50']:.2f} max {result['calibration_ms']['max']:.2f} "
+        f"over {len(a['calibration_ms'])} runs; {n_digests} digests {result['digest_events']}, "
+        f"{n_puts} leverage PUTs, {len(fired)} signals, all equal to the cpu engine's; "
+        f"qtail launches {n_launches} {launches}; wire max abs err vs cpu {err:.3g}"
+    )
+    return result
+
+
 def _profile_report(prof, paths: list[str]) -> dict:
     """Device activities of a profiled drive assigned to the
     ``chip_smoke_tick`` range they start in, reported per tick kind
@@ -1469,32 +1899,49 @@ def main() -> int:
     lib, compile_s = qt.build(verbose=True)
     print(f"[build] {lib.name}: nvcc {compile_s:.2f} s (set-up {time.perf_counter() - t0:.2f} s)")
 
+    def lap(name: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        print(f"[time] {name}: {now - t_phase:.1f} s")
+        t_phase = now
+
+    t_phase = t0
     # phase 2: kernel vs twin
     qreport = check_quantile_kernel()
+    lap("build and kernel")
 
     # phase 3: the classic and the incremental live paths
     rng = np.random.default_rng(SEED)
     m5, m15 = make_market(rng)
     classic = check_classic(m5, m15)
     incremental = check_incremental(m5, m15, classic)
+    lap("classic and incremental")
     # phase 4: the dormant strategy set with the spike detector
     dormant = check_dormant()
+    lap("dormant")
     # phase 5: the production loop, on its own seeded market
     cm5, cm15 = make_crash_market(np.random.default_rng(SEED + 1))
     pipelined = check_pipelined(cm5, cm15)
+    lap("pipelined")
+    # phase 6: the service around the tick, on the same market's downtrend
+    service = check_service(cm5, cm15)
+    lap("service")
     slices = {
         "classic": {k: v for k, v in classic.items()
                     if k not in ("fired", "indicators", "tick_times")},
         "incremental": incremental,
         "dormant": dormant,
         "pipelined": pipelined,
+        "service": service,
     }
     if "--profile" in sys.argv[1:]:
         slices["profile"] = profile_slice(m5, m15, cm5, cm15)
 
     abp = qreport["abp"]
     by_site: dict[str, int] = {}
-    for run in (classic, incremental, dormant, pipelined):
+    drives = {"classic": classic, "incremental": incremental, "dormant": dormant,
+              "pipelined": pipelined, "service": service}
+    for run in drives.values():
         for k, v in run["launches_by_site"].items():
             by_site[k] = by_site.get(k, 0) + v
     kernels = [
@@ -1503,12 +1950,9 @@ def main() -> int:
             "route": "cuda",
             "source": "binquant_tpu_torch/csrc/qtail.cu",
             "replaces": "binquant_tpu/ops/pallas_rolling.py:40",
-            "launches": sum(r["launches"] for r in (classic, incremental, dormant, pipelined)),
+            "launches": sum(r["launches"] for r in drives.values()),
             "launches_by_site": by_site,
-            "launches_by_drive": {
-                "classic": classic["launches"], "incremental": incremental["launches"],
-                "dormant": dormant["launches"], "pipelined": pipelined["launches"],
-            },
+            "launches_by_drive": {k: r["launches"] for k, r in drives.items()},
             "max_abs_err": abp["max_abs_err"],
             "ms": abp["kernel_ms"],
             "plain_ms": abp["twin_ms"],

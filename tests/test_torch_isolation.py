@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX, nothing of the reference package, and no
-silent CPU fallback at its entry points."""
+"""The port stands alone: no JAX, nothing of the reference package, no
+pydantic, ``httpx`` only where a binbot client is built without a session,
+and no silent CPU fallback at its entry points."""
 
 import ast
 import subprocess
@@ -24,8 +25,13 @@ def test_import_pulls_in_no_jax_and_no_reference_module():
         "import binquant_tpu_torch.strategies.dormant, binquant_tpu_torch.strategies.spike_hunter\n"
         "import binquant_tpu_torch.obs.outcomes, binquant_tpu_torch.obs.events\n"
         "import binquant_tpu_torch.obs.registry, binquant_tpu_torch.obs.instruments\n"
+        "import binquant_tpu_torch.exceptions, binquant_tpu_torch.io.binbot\n"
+        "import binquant_tpu_torch.io.leverage, binquant_tpu_torch.io.checkpoint\n"
+        "import binquant_tpu_torch.strategies.market_regime_notifier\n"
+        "from binquant_tpu_torch.io.replay import StubSession, make_stub_engine\n"
+        "make_stub_engine(capacity=8, window=96, device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'binquant_tpu'))\n"
+        "('jax', 'jaxlib', 'binquant_tpu', 'httpx', 'pydantic'))\n"
         "print(','.join(bad))\n"
     )
     proc = subprocess.run(
@@ -52,7 +58,34 @@ def test_sources_import_no_jax_and_no_reference_package():
     assert len(files) > 10
     for path in files:
         roots = _imported_roots(path)
-        assert not roots & {"jax", "jaxlib", "binquant_tpu"}, (path, roots)
+        assert not roots & {"jax", "jaxlib", "binquant_tpu", "pydantic"}, (path, roots)
+
+
+def test_httpx_is_imported_only_where_no_session_is_given():
+    """The binbot client imports ``httpx`` inside its constructor's
+    no-session branch and nowhere else; no other port module (nor the
+    smoke script) names it."""
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    binbot = PKG / "io" / "binbot.py"
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        found = [
+            node for node in ast.walk(tree)
+            if isinstance(node, ast.Import) and any(a.name == "httpx" for a in node.names)
+            or isinstance(node, ast.ImportFrom) and (node.module or "").startswith("httpx")
+        ]
+        if path != binbot:
+            assert not found, path
+            continue
+        assert len(found) == 1
+        init = next(
+            n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.name == "__init__"
+        )
+        branch = next(
+            n for n in ast.walk(init)
+            if isinstance(n, ast.If) and ast.unparse(n.test) == "session is None"
+        )
+        assert found[0] in list(ast.walk(branch))
 
 
 @pytest.mark.parametrize("entry", ["make_stub_engine", "SignalEngine", "run_replay"])
