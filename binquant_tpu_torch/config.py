@@ -30,12 +30,28 @@ pipelined production loop:
   not write yet (``io/checkpoint.py``);
 * ``binbot_timeout_s``, ``binbot_retry_max``, ``binbot_retry_backoff_s`` —
   the binbot REST client's deadline per request and its bounded, jittered
-  retries (``io/binbot.py``).
+  retries (``io/binbot.py``);
+* ``delivery_enabled`` — finalize enqueues every fired signal into the
+  delivery plane's per-sink outbox queues (``io/delivery.py``) instead of
+  calling the sinks inline: ``delivery_wal_path`` is the at-least-once
+  class's write-ahead log (empty: no durability; by default in the
+  temporary directory, as the reference keeps it in ``/tmp``), ``delivery_queue_max``
+  each sink's queue bound, ``delivery_attempt_timeout_s`` the deadline per
+  attempt, ``delivery_retry_max`` a lossy entry's attempt budget,
+  ``delivery_backoff_s``/``delivery_backoff_max_s`` the jittered
+  exponential retry backoff, ``delivery_breaker_threshold`` the
+  consecutive failures that open a sink's breaker and
+  ``delivery_breaker_cooldown_s`` its open dwell before one probe,
+  ``wal_compact_every`` the acks between WAL compactions (0: none). The
+  WAL is fsynced on every record;
+* ``telegram_bot_token``, ``telegram_user_id`` — the Telegram bot and the
+  chat the alerts go to.
 """
 
 from __future__ import annotations
 
 import os
+import tempfile
 from dataclasses import dataclass, field
 
 
@@ -63,6 +79,20 @@ class Config:
     binbot_timeout_s: float = 10.0
     binbot_retry_max: int = 2
     binbot_retry_backoff_s: float = 0.2
+    delivery_enabled: bool = True
+    delivery_wal_path: str = field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(), "binquant_tpu.wal.jsonl")
+    )
+    delivery_queue_max: int = 512
+    delivery_attempt_timeout_s: float = 5.0
+    delivery_retry_max: int = 3
+    delivery_backoff_s: float = 0.25
+    delivery_backoff_max_s: float = 30.0
+    delivery_breaker_threshold: int = 5
+    delivery_breaker_cooldown_s: float = 30.0
+    wal_compact_every: int = 256
+    telegram_bot_token: str = ""
+    telegram_user_id: str = ""
     env: str = field(default_factory=lambda: os.environ.get("ENV", ""))
 
     @property

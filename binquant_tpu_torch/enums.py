@@ -79,3 +79,14 @@ class SignalKind(str, Enum):
 class Position(str, Enum):
     long = "long"
     short = "short"
+
+
+class Status(str, Enum):
+    inactive = "inactive"
+    # a submitted-but-not-yet-opened bot (a resting limit entry): the
+    # activation path reports it as "submitted" rather than "opened"
+    pending = "pending"
+    active = "active"
+    completed = "completed"
+    error = "error"
+    archived = "archived"

@@ -1,8 +1,9 @@
 """The port's exception hierarchy.
 
 Its own copy of the part of ``binquant_tpu/exceptions.py`` the service
-around the tick raises: the binbot REST client's :class:`BinbotError`
-carries ``.message`` as the pybinbot original does.
+around the tick and the sinks raise: the binbot REST client's
+:class:`BinbotError` carries ``.message`` as the pybinbot original does;
+:class:`AutotradeError` is a bot launch the backend refused.
 """
 
 from __future__ import annotations
@@ -10,6 +11,10 @@ from __future__ import annotations
 
 class BinquantError(Exception):
     """Base class for the port's errors."""
+
+
+class AutotradeError(BinquantError):
+    pass
 
 
 class BinbotError(BinquantError):

@@ -37,7 +37,7 @@ from binquant_tpu_torch.schemas import (
 RECONNECT_JITTER = 0.25
 
 
-def _reconnect_delay(
+def reconnect_delay(
     backoff: float, rng: random.Random, jitter: float = RECONNECT_JITTER
 ) -> float:
     """``backoff`` spread by ±``jitter`` of itself through ``rng``: a fleet
@@ -104,7 +104,7 @@ class BinbotApi:
                     BINBOT_REQUESTS.labels(method=method, outcome="ok").inc()
                     return payload
             BINBOT_RETRIES.labels(outcome="retry").inc()
-            time.sleep(_reconnect_delay(backoff, self._rng))
+            time.sleep(reconnect_delay(backoff, self._rng))
             backoff *= 2.0
         raise BinbotError(f"{method} {path}: retry loop exited")  # unreachable
 

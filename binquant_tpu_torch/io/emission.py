@@ -2,18 +2,25 @@
 
 Port of ``binquant_tpu/io/emission.py``: for only the fired (strategy,
 symbol) pairs, the host builds the ``SignalsConsumer`` payload (with the
-strategy's bot params), the structured Telegram message (the reference's
+strategy's bot params, or a grid ladder's deployment request sized by the
+autotrade settings), the structured Telegram message (the reference's
 uniform key/value line shape) and the analytics record, all from the ONE
 fetched wire — its per-slot payload carries every value needed. When the
 compaction overflowed, the full step's summary is read instead.
 
-The sinks are recording stubs (:class:`RecordingSinks`): the delivery
-plane, the Telegram client and autotrade admission are not ported yet.
+The three sinks, as the delivery plane (``io/delivery.py``) sees them:
+:class:`SignalSink` subclasses whose ``deliver`` raises on failure
+(analytics and Telegram lossy, autotrade at-least-once through the WAL,
+with ``to_wal``/``from_wal``/``stamp``). :func:`make_signal_sinks` builds
+them in the inline path's dispatch order; :func:`dispatch_signal_record`
+is the inline path's analytics POST, which swallows and logs a failure.
 """
 
 from __future__ import annotations
 
-from datetime import datetime, timezone
+import asyncio
+import logging
+from datetime import UTC, datetime
 from typing import Any
 
 import numpy as np
@@ -37,6 +44,7 @@ from binquant_tpu_torch.enums import (
     Position,
     SignalKind,
 )
+from binquant_tpu_torch.obs.instruments import SINK_EMISSIONS
 from binquant_tpu_torch.schemas import (
     BotBase,
     GridDeploymentRequest,
@@ -52,9 +60,14 @@ from binquant_tpu_torch.utils import (
 __all__ = [
     "FIVE_MIN_STRATEGIES",
     "LIVE_STRATEGIES",
+    "AnalyticsSink",
+    "AutotradeSink",
     "FiredSignal",
-    "RecordingSinks",
+    "SignalSink",
+    "TelegramSink",
+    "dispatch_signal_record",
     "extract_fired",
+    "make_signal_sinks",
 ]
 
 # strategies that trade FUTURES in their bot params
@@ -93,31 +106,10 @@ class FiredSignal:
         self.analytics = analytics
         # the evaluated tick's wall-clock ms, stamped at finalize
         self.tick_ms: int | None = None
-
-
-class RecordingSinks:
-    """The three sinks as in-memory recorders: analytics records, Telegram
-    messages and autotrade payloads, in dispatch order; ``fired`` keeps the
-    dispatched signals and ``digests`` the regime notifier's messages (which
-    go to the Telegram channel too)."""
-
-    def __init__(self) -> None:
-        self.analytics: list[dict[str, Any]] = []
-        self.telegram: list[str] = []
-        self.autotrade: list[SignalsConsumer] = []
-        self.fired: list[FiredSignal] = []
-        self.digests: list[str] = []
-
-    def dispatch(self, signal: FiredSignal) -> None:
-        self.analytics.append(signal.analytics)
-        self.telegram.append(signal.message)
-        self.autotrade.append(signal.value)
-        self.fired.append(signal)
-
-    def notify(self, text: str) -> None:
-        """A Telegram message that is not a signal (the regime digest)."""
-        self.telegram.append(text)
-        self.digests.append(text)
+        # the tick's trace provenance: None while ticks are not traced (the
+        # delivery plane's entry id then takes its untraced form)
+        self.trace_id: str | None = None
+        self.tick_seq: int | None = None
 
 
 def _cast_diag(kind: str, v: float):
@@ -134,6 +126,7 @@ def extract_fired(
     env: str = "",
     exchange: str = "kucoin",
     market_type: str = "futures",
+    settings=None,
     enabled: frozenset[str] | set[str] | None = None,
     skip=None,
     unpacked=None,
@@ -141,7 +134,9 @@ def extract_fired(
 ) -> list[FiredSignal]:
     """Materialize FiredSignal objects for the wire's fired slots (or, on a
     compaction overflow, for every set bit of ``outputs.summary``).
-    ``skip(strategy, row)`` drops rows before any payload is built."""
+    ``settings`` (the autotrade settings, or None) size a grid ladder's
+    deployment request; ``skip(strategy, row)`` drops rows before any
+    payload is built."""
     if enabled is None:
         enabled = LIVE_STRATEGIES
     fired_w, ctx_s = unpacked if unpacked is not None else unpack_wire(
@@ -266,7 +261,7 @@ def extract_fired(
             if strategy == "grid_ladder":
                 value = _grid_signal(
                     symbol, diag_row, current_price, exchange, market_type,
-                    autotrade, ctx_np,
+                    autotrade, ctx_np, settings,
                 )
             else:
                 bot_kwargs: dict[str, Any] = dict(
@@ -308,24 +303,34 @@ def extract_fired(
 
 def _grid_signal(
     symbol, diag_row, current_price, exchange, market_type, autotrade, ctx_np,
+    settings,
 ) -> SignalsConsumer:
-    """GridDeploymentRequest payload with the reference's default grid
-    settings; ``diag_row`` holds this row's diagnostics as scalars."""
+    """GridDeploymentRequest payload: margin, level count, fiat and the
+    allocation split from the autotrade ``settings`` (the reference's
+    fallbacks without them); ``diag_row`` holds this row's diagnostics as
+    scalars."""
+    total_margin = getattr(settings, "grid_total_margin", 10.0) if settings else 10.0
+    level_count = getattr(settings, "grid_level_count", 7) if settings else 7
+    fiat = getattr(settings, "fiat", "USDT") if settings else "USDT"
+    allocation = getattr(settings, "grid_allocation_pct", None) if settings else None
+    reserve = getattr(settings, "grid_cash_reserve_pct", None) if settings else None
     grid_params = GridDeploymentRequest(
         symbol=symbol,
-        fiat="USDT",
+        fiat=fiat,
         exchange=exchange,
         market_type=MarketType(market_type),
         algorithm_name="grid_ladder",
-        generated_at=datetime.now(timezone.utc),
+        generated_at=datetime.now(UTC),
         range_low=float(diag_row["range_low"]),
         range_high=float(diag_row["range_high"]),
         breakout_low=float(diag_row["breakout_low"]),
         breakout_high=float(diag_row["breakout_high"]),
-        total_margin=10.0,
-        level_count=7,
+        total_margin=total_margin,
+        level_count=level_count,
         current_price=current_price,
         current_regime=_name(MarketRegimeCode, ctx_np["market_regime"], None),
+        allocation_pct=allocation,
+        cash_reserve_pct=reserve,
         indicators={
             "range_width_pct": float(diag_row["range_width_pct"]),
             "atr_buffer_pct": float(diag_row["atr_buffer_pct"]),
@@ -400,7 +405,7 @@ def _analytics_record(
     return {
         "algorithm_name": strategy,
         "symbol": symbol,
-        "generated_at": datetime.now(timezone.utc).isoformat(),
+        "generated_at": datetime.now(UTC).isoformat(),
         "direction": value.direction,
         "autotrade": value.autotrade,
         "current_regime": _name(MarketRegimeCode, ctx_np["market_regime"], None)
@@ -411,3 +416,150 @@ def _analytics_record(
         "grid_params": value.grid_params.model_dump(mode="json") if value.grid_params else {},
         "indicators": merged,
     }
+
+
+def dispatch_signal_record(binbot_api, record: dict[str, Any]) -> None:
+    """The inline path's analytics POST: a failure is counted and logged,
+    never raised into the trade path. The delivery plane calls
+    :meth:`AnalyticsSink.deliver` instead, which raises into its retries
+    and breaker."""
+    try:
+        binbot_api.dispatch_create_signal(record)
+        SINK_EMISSIONS.labels(sink="analytics", outcome="ok").inc()
+    except Exception:
+        SINK_EMISSIONS.labels(sink="analytics", outcome="error").inc()
+        logging.exception(
+            "dispatch_signal_record failed for %s; trade path continues.",
+            record.get("symbol"),
+        )
+
+
+# -- the sinks as the delivery plane sees them -----------------------------------
+#
+# ``deliver`` RAISES on failure (the plane owns retries, backoff and the
+# circuit breaker; the inline path's per-sink swallowing lives in the
+# engine's finalize for the plane-off configuration). ``encode`` builds the
+# sink-native payload once at enqueue (the FiredSignal itself never rides a
+# queue); ``to_wal``/``from_wal`` round-trip it through the JSONL
+# write-ahead log for the at-least-once class.
+
+
+class SignalSink:
+    """One delivery target behind the plane. Subclasses set ``name`` and
+    ``policy`` ("at_least_once": WAL-durable, never dropped; "lossy":
+    bounded retries, shed with a counter under pressure)."""
+
+    name = "sink"
+    policy = "lossy"
+
+    def encode(self, signal: FiredSignal) -> Any:
+        """FiredSignal → the sink-native payload enqueued on the plane."""
+        raise NotImplementedError
+
+    def to_wal(self, payload: Any) -> Any:
+        """Payload → a JSON-serializable WAL record body."""
+        return payload
+
+    def stamp(self, payload: Any, entry_id: str) -> None:
+        """Attach the plane's delivery identity to the payload itself so
+        it travels to the consumer on every (re)delivery (at-least-once
+        sinks only): the downstream dedupe key of a post-kill replay."""
+
+    def from_wal(self, data: Any) -> Any:
+        """WAL record body → the payload ``deliver`` accepts (restart
+        replay)."""
+        return data
+
+    async def deliver(self, payload: Any) -> None:
+        """One delivery attempt; MUST raise on failure."""
+        raise NotImplementedError
+
+
+class AnalyticsSink(SignalSink):
+    """POST /signals analytics record (lossy: a shed record is a counted,
+    bounded loss, and the trade path stays fresh)."""
+
+    name = "analytics"
+    policy = "lossy"
+
+    def __init__(self, binbot_api) -> None:
+        self.binbot_api = binbot_api
+
+    def encode(self, signal: FiredSignal) -> dict[str, Any]:
+        return signal.analytics
+
+    async def deliver(self, payload: dict[str, Any]) -> None:
+        try:
+            # the binbot client is synchronous: its round trip runs in a
+            # worker thread, so the event loop stays free
+            await asyncio.to_thread(self.binbot_api.dispatch_create_signal, payload)
+        except Exception:
+            SINK_EMISSIONS.labels(sink="analytics", outcome="error").inc()
+            raise
+        SINK_EMISSIONS.labels(sink="analytics", outcome="ok").inc()
+
+
+class TelegramSink(SignalSink):
+    """Telegram alert (lossy: an alert that missed its moment is noise; the
+    cooldown ledger's duplicate suppression still applies and counts as a
+    successful no-op delivery)."""
+
+    name = "telegram"
+    policy = "lossy"
+
+    def __init__(self, consumer) -> None:
+        self.consumer = consumer
+
+    def encode(self, signal: FiredSignal) -> str:
+        return signal.message
+
+    async def deliver(self, payload: str) -> None:
+        await self.consumer.deliver_signal(payload)
+
+
+class AutotradeSink(SignalSink):
+    """Autotrade admission (at_least_once: a lost trade signal is lost
+    money; unacked WAL entries replay on restart, and downstream dedupes on
+    the ``delivery_id`` every redelivery carries)."""
+
+    name = "autotrade"
+    policy = "at_least_once"
+
+    def __init__(self, at_consumer) -> None:
+        self.at_consumer = at_consumer
+
+    def encode(self, signal: FiredSignal) -> SignalsConsumer:
+        return signal.value
+
+    def to_wal(self, payload: SignalsConsumer) -> dict[str, Any]:
+        return payload.model_dump(mode="json")
+
+    def from_wal(self, data: Any) -> SignalsConsumer:
+        return SignalsConsumer.model_validate(data)
+
+    def stamp(self, payload: SignalsConsumer, entry_id: str) -> None:
+        # the WAL round trip (model_dump/model_validate) keeps metadata, so
+        # a post-kill replay redelivers the same id
+        payload.metadata.setdefault("delivery_id", entry_id)
+
+    async def deliver(self, payload: SignalsConsumer) -> None:
+        # Admission is async in name only: every await bottoms out in
+        # synchronous binbot REST, which would wedge the shared event loop,
+        # and the plane's per-attempt deadline cannot preempt blocked code.
+        # A worker thread with its own loop keeps the tick path responsive;
+        # a deadline cancel abandons the thread's result and the
+        # redelivery dedupes downstream. The coroutine is made in the
+        # thread, so an attempt cancelled before the thread starts leaves
+        # none unawaited.
+        await asyncio.to_thread(
+            lambda: asyncio.run(self.at_consumer.process_autotrade_restrictions(payload))
+        )
+
+
+def make_signal_sinks(binbot_api, telegram_consumer, at_consumer) -> list[SignalSink]:
+    """The production sink set, in the inline path's dispatch order."""
+    return [
+        AnalyticsSink(binbot_api),
+        TelegramSink(telegram_consumer),
+        AutotradeSink(at_consumer),
+    ]

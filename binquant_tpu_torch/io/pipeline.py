@@ -60,17 +60,27 @@ evaluated 5m bar, and everything due matures against the engine's current
 at depth 1 matures the same set).
 
 Host carries feeding the step: the grid-only policy (resolved from the
-previous tick's regime and the breadth series), the London quiet window of
-the evaluated tick's clock, the breadth scalars of the market-breadth
-series (fetched through the binbot client once per 15m bucket; a failed
-fetch keeps the previous series), and the market-dominance flags
-``dominance_is_losers`` and ``market_domination_reversal`` (False, the
-reference's NEUTRAL, unless a caller scripts them). Method names and call
-shapes follow the reference engine, ``async def process_tick`` included.
+previous tick's regime and the breadth series, and handed to the autotrade
+consumer), the London quiet window of the evaluated tick's clock, the
+breadth scalars of the market-breadth series (fetched through the binbot
+client once per 15m bucket; a failed fetch keeps the previous series), the
+market type of the autotrade settings, and the autotrade consumer's
+market-dominance flags ``current_market_dominance_is_losers`` and
+``market_domination_reversal`` (False, the reference's NEUTRAL, unless a
+caller scripts them). Method names and call shapes follow the reference
+engine, ``async def process_tick`` included.
+
+The sinks: with ``delivery_enabled`` (production on) finalize enqueues
+every emitted signal into the delivery plane (``io/delivery.py``): one
+fsynced WAL put for the autotrade sink and a bounded-queue put per sink,
+on the tick's own thread; the plane's workers call the analytics POST,
+the Telegram consumer and autotrade admission. Without it finalize calls
+the three inline, each failure logged and swallowed, as the reference
+does. :meth:`aclose_delivery` retires the plane.
 
 The service around the tick (``main.py``'s boot and
 ``SignalEngine.consume_loop`` in the reference): every finalize hands the
-regime notifier's digest to the sinks' Telegram channel and, once per 15m
+regime notifier's digest to the Telegram consumer and, once per 15m
 bucket, schedules leverage calibration on the wire's calibration rows as a
 single-flight background worker (host numpy only; inline when no event
 loop runs). :meth:`backfill` tops the rings up from REST history (the next
@@ -122,16 +132,23 @@ from binquant_tpu_torch.engine.step import (
     tick_step_wire_inplace,
     unpack_wire,
 )
+from binquant_tpu_torch.io.autotrade import AutotradeConsumer
 from binquant_tpu_torch.io.binbot import BinbotApi
-from binquant_tpu_torch.io.emission import RecordingSinks, extract_fired
+from binquant_tpu_torch.io.delivery import DeliveryPlane
+from binquant_tpu_torch.io.emission import (
+    dispatch_signal_record,
+    extract_fired,
+    make_signal_sinks,
+)
 from binquant_tpu_torch.io.leverage import CalibrationInputs, LeverageCalibrator
+from binquant_tpu_torch.io.telegram import TelegramConsumer
 from binquant_tpu_torch.obs.ingest import IngestHealthMonitor
 from binquant_tpu_torch.obs.numeric import DriftMeter, NumericHealthMonitor
 from binquant_tpu_torch.obs.outcomes import OutcomeTracker
 from binquant_tpu_torch.regime.context import ContextConfig
 from binquant_tpu_torch.regime.grid_policy import GridOnlyPolicy
 from binquant_tpu_torch.regime.time_filter import is_quiet_hours
-from binquant_tpu_torch.schemas import MarketBreadthSeries, SymbolModel
+from binquant_tpu_torch.schemas import MarketBreadthSeries
 from binquant_tpu_torch.strategies.market_regime_notifier import MarketRegimeNotifier
 
 FIFTEEN_MIN_S = 900
@@ -182,8 +199,10 @@ class SignalEngine:
 
     def __init__(
         self,
-        config: Config | None = None,
-        sinks: RecordingSinks | None = None,
+        config: Config | None,
+        binbot_api: BinbotApi | None,
+        telegram_consumer: TelegramConsumer,
+        at_consumer: AutotradeConsumer,
         registry: SymbolRegistry | None = None,
         window: int | None = None,
         device: str | torch.device | None = None,
@@ -191,17 +210,20 @@ class SignalEngine:
         btc_symbol: str = "BTCUSDT",
         enabled_strategies: set[str] | None = None,
         pipeline_depth: int | None = None,
-        binbot_api: BinbotApi | None = None,
-        all_symbols: list[SymbolModel] | None = None,
-        market_type: str = "FUTURES",
-        exchange: str = "binance",
     ) -> None:
         self.device = resolve_device(device)
         self.config = config or Config()
         depth = self.config.pipeline_depth if pipeline_depth is None else pipeline_depth
         if int(depth) < 0:
             raise ValueError(f"pipeline_depth {depth} < 0")
-        self.sinks = sinks if sinks is not None else RecordingSinks()
+        # the binbot REST client (None: no breadth refresh, no leverage
+        # PUTs, no analytics POSTs) and the other two sinks' consumers; the
+        # autotrade consumer also holds the settings (market type,
+        # exchange), the symbol list leverage calibration diffs against and
+        # the market-dominance flags
+        self.binbot_api = binbot_api
+        self.telegram_consumer = telegram_consumer
+        self.at_consumer = at_consumer
         self.capacity = int(self.config.max_symbols)
         self.window = int(window if window is not None else self.config.window_bars)
         self.registry = registry or SymbolRegistry(self.capacity)
@@ -224,18 +246,11 @@ class SignalEngine:
         self.inplace_ticks = 0
         self.overflow_ticks = 0
         self.state_resets = 0
-        self.market_type = market_type
-        self.exchange = exchange
-        # the binbot REST client (None: no breadth refresh, no leverage
-        # PUTs) and the autotrade consumer's symbol list, which leverage
-        # calibration diffs against
-        self.binbot_api = binbot_api
-        self.all_symbols: list[SymbolModel] = list(all_symbols or [])
         self.market_breadth: MarketBreadthSeries | None = None
         self._last_breadth_bucket = -1
         self.grid_only_policy = GridOnlyPolicy.disabled("not_evaluated")
         self.notifier = MarketRegimeNotifier(env=self.config.env)
-        self.leverage_calibrator = LeverageCalibrator(binbot_api, exchange)
+        self.leverage_calibrator = LeverageCalibrator(binbot_api, at_consumer.exchange)
         self._last_calibration_bucket = -1
         self._calibration_task: asyncio.Task | None = None
         # host ms of each calibration run
@@ -255,6 +270,9 @@ class SignalEngine:
         self._last_emitted: dict[tuple[str, str], int] = {}
         self._tracked_cache: tuple[int, torch.Tensor] | None = None
         self.tick_wall_ms: list[float] = []
+        # host ms of each finalize's emission: the plane's enqueues (WAL
+        # puts included), or the inline sink calls with the plane off
+        self.emit_ms: list[float] = []
         # the last fetched wire (host numpy), for inspection and comparison
         self.last_wire: np.ndarray | None = None
         self.ticks_processed = 0
@@ -294,14 +312,18 @@ class SignalEngine:
         # a classic engine has no carry to drift
         self.drift_meter_enabled = bool(self.config.drift_meter) and self.incremental
         self.drift = DriftMeter(tol=self.config.drift_tol)
-        # -- the signal-outcome observatory and the dominance flags
+        # -- the signal-outcome observatory
         self.outcomes = OutcomeTracker(
             enabled=bool(self.config.outcomes_enabled),
             horizons=tuple(self.config.outcome_horizons),
             cap=int(self.config.outcome_cap),
         )
-        self.dominance_is_losers = False
-        self.market_domination_reversal = False
+        # -- the delivery plane (None: the sinks are called inline)
+        self.delivery: DeliveryPlane | None = None
+        if self.config.delivery_enabled:
+            self.delivery = DeliveryPlane.from_config(
+                self.config, make_signal_sinks(binbot_api, telegram_consumer, at_consumer)
+            )
 
     # -- ingest ---------------------------------------------------------------
 
@@ -582,7 +604,7 @@ class SignalEngine:
             )
             return
         rows = rows if rows is not None else self.registry.frozen_rows()
-        symbols = self.all_symbols
+        symbols = self.at_consumer.all_symbols
 
         def work() -> None:
             t0 = time.perf_counter()
@@ -618,13 +640,15 @@ class SignalEngine:
             dtype=torch.float32,
         ).to(self.device)
         i = torch.tensor([btc_row, ts15, ts5], dtype=torch.int32).to(self.device)
+        at = self.at_consumer
+        market_type = at.autotrade_settings.market_type
         b = torch.tensor(
             [
                 quiet,
                 self.grid_only_policy.allow_grid_ladder,
-                str(self.market_type).upper().endswith("FUTURES"),
-                bool(self.dominance_is_losers),
-                bool(self.market_domination_reversal),
+                str(getattr(market_type, "value", market_type)).lower().endswith("futures"),
+                bool(getattr(at, "current_market_dominance_is_losers", False)),
+                bool(at.market_domination_reversal),
             ],
             dtype=torch.bool,
         ).to(self.device)
@@ -906,10 +930,11 @@ class SignalEngine:
         self.grid_only_policy = GridOnlyPolicy.resolve(
             regime if has_ctx else None, self.market_breadth
         )
+        self.at_consumer.grid_only_policy = self.grid_only_policy
         # the regime-transition digest
         digest = self.notifier.build_message(ctx)
         if digest:
-            self.sinks.notify(digest)
+            self.telegram_consumer.dispatch_signal(digest)
         if has_ctx:
             # leverage calibration once per 15m bucket, from the wire's
             # calibration rows (the full outputs' context where absent)
@@ -932,12 +957,14 @@ class SignalEngine:
         else:
             self._last_regime = None
             self._last_transition_strength = 0.0
+        settings = self.at_consumer.autotrade_settings
         fired = extract_fired(
             outputs,
             pending.rows,
             env=self.config.env,
-            exchange=self.exchange,
-            market_type=self.market_type,
+            exchange=self.at_consumer.exchange,
+            market_type=getattr(settings.market_type, "value", settings.market_type),
+            settings=settings,
             enabled=self.enabled_strategies,
             skip=lambda strategy, row: self._already_emitted(
                 strategy, pending.rows.name_of(row), ts5, ts15
@@ -946,9 +973,16 @@ class SignalEngine:
             diag_layout=EMISSION_LAYOUTS.get(self._wire_enabled_key()),
         )
         fired = self._dedupe_fired(fired, ts5, ts15)
+        t_emit = time.perf_counter()
         for signal in fired:
             signal.tick_ms = pending.ts_ms
-            self.sinks.dispatch(signal)
+            if self.delivery is not None:
+                # the tick's whole cost of delivery: a WAL put (fsynced)
+                # and the queue puts; the workers do the rest
+                self.delivery.enqueue_fired(signal, tick_ms=pending.ts_ms)
+            else:
+                await self._dispatch_inline(signal)
+        self.emit_ms.append((time.perf_counter() - t_emit) * 1000.0)
         self.signals_emitted += len(fired)
         # the emitted set enters the open registry anchored on this tick's
         # evaluated 5m bar; everything due matures against the current ring
@@ -964,6 +998,28 @@ class SignalEngine:
                 )
             self.outcomes.on_tick(ts5, self.state.buf5)
         return fired
+
+    async def _dispatch_inline(self, signal) -> None:
+        """The three sinks called inline (the plane off): each failure is
+        logged and swallowed, so one sink cannot stop the others."""
+        dispatch_signal_record(self.binbot_api, signal.analytics)
+        self.telegram_consumer.dispatch_signal(signal.message)
+        try:
+            await self.at_consumer.process_autotrade_restrictions(signal.value)
+        except Exception:
+            logging.exception(
+                "autotrade processing crashed for %s/%s; continuing",
+                signal.strategy,
+                signal.symbol,
+            )
+
+    async def aclose_delivery(self, drain_s: float = 5.0) -> None:
+        """Retire the delivery plane (replay end, shutdown): a best-effort
+        drain, then the workers stop and the WAL is compacted. Entries a
+        down sink never acked stay durable for the next boot. Never on the
+        tick path: a sink outage must not stall the tick."""
+        if self.delivery is not None and self.delivery.started:
+            await self.delivery.aclose(drain_s=drain_s)
 
     def _already_emitted(
         self, strategy: str, symbol: str | None, ts5: int, ts15: int
@@ -1087,11 +1143,17 @@ class SignalEngine:
         flight and saves in a worker thread (no tick is dispatched until
         the save returns). A quiet interval finalizes what is still in
         flight. A tick error is logged, the state is probed
-        (:meth:`recover_if_state_poisoned`) and the loop goes on. On
-        cancellation the ticks in flight are flushed. The reference's loop
-        also starts and drains its delivery plane and fan-out hub here;
-        neither is ported yet (ROADMAP queue A), and emission goes straight
-        to ``self.sinks``."""
+        (:meth:`recover_if_state_poisoned`) and the loop goes on.
+
+        The delivery plane starts up front, so the previous process's
+        unacked WAL entries replay at boot, not at the first new signal.
+        On cancellation the ticks in flight are flushed (their signals
+        enqueued), then the plane is retired last: a best-effort drain of
+        two seconds, and what a down sink never acked stays in the WAL for
+        the next boot. The reference's loop also retires its fan-out hub
+        here, which is not ported yet (ROADMAP queue A)."""
+        if self.delivery is not None:
+            self.delivery.start()
         try:
             await self._consume_loop_body(queue, tick_interval_s, clock)
         finally:
@@ -1102,6 +1164,12 @@ class SignalEngine:
                     logging.warning("shutdown flush interrupted mid-emission")
                 except Exception:
                     logging.exception("shutdown flush failed")
+            try:
+                await self.aclose_delivery(drain_s=2.0)
+            except asyncio.CancelledError:
+                logging.warning("shutdown delivery drain interrupted")
+            except Exception:
+                logging.exception("shutdown delivery close failed")
 
     async def _consume_loop_body(
         self,

@@ -1,8 +1,12 @@
 """Offline replay harness for the port.
 
-Feeds a JSONL file of closed klines through the engine with every sink
-stubbed: one engine tick per 15m delivery bucket, ``now_ms`` just after the
-bucket's bars close. Own copies of the reference's replay-file generator and
+Feeds a JSONL file of closed klines through the engine with every network
+client stubbed: one engine tick per 15m delivery bucket, ``now_ms`` just
+after the bucket's bars close. The sinks are the real ones (the delivery
+plane on by default) over fakes: the binbot client over
+:class:`StubSession`, the Telegram consumer over a recording transport
+(``engine._telegram_sent``), and autotrade admission with autotrade off,
+whose received payloads ``engine._autotrade_received`` keeps. Own copies of the reference's replay-file generator and
 tick grouping (``binquant_tpu/io/replay.py``), so the two packages replay
 identical streams: the reference's overflow drill
 (:func:`generate_burst_replay`), its two dormant-strategy markets
@@ -14,9 +18,13 @@ backend is :class:`StubSession`, an in-memory fake behind the real client.
 from __future__ import annotations
 
 import asyncio
+import atexit
+import contextlib
 import gzip
 import json
 import os
+import re
+import tempfile
 import time
 from pathlib import Path
 from typing import Any
@@ -24,11 +32,17 @@ from typing import Any
 import numpy as np
 
 from binquant_tpu_torch.config import Config
+from binquant_tpu_torch.io.autotrade import AutotradeConsumer
 from binquant_tpu_torch.io.binbot import BinbotApi
-from binquant_tpu_torch.io.emission import RecordingSinks
 from binquant_tpu_torch.io.pipeline import SignalEngine
+from binquant_tpu_torch.io.telegram import TelegramConsumer
 from binquant_tpu_torch.obs.events import get_event_log
 from binquant_tpu_torch.regime.context import ContextConfig
+from binquant_tpu_torch.schemas import (
+    AutotradeSettingsSchema,
+    MarketType,
+    TestAutotradeSettingsSchema,
+)
 
 
 class StubSession:
@@ -103,17 +117,34 @@ def make_stub_engine(
     outcome_horizons: tuple[int, ...] | None = None,
     session=None,
     all_symbols: list | None = None,
+    telegram_transport=None,
+    delivery: bool | None = None,
+    delivery_wal: str | None = None,
+    delivery_overrides: dict | None = None,
 ) -> SignalEngine:
-    """A SignalEngine wired to recording sinks and a binbot client over
-    ``session`` (a :class:`StubSession` serving ``breadth`` by default; no
-    network), futures market type, small-universe context gates unless
-    ``context_config`` is given. ``all_symbols`` is the symbol list
-    leverage calibration diffs against (none by default).
+    """A SignalEngine wired to stubs (no network): a binbot client over
+    ``session`` (a :class:`StubSession` serving ``breadth`` by default), a
+    Telegram consumer whose transport records every sent text in
+    ``engine._telegram_sent`` (``telegram_transport``, when given, is
+    awaited first: raise in it to script a failed send, which is then not
+    recorded), and an autotrade consumer on futures with autotrade off
+    whose received payloads ``engine._autotrade_received`` keeps;
+    small-universe context gates unless ``context_config`` is given.
+    ``all_symbols`` is the symbol list leverage calibration diffs against
+    (none by default). The recording transport needs no flood pacing, so
+    the stub's Telegram consumer sends without the one-second spacing.
+
+    The delivery plane is on unless ``delivery=False``. Without
+    ``delivery_wal`` it writes a throwaway WAL in the temporary directory,
+    removed at exit: a stub engine never shares the production default
+    path. ``delivery_overrides`` sets config fields by name (drill-scale
+    backoff, breaker and queue knobs).
+
     Runs on ``device`` — CUDA by default; raises when CUDA is missing unless
     ``device="cpu"``. Every other argument left None keeps the config's
     production default: depth 1 with rings in place, both digests, the drift
-    meter and the outcome tracker on, the incremental path with an audit
-    every 256 ticks."""
+    meter, the outcome tracker and the delivery plane on, the incremental
+    path with an audit every 256 ticks."""
     config = Config(
         max_symbols=capacity, window_bars=window, env=os.environ.get("ENV", "CI")
     )
@@ -126,25 +157,128 @@ def make_stub_engine(
         "ingest_digest": ingest_digest,
         "drift_meter": drift_meter,
         "outcomes_enabled": outcomes,
+        "delivery_enabled": delivery,
     }
     for name, value in overrides.items():
         if value is not None:
             setattr(config, name, type(getattr(config, name))(value))
     if outcome_horizons is not None:
         config.outcome_horizons = tuple(int(h) for h in outcome_horizons)
-    return SignalEngine(
-        config=config,
-        sinks=RecordingSinks(),
+    if delivery_wal is not None:
+        config.delivery_wal_path = str(delivery_wal)
+    elif config.delivery_enabled:
+        config.delivery_wal_path = _throwaway_wal()
+    for name, value in (delivery_overrides or {}).items():
+        setattr(config, name, value)
+    binbot_api = BinbotApi(
+        "http://stub", session=session if session is not None else StubSession(breadth)
+    )
+    sent: list[str] = []
+
+    async def capture_transport(chat_id: str, text: str) -> None:
+        if telegram_transport is not None:
+            await telegram_transport(chat_id, text)
+        sent.append(text)
+
+    telegram = TelegramConsumer(token="", chat_id="stub", transport=capture_transport)
+    telegram._min_send_interval_seconds = 0.0
+    at_consumer = _RecordingAutotrade(
+        autotrade_settings=AutotradeSettingsSchema(
+            autotrade=False, market_type=MarketType.FUTURES
+        ),
+        active_test_bots=[],
+        all_symbols=list(all_symbols or []),
+        test_autotrade_settings=TestAutotradeSettingsSchema(autotrade=False),
+        active_grid_ladders=[],
+        binbot_api=binbot_api,
+    )
+    engine = SignalEngine(
+        config,
+        binbot_api,
+        telegram,
+        at_consumer,
         window=window,
         device=device,
         context_config=context_config
         or ContextConfig(required_fresh_symbols=4, min_coverage_ratio=0.5),
         enabled_strategies=enabled_strategies,
-        binbot_api=BinbotApi(
-            "http://stub", session=session if session is not None else StubSession(breadth)
-        ),
-        all_symbols=all_symbols,
     )
+    engine._telegram_sent = sent
+    engine._autotrade_received = at_consumer.received
+    return engine
+
+
+class _RecordingAutotrade(AutotradeConsumer):
+    """The stub's autotrade consumer: admission as in production, and every
+    payload it was handed kept in ``received``, in arrival order."""
+
+    def __init__(self, **kwargs) -> None:
+        super().__init__(**kwargs)
+        self.received: list = []
+
+    async def process_autotrade_restrictions(self, result) -> None:
+        self.received.append(result)
+        await super().process_autotrade_restrictions(result)
+
+
+def _throwaway_wal() -> str:
+    """A fresh WAL path in the temporary directory, removed at exit."""
+    fd, path = tempfile.mkstemp(prefix="bqt_stub_", suffix=".wal.jsonl")
+    os.close(fd)
+
+    def discard(path: str = path) -> None:
+        for p in (path, path + ".tmp"):
+            with contextlib.suppress(OSError):
+                os.unlink(p)
+
+    atexit.register(discard)
+    return path
+
+
+_NUMBER = re.compile(r"-?\d+(?:\.\d+)?(?:[eE][-+]?\d+)?")
+
+
+def payloads_match(a: Any, b: Any, rtol: float = 1e-4, atol: float = 1e-4) -> bool:
+    """Two delivered payloads (JSON-shaped: analytics records, Telegram
+    texts, autotrade dumps) equal but for float rounding: the same keys,
+    lengths, strings and booleans; numbers, and the numbers inside strings
+    (a message's rounded values), within ``rtol``/``atol``. The absolute
+    floor is a few float32 ulps of a price near 100, the scale of an
+    indicator that is a difference of two price averages (MACD)."""
+    if isinstance(a, bool) or isinstance(b, bool) or a is None or b is None:
+        return a is b or a == b
+    if isinstance(a, (int, float)) and isinstance(b, (int, float)):
+        return bool(np.isclose(a, b, rtol=rtol, atol=atol, equal_nan=True))
+    if isinstance(a, str) and isinstance(b, str):
+        if a == b:
+            return True
+        if _NUMBER.split(a) != _NUMBER.split(b):
+            return False
+        return all(
+            np.isclose(float(x), float(y), rtol=rtol, atol=atol)
+            for x, y in zip(_NUMBER.findall(a), _NUMBER.findall(b), strict=True)
+        )
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(
+            payloads_match(a[k], b[k], rtol, atol) for k in a
+        )
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(
+            payloads_match(x, y, rtol, atol) for x, y in zip(a, b)
+        )
+    return a == b
+
+
+def delivered_tuples(payloads) -> list[tuple]:
+    """Autotrade payloads the delivery plane handed over → the
+    :func:`signal_tuples` form, the tick time read from the
+    ``delivery_id`` (``t{tick_ms}/0/{strategy}/{symbol}``) each carries."""
+    out = []
+    for p in payloads:
+        tid = p.metadata["delivery_id"].split("/", 1)[0]
+        out.append((int(tid[1:]), p.algorithm_name, p.symbol, str(p.direction),
+                    bool(p.autotrade)))
+    return out
 
 
 def load_klines_by_tick(path: str | Path) -> dict[int, list[dict]]:
@@ -205,12 +339,14 @@ def run_replay(
     outcomes: bool | None = None,
     outcome_horizons: tuple[int, ...] | None = None,
     collect_outcomes: list | None = None,
+    delivery: bool | None = None,
 ) -> dict:
     """Replay a JSONL kline file; returns run statistics, the routing
     counters among them. With ``collect`` a list, every fired signal is
     appended as a :func:`signal_tuples` tuple. The engine's arguments are
     :func:`make_stub_engine`'s; the ticks still in flight at the end of the
-    file are flushed. ``dominance_is_losers`` and
+    file are flushed, then the delivery plane is retired (drained, WAL
+    compacted). ``dominance_is_losers`` and
     ``market_domination_reversal`` script the host's market-dominance flags
     (the dominance-gated dormant strategies read them). With the outcome
     tracker on, the stats carry its scoreboard under ``outcomes`` and
@@ -231,9 +367,10 @@ def run_replay(
         drift_meter=drift_meter,
         outcomes=outcomes,
         outcome_horizons=outcome_horizons,
+        delivery=delivery,
     )
-    engine.dominance_is_losers = dominance_is_losers
-    engine.market_domination_reversal = market_domination_reversal
+    engine.at_consumer.current_market_dominance_is_losers = dominance_is_losers
+    engine.at_consumer.market_domination_reversal = market_domination_reversal
     seq = tick_seq(path)
     fired_total = 0
     t_start = time.perf_counter()
@@ -250,6 +387,7 @@ def run_replay(
                 engine.ingest(k)
             record(await engine.process_tick(now_ms=tick_ms))
         record(await engine.flush_pending())
+        await engine.aclose_delivery()
 
     asyncio.run(drive())
     wall = time.perf_counter() - t_start

@@ -98,8 +98,33 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    for A, ``backfill`` for B), 3 on the audit, 0 on an incremental tick,
    plus an overflowing tick's fallback. It prints the backfill's seconds
    and bars per second, the save and restore ms, the first tick's ms after
-   each backfill and the calibration worker's ms.
-7. Print the kernels line, the card's name and power limit, and the result.
+   each backfill and the calibration worker's ms. The fired tuples are
+   read from what the autotrade consumer was handed through the delivery
+   plane, the digests from what the Telegram consumer sent.
+7. Drive the delivery plane and the real sinks (``[slice delivery]``):
+   phase 5's market (1 warm + 16 live ticks + the crash tick) through
+   ``consume_loop`` at depth 1 with the plane on, its WAL (fsynced per
+   put) in a temporary directory; the analytics POST over a stub backend,
+   the Telegram consumer over a recording transport that meets flood
+   control on sends 3-5 and fails sends 40-51, and autotrade admission
+   (autotrade on, KuCoin futures) over a stub backend that answers HTTP 503
+   to the first 20 bot creations, with drill-scale backoff and
+   breaker cooldown. After live tick 12 the plane is killed undrained and a
+   second plane on the same WAL replays the unacked entries. Checks: zero
+   autotrade loss (every put reached admission and acked, none unacked in
+   the WAL), no duplicate ack, lossy lanes balanced (enqueued = acked +
+   shed + abandoned by the kill), Telegram retries, an open breaker and
+   counted sheds, and, against a CPU engine (depth 0, copied rings, the
+   same sinks without faults), the delivered payloads of every entry both
+   delivered (analytics records, Telegram texts, autotrade dumps) and
+   admission's REST calls per entry; qtail launches per tick and site as
+   phase 5 counts them. The same drive on the inline path (plane off)
+   takes the ticks in turns with the plane's engine; it prints both tick
+   p50/p99, the finalize and emission host ms per tick and on the crash
+   tick, the ms
+   per fsynced WAL put, the queue-to-ack lag per sink, the replay ms and
+   the WAL's bytes before and after the closing compaction.
+8. Print the kernels line, the card's name and power limit, and the result.
 
 Phase 5 times three card configurations (depth 1 in place; depth 0
 copying; depth 0 copying without the digests and the meter) over two
@@ -140,9 +165,9 @@ DORMANT_TICKS = 8  # live ticks of each dormant-market drive
 TILED_BARS = 130  # the reference's dormant markets' own length, tiled over S rows
 TILED_TICKS = 2  # live ticks of each tiled drive (the setups are on the last two)
 # the classic, incremental and dormant-market drives: the serial loop, copied
-# rings, no digests, no outcome tracker
+# rings, no digests, no outcome tracker, the sinks called inline
 SERIAL = dict(pipeline_depth=0, donate=False, numeric_digest=False, ingest_digest=False,
-              drift_meter=False, outcomes=False)
+              drift_meter=False, outcomes=False, delivery=False)
 # the extended dormant market's scripted breadth: rising twice
 RISING_BREADTH = {
     "timestamp": [1, 2, 3, 4],
@@ -480,9 +505,9 @@ def drive(
     ``torch.profiler.profile`` passed as ``profiler`` records the live ticks
     only, each inside a ``chip_smoke_tick`` range. ``enabled`` names the
     strategies on the wire (the live set by default), ``breadth`` the
-    stub's breadth series, ``host_flags`` the engine's scripted host flags
-    (the market-dominance flags), ``warm`` the 15m bars of history before
-    the live ticks."""
+    stub's breadth series, ``host_flags`` the autotrade consumer's scripted
+    host flags (the market-dominance flags), ``warm`` the 15m bars of
+    history before the live ticks."""
     import contextlib
 
     import torch
@@ -497,7 +522,7 @@ def drive(
         breadth=breadth, **SERIAL,
     )
     for name, value in (host_flags or {}).items():
-        setattr(engine, name, value)
+        setattr(engine.at_consumer, name, value)
     ticks = tick_plan(engine, m5, m15, live_ticks, warm)
     out = {"paths": [], "launches": [], "sites": [], "tick_ms": [], "wires": [],
            "fired": [], "indicators": {}, "overflowed": []}
@@ -955,7 +980,7 @@ def check_dormant() -> dict:
         "dormant": (market_from_bars(dormant_market_bars(S, n)), None, {}),
         "extended": (
             market_from_bars(dormant_extended_market_bars(S, n)), RISING_BREADTH,
-            {"dominance_is_losers": True, "market_domination_reversal": True},
+            {"current_market_dominance_is_losers": True, "market_domination_reversal": True},
         ),
     }
     every = set(STRATEGY_ORDER)
@@ -1048,7 +1073,7 @@ def check_dormant() -> dict:
                           ("range_bb_rsi_mean_reversion",)),
         "extended_tiled": (
             dormant_extended_market_bars(24, TILED_BARS), RISING_BREADTH,
-            {"dominance_is_losers": True, "market_domination_reversal": True},
+            {"current_market_dominance_is_losers": True, "market_domination_reversal": True},
             ("range_failed_breakout_fade", "relative_strength_reversal_range",
              "coinrule_supertrend_swing_reversal"),
         ),
@@ -1228,6 +1253,10 @@ def drive_pipelined(configs: dict, m5: dict, m15: dict, profiler=None) -> dict:
             before = dict(qt.launches_by_site)
             outs[label]["fired"].extend(signal_tuples(await engine.flush_pending()))
             outs[label]["flush_sites"] = launches_since(before)
+        # the delivery plane (production default) takes each signal at its
+        # finalize; this phase reads the ticks, so the planes stop undrained
+        for engine in engines.values():
+            await engine.aclose_delivery(drain_s=0.0)
 
     with profiler if profiler is not None else contextlib.nullcontext():
         asyncio.run(run())
@@ -1500,6 +1529,21 @@ def service_symbols(rng: np.random.Generator) -> list:
     return [SymbolModel(id=name, futures_leverage=float(lv)) for name, lv in zip(symbols(), levels)]
 
 
+async def settle(engine, timeout_s: float = 120.0) -> None:
+    """Wait until what the engine handed its sinks has landed: the Telegram
+    consumer's fire-and-forget sends and the delivery plane's queues."""
+    await asyncio.gather(*engine.telegram_consumer._background_tasks)
+    if engine.delivery is not None and not await engine.delivery.drain(timeout_s=timeout_s):
+        fail(f"the delivery plane did not drain in {timeout_s} s: "
+             f"{engine.delivery.snapshot()['sinks']}")
+
+
+def digests(sent: list[str]) -> list[str]:
+    """The regime notifier's digests among the Telegram consumer's sends (a
+    signal's message names its algorithm)."""
+    return [m for m in sent if "algorithm</strong>" not in m]
+
+
 def service_drive(device: str, m5: dict, m15: dict, first: int, ckpt_path, symbols_list,
                   production: bool, restore: bool, keep_at: int | None = None,
                   chunk: int = S) -> dict:
@@ -1512,7 +1556,9 @@ def service_drive(device: str, m5: dict, m15: dict, first: int, ckpt_path, symbo
     copied rings); both digests, the drift meter and outcomes either way.
     Per tick: path, qtail launches by site, the ms from queueing its klines
     until its wire landed, the wire, the fired tuples, digests and PUTs
-    it brought. ``keep_at``: after that many ticks, the archive is copied
+    it brought; the fired tuples are what the autotrade consumer was handed
+    through the delivery plane, the digests what the Telegram consumer
+    sent, each read once the plane has drained after the tick. ``keep_at``: after that many ticks, the archive is copied
     aside and the symbol list snapshotted (the restart's starting point).
     ``chunk``: the backfill's flush cadence in symbols (one flush by
     default: at the production default of 50 the CPU engine's ~16,000 ring
@@ -1520,7 +1566,7 @@ def service_drive(device: str, m5: dict, m15: dict, first: int, ckpt_path, symbo
     import torch
 
     from binquant_tpu_torch.io.checkpoint import CheckpointManager
-    from binquant_tpu_torch.io.replay import StubSession, make_stub_engine, signal_tuples
+    from binquant_tpu_torch.io.replay import StubSession, delivered_tuples, make_stub_engine
     from binquant_tpu_torch.ops import quantile_tail as qt
     from binquant_tpu_torch.regime.context import ContextConfig
 
@@ -1531,6 +1577,9 @@ def service_drive(device: str, m5: dict, m15: dict, first: int, ckpt_path, symbo
         carry_audit_every=SERVICE_EVERY, session=session, all_symbols=symbols_list, **flags,
     )
     engine.checkpoint = CheckpointManager(ckpt_path, every_ticks=SERVICE_EVERY)
+    # every regime digest shares one dedupe key: with the 900 s cooldown the
+    # Telegram consumer would send only the first of the drive's digests
+    engine.telegram_consumer._signal_dedupe_seconds = 0.0
     out = {"restored": engine.checkpoint.try_restore(engine),
            "paths": [], "sites": [], "tick_ms": [], "wires": [], "fired": [], "digests": [],
            "puts": [], "saves_ms": [], "overflowed": [], "kept": None}
@@ -1558,14 +1607,15 @@ def service_drive(device: str, m5: dict, m15: dict, first: int, ckpt_path, symbo
         for n, (tick_now, klines) in enumerate(ticks, start=first + 1):
             clock["now"] = tick_now
             before, ticks0 = dict(qt.launches_by_site), engine.ticks_processed
-            d0, p0 = len(engine.sinks.digests), len(puts())
-            f0, o0 = len(engine.sinks.fired), engine.overflow_ticks
+            d0, p0 = len(engine._telegram_sent), len(puts())
+            f0, o0 = len(engine._autotrade_received), engine.overflow_ticks
             t0 = time.perf_counter()
             for k in klines:
                 queue.put_nowait(k)
             while engine.ticks_processed == ticks0 or engine._pending:
                 await asyncio.sleep(0.0002)
             out["tick_ms"].append((time.perf_counter() - t0) * 1000.0)
+            await settle(engine)  # the tick's deliveries land first
             if engine._calibration_task is not None:
                 await engine._calibration_task  # this bucket's PUTs land first
             if engine.checkpoint.should_save(engine):
@@ -1577,13 +1627,13 @@ def service_drive(device: str, m5: dict, m15: dict, first: int, ckpt_path, symbo
             out["paths"].append(engine.last_path)
             out["overflowed"].append(engine.overflow_ticks > o0)
             out["wires"].append(engine.last_wire)
-            out["fired"].append(signal_tuples(engine.sinks.fired[f0:]))
-            out["digests"].append(engine.sinks.digests[d0:])
+            out["fired"].append(delivered_tuples(engine._autotrade_received[f0:]))
+            out["digests"].append(digests(engine._telegram_sent[d0:]))
             out["puts"].append(puts()[p0:])
             if n == keep_at:
                 kept = Path(str(ckpt_path) + f".tick{n}")
                 shutil.copy(ckpt_path, kept)
-                out["kept"] = (kept, copy.deepcopy(engine.all_symbols))
+                out["kept"] = (kept, copy.deepcopy(engine.at_consumer.all_symbols))
         task.cancel()
         try:
             await task
@@ -1736,7 +1786,7 @@ def check_service(m5, m15) -> dict:
         "launches_by_site": launches,
         "signals": len(fired),
         "digests": n_digests,
-        "digest_events": [d.splitlines()[2].strip() for ds in a["digests"] for d in ds],
+        "digest_events": [d.splitlines()[1].strip() for ds in a["digests"] for d in ds],
         "puts": n_puts,
         "puts_per_tick": [len(p) for p in a["puts"]],
         "max_wire_abs_err_vs_cpu": err,
@@ -1773,6 +1823,598 @@ def check_service(m5, m15) -> dict:
         f"over {len(a['calibration_ms'])} runs; {n_digests} digests {result['digest_events']}, "
         f"{n_puts} leverage PUTs, {len(fired)} signals, all equal to the cpu engine's; "
         f"qtail launches {n_launches} {launches}; wire max abs err vs cpu {err:.3g}"
+    )
+    return result
+
+
+# --------------------------------------------------------------------------
+# phase 7: the delivery plane and the real sinks
+# --------------------------------------------------------------------------
+
+KILL_AFTER = 12  # the live tick after which the plane is killed undrained
+CREATE_DOWN = range(1, 21)  # bot creations (in order) that the backend answers 503
+TELEGRAM_FLOOD = range(3, 6)  # Telegram sends that meet flood control once each
+TELEGRAM_DOWN = range(40, 52)  # Telegram sends whose transport raises
+# drill-scale retry and breaker knobs (the production 0.25 s backoff and
+# 30 s cooldown would outlast the phase); everything else is the default
+DRILL = dict(delivery_backoff_s=0.001, delivery_backoff_max_s=0.01,
+             delivery_breaker_cooldown_s=0.05)
+
+
+class TelegramScript:
+    """A Telegram transport that records what it sends; with ``faults``,
+    the sends numbered in TELEGRAM_FLOOD meet flood control (retry after
+    1 ms) and those in TELEGRAM_DOWN raise."""
+
+    def __init__(self, faults: bool) -> None:
+        self.faults = faults
+        self.calls = 0
+        self.sent: list[str] = []
+
+    async def __call__(self, chat_id: str, text: str) -> None:
+        from binquant_tpu_torch.io.telegram import RetryAfterError
+
+        self.calls += 1
+        if self.faults and self.calls in TELEGRAM_FLOOD:
+            raise RetryAfterError(0.001)
+        if self.faults and self.calls in TELEGRAM_DOWN:
+            raise ConnectionError("telegram unreachable")
+        self.sent.append(text)
+
+
+class _Reply:
+    def __init__(self, payload, status_code: int = 200) -> None:
+        self._payload, self.status_code = payload, status_code
+        self.text = json.dumps(payload)
+
+    def json(self):
+        return self._payload
+
+    def raise_for_status(self) -> None:
+        if self.status_code >= 400:
+            raise ConnectionError(f"HTTP {self.status_code}")
+
+
+class FuturesBackend:
+    """KuCoin futures: every contract one lot of 0.001, a mark price of 50."""
+
+    def get(self, url: str, params=None):
+        if "/mark-price/" in url:
+            return _Reply({"data": {"value": 50.0}})
+        return _Reply({"data": {"multiplier": 0.001, "lotSize": 1, "takerFeeRate": 0.0006}})
+
+
+def autotrade_backend(faults: bool):
+    """The binbot backend admission talks to: the stub's answers, symbols
+    with a 5x futures leverage, and (``faults``) HTTP 503 for the bot
+    creations numbered in CREATE_DOWN. Each request is filed under the
+    admission attempt running in its thread."""
+    import threading
+
+    from binquant_tpu_torch.io.replay import StubSession
+
+    class Backend(StubSession):
+        def __init__(self) -> None:
+            super().__init__()
+            self.creates = 0
+            self.failed_creates = 0
+            self.local = threading.local()
+
+        def request(self, method: str, url: str, **kwargs):
+            calls = getattr(self.local, "calls", None)
+            if calls is not None:
+                calls.append((method, url, kwargs.get("json")))
+            if method == "POST" and url.endswith("/bot"):
+                self.creates += 1
+                if faults and self.creates in CREATE_DOWN:
+                    self.failed_creates += 1
+                    self.requests.append((method, url, None))
+                    return self._Resp({"message": "backend unavailable"}, 503)
+            if "/symbol/" in url and method == "GET":
+                self.requests.append((method, url, None))
+                return self._Resp({"data": {"id": url.rsplit("/", 1)[-1], "quote_asset": "USDT",
+                                            "futures_leverage": 5.0}})
+            return super().request(method, url, **kwargs)
+
+    return Backend()
+
+
+def delivery_engine(device: str, wal_path, faults: bool, delivery: bool = True):
+    """A production engine (depth 1 on the card, depth 0 with copied rings
+    on the CPU) whose sinks are the real ones: the analytics POST over a
+    stub backend (serving phase 6's breadth schedule), a Telegram consumer
+    over :class:`TelegramScript`, and
+    autotrade admission (autotrade on, KuCoin futures) over
+    :func:`autotrade_backend`, recording every payload it is handed and the
+    REST calls of each attempt."""
+    from binquant_tpu_torch.config import Config
+    from binquant_tpu_torch.io.autotrade import AutotradeConsumer
+    from binquant_tpu_torch.io.binbot import BinbotApi
+    from binquant_tpu_torch.io.exchanges import KucoinFutures
+    from binquant_tpu_torch.io.pipeline import SignalEngine
+    from binquant_tpu_torch.io.replay import StubSession
+    from binquant_tpu_torch.io.telegram import TelegramConsumer
+    from binquant_tpu_torch.regime.context import ContextConfig
+    from binquant_tpu_torch.schemas import (
+        AutotradeSettingsSchema,
+        MarketType,
+        TestAutotradeSettingsSchema,
+    )
+
+    backend = autotrade_backend(faults)
+
+    class Admission(AutotradeConsumer):
+        async def process_autotrade_restrictions(self, result):
+            entry = result.metadata.get("delivery_id")
+            self.seen.append(entry)
+            backend.local.calls = calls = []
+            try:
+                await super().process_autotrade_restrictions(result)
+            finally:
+                backend.local.calls = None
+            # an attempt that returned: its REST calls, filed by entry, and
+            # the grid-only policy it read (the engine's, as of the last
+            # finalize: a late delivery reads a later tick's)
+            self.attempts.append((entry, calls, self.grid_only_policy.block_standard_bots))
+
+    consumer = Admission(
+        autotrade_settings=AutotradeSettingsSchema(
+            autotrade=True, exchange_id="kucoin", market_type=MarketType.FUTURES),
+        active_test_bots=[],
+        all_symbols=[],
+        test_autotrade_settings=TestAutotradeSettingsSchema(autotrade=False),
+        active_grid_ladders=[],
+        binbot_api=BinbotApi("http://stub-admission", session=backend),
+        kucoin_futures_api=KucoinFutures(session=FuturesBackend()),
+    )
+    consumer.seen, consumer.attempts = [], []
+    transport = TelegramScript(faults)
+    telegram = TelegramConsumer(token="", chat_id="smoke", transport=transport)
+    # drill scale: no one-second pacing, no two-second flood pad
+    telegram._min_send_interval_seconds = 0.0
+    telegram._retry_after_pad_seconds = 0.0
+    config = Config(max_symbols=S, window_bars=W, carry_audit_every_ticks=AUDIT_EVERY, env="CI",
+                    delivery_enabled=delivery, delivery_wal_path=str(wal_path), **DRILL)
+    if device == "cpu":
+        config.pipeline_depth, config.donate = 0, False
+    # phase 6's breadth schedule: the breadth-gated strategies fire on the
+    # live ticks too, not only on the crash
+    analytics = BinbotApi("http://stub", session=StubSession({"schedule": service_breadth()}))
+    engine = SignalEngine(config, analytics, telegram, consumer, device=device,
+                          context_config=ContextConfig())
+    return engine, backend, transport
+
+
+def instrument(plane, rec: dict) -> None:
+    """Record what ``plane`` accepts and acks: the autotrade puts, and per
+    acked (sink, entry) its payload and its lag from the tick's klines
+    being queued (``rec["queued"]``, by tick ms) to the ack."""
+    enqueue, ack = plane.enqueue, plane._ack
+
+    def on_enqueue(env):
+        if env.sink == "autotrade" and not env.replayed:
+            rec["puts"].append(env.entry_id)
+        enqueue(env)
+
+    def on_ack(lane, env):
+        rec["acked"][(lane.sink.name, env.entry_id)] = env.payload
+        if env.replayed:  # decoded from the WAL: a boot replay or a deferral's sweep
+            rec["via_wal"].add((lane.sink.name, env.entry_id))
+        rec["ack_counts"][lane.sink.name] = rec["ack_counts"].get(lane.sink.name, 0) + 1
+        t0 = rec["queued"].get(env.ts_ms)
+        if t0 is not None:
+            rec["lag_ms"].setdefault(lane.sink.name, []).append(
+                (time.perf_counter() - t0) * 1000.0)
+        ack(lane, env)
+
+    plane.enqueue, plane._ack = on_enqueue, on_ack
+
+
+async def kill_and_reboot(engine, rec: dict) -> dict:
+    """Kill the plane without a drain (the workers abandoned, the WAL
+    handle left open, no compaction), then boot a second plane on the same
+    WAL, which replays the unacked entries. Returns what the kill left."""
+    from binquant_tpu_torch.io.delivery import DeliveryPlane
+    from binquant_tpu_torch.io.emission import make_signal_sinks
+
+    old = engine.delivery
+    left = {name: {"enqueued": lane.enqueued, "acked": lane.acked, "shed": dict(lane.shed),
+                   "abandoned": lane.queue.qsize() + lane.inflight}
+            for name, lane in old._lanes.items()}
+    workers = [lane.worker for lane in old._lanes.values()]
+    for w in workers:
+        w.cancel()
+    await asyncio.gather(*workers, return_exceptions=True)
+    old.closed = True
+    unacked = {rec["id"] for rec in old.wal.unacked() if rec["sink"] == "autotrade"}
+    t0 = time.perf_counter()
+    plane = DeliveryPlane.from_config(engine.config, make_signal_sinks(
+        engine.binbot_api, engine.telegram_consumer, engine.at_consumer))
+    instrument(plane, rec)
+    plane.start()
+    replay_ms = (time.perf_counter() - t0) * 1000.0
+    engine.delivery = plane
+    return {"lanes": left, "wal": (old.wal.puts, old.wal.acks, old.wal.dup_acks),
+            "unacked_at_kill": len(unacked), "unacked_ids": unacked,
+            "replayed": plane.wal_replayed, "replay_ms": replay_ms, "old": old}
+
+
+def drive_delivery(specs: dict, m5: dict, m15: dict) -> dict:
+    """The warm tick, LIVE_TICKS live ticks and the crash tick through each
+    engine's ``consume_loop`` (label -> spec with its engine), the engines
+    taking each tick in turns. Per engine and tick: the ms from queueing the
+    klines until the tick landed and emitted, the qtail launches by site,
+    the path and whether it overflowed. A spec with ``kill`` kills its plane
+    after live tick KILL_AFTER and boots a second one. Last, every plane
+    drains and is retired by cancelling the loop; the WAL's bytes before
+    and after that compaction are kept."""
+    from binquant_tpu_torch.ops import quantile_tail as qt
+
+    for spec in specs.values():
+        engine = spec["engine"]
+        spec["ticks"] = tick_plan(engine, m5, m15, LIVE_TICKS + 1)
+        spec.update(tick_ms=[], sites=[], paths=[], overflowed=[], finalize_ms=[],
+                    kill=spec.get("kill"))
+        if engine.delivery is not None:
+            instrument(engine.delivery, spec["rec"])
+
+        async def timed_finalize(pending, _inner=engine._finalize_tick_inner, _spec=spec):
+            t0 = time.perf_counter()
+            try:
+                return await _inner(pending)
+            finally:
+                _spec["finalize_ms"].append((time.perf_counter() - t0) * 1000.0)
+
+        # the host ms of each finalize: wire decode, monitors, the overflow
+        # fallback where one runs, outcomes and emission
+        engine._finalize_tick_inner = timed_finalize
+
+    async def run() -> None:
+        labels = list(specs)
+        n_ticks = len(next(iter(specs.values()))["ticks"])
+        for n in range(n_ticks):
+            for label in labels[n % len(labels):] + labels[: n % len(labels)]:
+                spec = specs[label]
+                engine, (now_ms, klines) = spec["engine"], spec["ticks"][n]
+                if n == 0:  # each loop starts at its own warm tick
+                    spec["queue"], spec["clock"] = asyncio.Queue(), {"now": now_ms}
+                    spec["task"] = asyncio.create_task(engine.consume_loop(
+                        spec["queue"], tick_interval_s=0.0,
+                        clock=lambda c=spec["clock"]: c["now"]))
+                spec["clock"]["now"] = now_ms
+                before, ticks0, o0 = dict(qt.launches_by_site), engine.ticks_processed, \
+                    engine.overflow_ticks
+                t0 = time.perf_counter()
+                spec["rec"]["queued"][now_ms] = t0
+                for k in klines:
+                    spec["queue"].put_nowait(k)
+                while engine.ticks_processed == ticks0 or engine._pending:
+                    await asyncio.sleep(0.0002)
+                spec["tick_ms"].append((time.perf_counter() - t0) * 1000.0)
+                spec["sites"].append({k: v - before.get(k, 0) for k, v in
+                                      qt.launches_by_site.items() if v != before.get(k, 0)})
+                spec["paths"].append(engine.last_path)
+                spec["overflowed"].append(engine.overflow_ticks > o0)
+                if spec["kill"] and n == KILL_AFTER:
+                    spec["killed"] = await kill_and_reboot(engine, spec["rec"])
+        for spec in specs.values():
+            engine = spec["engine"]
+            await settle(engine)
+            if engine.delivery is not None:
+                spec["wal_bytes_before"] = os.path.getsize(engine.delivery.wal.path)
+                spec["final"] = engine.delivery
+            spec["task"].cancel()
+            try:
+                await spec["task"]
+            except asyncio.CancelledError:
+                pass
+            if engine.delivery is not None:
+                spec["wal_bytes_after"] = os.path.getsize(engine.delivery.wal.path)
+        return None
+
+    asyncio.run(run())
+    return specs
+
+
+def wal_put_ms(wal_dir: Path, payload: dict, n: int = 200) -> dict:
+    """ms per WAL put of ``payload`` into a fresh WAL in ``wal_dir``,
+    fsynced (the plane's setting) and, for contrast, flushed only."""
+    from binquant_tpu_torch.io.delivery import DeliveryWal
+
+    out = {}
+    for fsync in (True, False):
+        wal = DeliveryWal(wal_dir / f"bench.{int(fsync)}.wal.jsonl", fsync=fsync, compact_every=0)
+        t0 = time.perf_counter()
+        for i in range(n):
+            wal.append_put(f"bench/{i}", "autotrade", payload, ts_ms=i)
+        out["fsync" if fsync else "flush"] = (time.perf_counter() - t0) * 1000.0 / n
+        wal.close()
+    return out
+
+
+def _comparable(sink: str, payload):
+    if sink == "autotrade":
+        payload = payload.model_dump(mode="json")
+        if payload.get("grid_params"):
+            payload["grid_params"].pop("generated_at")
+    elif sink == "analytics":
+        payload = {k: v for k, v in payload.items() if k != "generated_at"}
+    return payload
+
+
+def envelope_flip(signal_a, signal_b, calls_a: list, calls_b: list):
+    """Whether two admissions of one signal differ only by the Bollinger
+    envelope gate (exits derived from the bands only when the envelope lies
+    strictly between 2% and 20%, autotrade.py ``bollinger_exit_params``),
+    with each side's envelope within 1e-4 (relative) of the bound it falls
+    on either side of: the bands are wire floats, equal between the card
+    and the CPU to the wire contract, so such a gate may flip. Returns the
+    two envelopes in % then, else None."""
+    from binquant_tpu_torch.io.autotrade import BB_ENVELOPE_MAX_PCT, BB_ENVELOPE_MIN_PCT
+    from binquant_tpu_torch.io.replay import payloads_match
+
+    exits = ("stop_loss", "take_profit", "trailing_deviation")
+    if [c[:2] for c in calls_a] != [c[:2] for c in calls_b]:
+        return None
+    for (_, _, ja), (_, _, jb) in zip(calls_a, calls_b):
+        if isinstance(ja, dict) and isinstance(jb, dict) and ja.keys() == jb.keys():
+            ja = {k: v for k, v in ja.items() if k not in exits}
+            jb = {k: v for k, v in jb.items() if k not in exits}
+        if not payloads_match(ja, jb):
+            return None
+    envs = []
+    for sig in (signal_a, signal_b):
+        bb = sig.bb_spreads
+        envs.append(abs(bb.bb_high - bb.bb_low) / bb.bb_high * 100 if bb and bb.bb_high else 0.0)
+    for bound in (BB_ENVELOPE_MIN_PCT, BB_ENVELOPE_MAX_PCT):
+        if (envs[0] > bound) != (envs[1] > bound) and all(
+                abs(e - bound) <= 1e-4 * bound for e in envs):
+            return envs
+    return None
+
+
+def check_delivery(m5, m15, card: str = "cuda") -> dict:
+    """The production loop through ``consume_loop`` with the delivery plane
+    on, its WAL in a temporary directory, phase 5's crash market: on the
+    card with scripted faults in all three sinks and a kill of the plane
+    after tick KILL_AFTER, beside the same drive on the inline path taken in
+    turns; then a CPU engine (depth 0, copied rings) with the same sinks
+    and no faults. Zero loss and no duplicate ack of the autotrade class,
+    balanced lossy accounting, the card's payloads equal to the CPU's."""
+    from unittest import mock
+
+    from binquant_tpu_torch.io import autotrade as at_mod
+    from binquant_tpu_torch.io.exchanges import KucoinFutures
+    from binquant_tpu_torch.io.replay import payloads_match
+    from binquant_tpu_torch.ops import quantile_tail as qt
+
+    def rec() -> dict:
+        return {"puts": [], "acked": {}, "ack_counts": {}, "lag_ms": {}, "queued": {},
+                "via_wal": set()}
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    # a launch builds its own futures client for a short's mark price: the
+    # phase's points at the stub contract book
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp, mock.patch.object(
+        at_mod, "KucoinFutures", lambda: KucoinFutures(session=FuturesBackend())
+    ):
+        tmp = Path(tmp)
+        main, backend, transport = delivery_engine(card, tmp / "main.wal.jsonl", faults=True)
+        inline, _, _ = delivery_engine(card, tmp / "inline.wal.jsonl", faults=False,
+                                       delivery=False)
+        qt.reset_launches()  # launches made elsewhere do not count
+        card = drive_delivery({
+            "plane": {"engine": main, "backend": backend, "rec": rec(), "kill": True},
+            "inline": {"engine": inline, "rec": rec()},
+        }, m5, m15)
+        launches = dict(qt.launches_by_site)  # read just after the card drives
+        n_launches = qt.launches
+        cpu_engine, _, _ = delivery_engine("cpu", tmp / "cpu.wal.jsonl", faults=False)
+        cpu = drive_delivery({"cpu": {"engine": cpu_engine, "rec": rec()}}, m5, m15)["cpu"]
+        sample = next(p for (s, _), p in card["plane"]["rec"]["acked"].items()
+                      if s == "autotrade").model_dump(mode="json")
+        put_ms = wal_put_ms(tmp, sample)
+    plane, inl = card["plane"], card["inline"]
+    killed, final, r = plane["killed"], plane["final"], plane["rec"]
+
+    expect = ["cold_start"] + ["audit" if t % AUDIT_EVERY == 0 else "incremental"
+                               for t in range(1, LIVE_TICKS + 2)]
+    for run, label in ((plane, "plane"), (inl, "inline"), (cpu, "cpu")):
+        if run["paths"] != expect:
+            fail(f"delivery drive ({label}) routing {run['paths']}, expected {expect}")
+    for run, label in ((plane, "plane"), (inl, "inline")):
+        want = []
+        for p, ov in zip(run["paths"], run["overflowed"]):
+            w = dict(EXPECT_SITES[p])
+            for k, v in (_expected_sites(p, dormant=True) if ov else {}).items():
+                w[k] = w.get(k, 0) + v
+            want.append(w)
+        if run["sites"] != want or run["overflowed"][-1] is not True:
+            fail(f"delivery drive ({label}): qtail launches by site per tick {run['sites']}, "
+                 f"expected {want} (overflowed {run['overflowed']})")
+
+    # zero loss and no duplicate ack: every put reached admission and acked
+    puts, cpu_puts = set(r["puts"]), set(cpu["rec"]["puts"])
+    received = main.at_consumer.seen
+    acked_at = {e for (s, e) in r["acked"] if s == "autotrade"}
+    n_wal_puts = killed["wal"][0] + final.wal.puts
+    if not puts or len(r["puts"]) != len(puts) or n_wal_puts != len(puts):
+        fail(f"delivery: {len(r['puts'])} autotrade puts ({len(puts)} ids), WAL puts {n_wal_puts}")
+    if puts != cpu_puts:
+        fail(f"delivery: the card put {len(puts)} autotrade entries, the cpu {len(cpu_puts)}")
+    if set(received) != puts or acked_at != puts or final.wal.unacked_count():
+        fail(f"delivery: lost autotrade entries: {len(puts - set(received))} never reached "
+             f"admission, {len(puts - acked_at)} never acked, {final.wal.unacked_count()} "
+             "unacked in the WAL")
+    dup_acks = killed["wal"][2] + final.wal.dup_acks
+    if dup_acks or not final.zero_loss_invariant()["ok"]:
+        fail(f"delivery: {dup_acks} duplicate acks, invariant {final.zero_loss_invariant()}")
+    if not (killed["unacked_at_kill"] > 0 and killed["replayed"] == killed["unacked_at_kill"]):
+        fail(f"delivery: the kill left {killed['unacked_at_kill']} unacked entries, the second "
+             f"plane replayed {killed['replayed']}")
+    if backend.failed_creates != len(CREATE_DOWN) or "open" not in killed["old"].breaker(
+            "autotrade").transitions + final.breaker("autotrade").transitions:
+        fail(f"delivery: {backend.failed_creates} bot creations failed without opening the "
+             "autotrade breaker")
+
+    # lossy accounting: enqueued = acked + shed (+ abandoned by the kill)
+    lossy = {}
+    for name in ("analytics", "telegram"):
+        k, f = killed["lanes"][name], final.lane(name)
+        for side, (enq, ack, shed, gone) in {
+            "before_kill": (k["enqueued"], k["acked"], k["shed"], k["abandoned"]),
+            "after_kill": (f.enqueued, f.acked, dict(f.shed), 0),
+        }.items():
+            if enq != ack + sum(shed.values()) + gone:
+                fail(f"delivery: {name} {side}: enqueued {enq} != acked {ack} + shed {shed} "
+                     f"+ abandoned {gone}")
+        lossy[name] = {"before_kill": k, "after_kill": {"enqueued": f.enqueued, "acked": f.acked,
+                                                        "shed": dict(f.shed)},
+                       "retries": f.retries + killed["old"].lane(name).retries,
+                       "breaker": killed["old"].breaker(name).transitions
+                       + f.breaker.transitions}
+    tel = lossy["telegram"]
+    sheds = {**tel["before_kill"]["shed"], **tel["after_kill"]["shed"]}
+    if not (tel["retries"] and "open" in tel["breaker"] and sheds):
+        fail(f"delivery: the Telegram faults made {tel['retries']} retries, breaker "
+             f"{tel['breaker']}, sheds {sheds}")
+
+    # card against cpu, by entry id, every entry both delivered
+    both_keys = sorted(set(r["acked"]) & set(cpu["rec"]["acked"]))
+    compared = {}
+    for key in both_keys:
+        a = _comparable(key[0], r["acked"][key])
+        b = _comparable(key[0], cpu["rec"]["acked"][key])
+        if not payloads_match(a, b):
+            fail(f"delivery: {key} delivered differently on the card and the cpu: "
+                 f"{str(a)[:300]} vs {str(b)[:300]}")
+        compared[key[0]] = compared.get(key[0], 0) + 1
+    last_ok = lambda attempts: {e: (calls, block) for e, calls, block in attempts}  # noqa: E731
+    card_rest, cpu_rest = last_ok(main.at_consumer.attempts), last_ok(cpu_engine.at_consumer.attempts)
+    same_rest = lambda a, b: [(m, u) for m, u, _ in a] == [(m, u) for m, u, _ in b] \
+        and payloads_match([j for _, _, j in a], [j for _, _, j in b])  # noqa: E731
+    rest_compared, policy_differs, replayed_differs, both_via_wal = 0, 0, 0, 0
+    envelope_flips: list = []
+    for entry in sorted(set(card_rest) & set(cpu_rest)):
+        (a, block_a), (b, block_b) = card_rest[entry], cpu_rest[entry]
+        if block_a != block_b:  # each side delivered under another tick's policy
+            policy_differs += 1
+            continue
+        via_wal = [("autotrade", entry) in rr["via_wal"] for rr in (r, cpu["rec"])]
+        if via_wal[0] != via_wal[1]:
+            # a payload decoded from the WAL (the replay after the kill, or
+            # the sweep of a burst deferred past the queue bound) comes back
+            # with every field marked as set (model_validate of a full
+            # dump), so admission reads its dumped defaults as the signal's
+            # choices, as the reference does (ROADMAP C): where only one
+            # side decoded it, counted, not compared
+            replayed_differs += not same_rest(a, b)
+            continue
+        both_via_wal += via_wal[0]
+        rest_compared += 1
+        if same_rest(a, b):
+            continue
+        flip = envelope_flip(r["acked"][("autotrade", entry)],
+                             cpu["rec"]["acked"][("autotrade", entry)], a, b)
+        if flip is None:
+            bad = next((x, y) for x, y in zip(a + [None], b + [None])
+                       if x is None or y is None or x[:2] != y[:2]
+                       or not payloads_match(x[2], y[2]))
+            fail(f"delivery: {entry}: admission's REST sequence differs from the cpu's: "
+                 f"{str(bad[0])[:400]} vs {str(bad[1])[:400]}")
+        envelope_flips.append((entry, flip))
+    if set(card_rest) != puts or not compared.get("autotrade"):
+        fail(f"delivery: admission returned for {len(card_rest)} of {len(puts)} entries")
+    launched = sum(1 for calls, _ in card_rest.values()
+                   if any(m == "POST" and u.endswith("/bot") for m, u, _ in calls))
+    if not rest_compared:
+        fail("delivery: no entry was admitted under the same grid-only policy on both sides")
+
+    live = slice(1, LIVE_TICKS + 1)
+    emits = main.emit_ms
+    n_signals = [len([p for p in r["puts"] if p.startswith(f"t{t}/")])
+                 for t, _ in plane["ticks"]]
+    result = {
+        "ticks": len(expect), "launches": n_launches, "launches_by_site": launches,
+        "routing": plane["paths"], "signals": len(puts),
+        "signals_per_tick": n_signals, "bots_launched": launched,
+        "tick_ms": {
+            label: {"p50": _p(run["tick_ms"][live], 50), "p99": _p(run["tick_ms"][live], 99),
+                    "crash": run["tick_ms"][-1], "per_tick": run["tick_ms"]}
+            for label, run in (("plane", plane), ("inline", inl))
+        },
+        "emit_ms": {"plane_p50": _p(emits[live], 50), "plane_crash": emits[-1],
+                    "inline_p50": _p(inline.emit_ms[live], 50),
+                    "inline_crash": inline.emit_ms[-1], "plane_per_tick": emits,
+                    "inline_per_tick": inline.emit_ms},
+        "finalize_ms": {label: {"p50": _p(run["finalize_ms"][live], 50),
+                                "crash": run["finalize_ms"][-1], "per_tick": run["finalize_ms"]}
+                        for label, run in (("plane", plane), ("inline", inl))},
+        "wal_put_ms": put_ms,
+        "emit_ms_per_put_crash": emits[-1] / max(n_signals[-1], 1),
+        "lag_ms": {s: {"p50": _p(v, 50), "p99": _p(v, 99), "acks": len(v)}
+                   for s, v in r["lag_ms"].items()},
+        "kill": {"after_tick": KILL_AFTER, "unacked": killed["unacked_at_kill"],
+                 "replayed": killed["replayed"], "replay_ms": killed["replay_ms"],
+                 "lanes": killed["lanes"]},
+        "admission_attempts": len(received),
+        "redeliveries": len(main.at_consumer.attempts) - len(card_rest),
+        "failed_creates": backend.failed_creates,
+        "autotrade_breaker": killed["old"].breaker("autotrade").transitions
+        + final.breaker("autotrade").transitions,
+        "lossy": lossy,
+        "telegram_sent": len(transport.sent), "telegram_calls": transport.calls,
+        "wal_bytes": {"before_compaction": plane["wal_bytes_before"],
+                      "after_compaction": plane["wal_bytes_after"]},
+        "compared_with_cpu": compared, "dup_acks": dup_acks,
+        "rest_sequences_compared": rest_compared,
+        "rest_sequences_under_another_policy": policy_differs,
+        "rest_sequences_compared_both_via_wal": both_via_wal,
+        "rest_sequences_one_side_via_wal_differing": replayed_differs,
+        "via_wal": {"card": len(r["via_wal"]), "cpu": len(cpu["rec"]["via_wal"])},
+        "envelope_gate_flips": envelope_flips,
+    }
+    print(
+        f"[slice delivery] S={S} W={W}: {len(expect)} ticks (1 warm + {LIVE_TICKS} live + 1 crash) "
+        f"through consume_loop, depth 1, the delivery plane on (WAL fsynced per put); routing "
+        f"{expect.count('audit')} audits; qtail launches {n_launches} {launches} (the plane and "
+        f"the inline engine, each tick as phase 5 counts it); {len(puts)} autotrade entries "
+        f"({n_signals[-1]} on the crash tick), {launched} bots launched; "
+        f"{backend.failed_creates} bot creations failed (HTTP 503), autotrade "
+        f"breaker {result['autotrade_breaker']}; killed after tick {KILL_AFTER} with "
+        f"{killed['unacked_at_kill']} unacked, the second plane replayed {killed['replayed']} "
+        f"in {killed['replay_ms']:.1f} ms; zero loss ({len(puts)} puts = admitted = acked, "
+        f"{len(received)} admission attempts, "
+        f"{result['redeliveries']} redeliveries), {dup_acks} duplicate acks; Telegram "
+        f"{transport.calls} sends ({len(transport.sent)} delivered), retries "
+        f"{tel['retries']}, breaker {tel['breaker']}, sheds {sheds}; lossy lanes balanced "
+        f"(enqueued = acked + shed + abandoned by the kill); payloads equal to the cpu's on "
+        f"{compared} entries, admission's REST sequences on {rest_compared} ({both_via_wal} "
+        f"decoded from the WAL on both sides, the rest on neither; {len(r['via_wal'])} card "
+        f"and {len(cpu['rec']['via_wal'])} cpu entries were, replayed or deferred); "
+        f"{policy_differs} more were admitted under another tick's grid-only policy on one "
+        f"side, and of those decoded from the WAL on one side only {replayed_differs} differ, "
+        f"their defaults read as set; "
+        f"{len(envelope_flips)} differ by the 2%/20% Bollinger envelope gate, both "
+        f"envelopes within 1e-4 of the bound: {envelope_flips[:4]})"
+    )
+    print(
+        f"[slice delivery] tick ms (queue to landed) plane on p50 "
+        f"{result['tick_ms']['plane']['p50']:.1f} p99 {result['tick_ms']['plane']['p99']:.1f} "
+        f"crash {plane['tick_ms'][-1]:.1f}; inline p50 {result['tick_ms']['inline']['p50']:.1f} "
+        f"p99 {result['tick_ms']['inline']['p99']:.1f} crash {inl['tick_ms'][-1]:.1f}; emit "
+        f"host ms per tick plane p50 {result['emit_ms']['plane_p50']:.2f} crash "
+        f"{emits[-1]:.1f} ({result['emit_ms_per_put_crash']:.3f} per signal), inline p50 "
+        f"{result['emit_ms']['inline_p50']:.2f} crash {inline.emit_ms[-1]:.1f}; finalize host ms "
+        f"(decode, monitors, fallback, outcomes, emission) plane p50 "
+        f"{result['finalize_ms']['plane']['p50']:.1f} crash {plane['finalize_ms'][-1]:.1f}, "
+        f"inline p50 {result['finalize_ms']['inline']['p50']:.1f} crash "
+        f"{inl['finalize_ms'][-1]:.1f}; WAL put ms "
+        f"fsynced {put_ms['fsync']:.3f} flushed {put_ms['flush']:.4f}; queue-to-ack lag ms "
+        + ", ".join(f"{s} p50 {v['p50']:.1f} p99 {v['p99']:.1f}" for s, v in
+                    sorted(result["lag_ms"].items()))
+        + f"; WAL bytes {plane['wal_bytes_before']} before the closing compaction, "
+        f"{plane['wal_bytes_after']} after"
     )
     return result
 
@@ -1926,6 +2568,9 @@ def main() -> int:
     # phase 6: the service around the tick, on the same market's downtrend
     service = check_service(cm5, cm15)
     lap("service")
+    # phase 7: the delivery plane and the real sinks, on phase 5's market
+    delivery = check_delivery(cm5, cm15)
+    lap("delivery")
     slices = {
         "classic": {k: v for k, v in classic.items()
                     if k not in ("fired", "indicators", "tick_times")},
@@ -1933,6 +2578,7 @@ def main() -> int:
         "dormant": dormant,
         "pipelined": pipelined,
         "service": service,
+        "delivery": delivery,
     }
     if "--profile" in sys.argv[1:]:
         slices["profile"] = profile_slice(m5, m15, cm5, cm15)
@@ -1940,7 +2586,7 @@ def main() -> int:
     abp = qreport["abp"]
     by_site: dict[str, int] = {}
     drives = {"classic": classic, "incremental": incremental, "dormant": dormant,
-              "pipelined": pipelined, "service": service}
+              "pipelined": pipelined, "service": service, "delivery": delivery}
     for run in drives.values():
         for k, v in run["launches_by_site"].items():
             by_site[k] = by_site.get(k, 0) + v

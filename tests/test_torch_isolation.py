@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, nothing of the reference package, no
-pydantic, ``httpx`` only where a binbot client is built without a session,
-and no silent CPU fallback at its entry points."""
+pydantic, ``httpx`` only where a network client is built without a session
+or transport (and then only at its first request, but for the binbot
+client), and no silent CPU fallback at its entry points."""
 
 import ast
 import subprocess
@@ -28,8 +29,24 @@ def test_import_pulls_in_no_jax_and_no_reference_module():
         "import binquant_tpu_torch.exceptions, binquant_tpu_torch.io.binbot\n"
         "import binquant_tpu_torch.io.leverage, binquant_tpu_torch.io.checkpoint\n"
         "import binquant_tpu_torch.strategies.market_regime_notifier\n"
+        "import binquant_tpu_torch.io.delivery, binquant_tpu_torch.io.telegram\n"
+        "import binquant_tpu_torch.io.autotrade, binquant_tpu_torch.io.exchanges\n"
+        "import binquant_tpu_torch.io.emission, binquant_tpu_torch.obs.tracing\n"
+        "import asyncio\n"
+        "from binquant_tpu_torch.io.emission import FiredSignal\n"
         "from binquant_tpu_torch.io.replay import StubSession, make_stub_engine\n"
-        "make_stub_engine(capacity=8, window=96, device='cpu')\n"
+        "from binquant_tpu_torch.schemas import BotBase, SignalsConsumer\n"
+        "eng = make_stub_engine(capacity=8, window=96, device='cpu')\n"
+        "assert eng.delivery is not None\n"
+        "value = SignalsConsumer(autotrade=True, symbol='XUSDT', algorithm_name='mrf',\n"
+        "                        bot_params=BotBase(pair='XUSDT', name='mrf'))\n"
+        "sig = FiredSignal('mrf', 'XUSDT', 0, value, '- Action: LONG ENTRY\\n#XUSDT', {})\n"
+        "async def go():\n"
+        "    eng.delivery.enqueue_fired(sig, tick_ms=1000)\n"
+        "    assert await eng.delivery.drain(timeout_s=30)\n"
+        "    await eng.aclose_delivery()\n"
+        "asyncio.run(go())\n"
+        "assert len(eng._telegram_sent) == 1 and len(eng._autotrade_received) == 1\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'binquant_tpu', 'httpx', 'pydantic'))\n"
         "print(','.join(bad))\n"
@@ -62,11 +79,18 @@ def test_sources_import_no_jax_and_no_reference_package():
 
 
 def test_httpx_is_imported_only_where_no_session_is_given():
-    """The binbot client imports ``httpx`` inside its constructor's
-    no-session branch and nowhere else; no other port module (nor the
-    smoke script) names it."""
+    """``httpx`` is imported in three places and nowhere else (no other
+    port module, nor the smoke script, names it): the binbot client's
+    constructor, in its no-session branch; the exchange clients' session,
+    in its no-session branch, at the first request; the Telegram bot
+    transport's send, which is built only for a consumer with a token and
+    no transport."""
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    binbot = PKG / "io" / "binbot.py"
+    allowed = {  # file -> (function holding the import, branch test or None)
+        PKG / "io" / "binbot.py": ("__init__", "session is None"),
+        PKG / "io" / "exchanges.py": ("session", "self._session is None"),
+        PKG / "io" / "telegram.py": ("post", None),
+    }
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         found = [
@@ -74,30 +98,49 @@ def test_httpx_is_imported_only_where_no_session_is_given():
             if isinstance(node, ast.Import) and any(a.name == "httpx" for a in node.names)
             or isinstance(node, ast.ImportFrom) and (node.module or "").startswith("httpx")
         ]
-        if path != binbot:
+        if path not in allowed:
             assert not found, path
             continue
-        assert len(found) == 1
-        init = next(
-            n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.name == "__init__"
+        assert len(found) == 1, path
+        func, test = allowed[path]
+        holder = next(
+            n for n in ast.walk(tree)
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef)) and n.name == func
         )
-        branch = next(
-            n for n in ast.walk(init)
-            if isinstance(n, ast.If) and ast.unparse(n.test) == "session is None"
-        )
-        assert found[0] in list(ast.walk(branch))
+        if test is not None:
+            holder = next(
+                n for n in ast.walk(holder)
+                if isinstance(n, ast.If) and ast.unparse(n.test) == test
+            )
+        assert found[0] in list(ast.walk(holder)), path
 
 
 @pytest.mark.parametrize("entry", ["make_stub_engine", "SignalEngine", "run_replay"])
 def test_entry_points_raise_without_cuda_unless_cpu_requested(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible; the no-CUDA refusal cannot be shown")
+    from binquant_tpu_torch.config import Config
     from binquant_tpu_torch.io import pipeline, replay
+    from binquant_tpu_torch.io.autotrade import AutotradeConsumer
+    from binquant_tpu_torch.io.telegram import TelegramConsumer
+    from binquant_tpu_torch.schemas import (
+        AutotradeSettingsSchema,
+        TestAutotradeSettingsSchema,
+    )
+
+    def engine(**kw):
+        consumer = AutotradeConsumer(
+            AutotradeSettingsSchema(), [], [], TestAutotradeSettingsSchema(), [], None
+        )
+        return pipeline.SignalEngine(
+            Config(delivery_wal_path=str(tmp_path / "w.jsonl")), None,
+            TelegramConsumer(token="", chat_id="c"), consumer, window=96, **kw,
+        )
 
     calls = {
         # window 96: the incremental engine's minimum ring is 81 bars
         "make_stub_engine": lambda **kw: replay.make_stub_engine(capacity=8, window=96, **kw),
-        "SignalEngine": lambda **kw: pipeline.SignalEngine(window=96, **kw),
+        "SignalEngine": engine,
         "run_replay": lambda **kw: replay.run_replay(tmp_path / "empty.jsonl", **kw),
     }
     (tmp_path / "empty.jsonl").write_text("")

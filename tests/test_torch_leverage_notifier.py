@@ -150,20 +150,18 @@ def replayed(tmp_path_factory):
     j = jreplay.make_stub_engine(capacity=CAPACITY, window=WINDOW, incremental=False)
     t = treplay.make_stub_engine(capacity=CAPACITY, window=WINDOW, device="cpu",
                                  incremental=False, **SERIAL)
-    out = {"j": {"calib": [], "digests": []}, "t": {"calib": []}}
+    out = {"j": {"calib": []}, "t": {"calib": []}}
     for key, eng in (("j", j), ("t", t)):
         eng._run_leverage_calibration = (
             lambda bucket, context, rows=None, _k=key: out[_k]["calib"].append((bucket, context))
         )
-    build = j.notifier.build_message
-
-    def record(ctx):
-        msg = build(ctx)
-        if msg:
-            out["j"]["digests"].append(msg)
-        return msg
-
-    j.notifier.build_message = record
+    # the reference stub paces its sends a second apart; and every digest
+    # shares one dedupe key, so the 900 s cooldown would let only the first
+    # through (each tick's sends land before the next tick, so the key is
+    # never in flight)
+    j.telegram_consumer._min_send_interval_seconds = 0.0
+    for eng in (j, t):
+        eng.telegram_consumer._signal_dedupe_seconds = 0.0
 
     async def go():
         for now_ms, klines in seq:
@@ -171,9 +169,14 @@ def replayed(tmp_path_factory):
                 for k in klines:
                     eng.ingest(k)
                 await eng.process_tick(now_ms=now_ms)
+                await asyncio.gather(*eng.telegram_consumer._background_tasks)
+        await t.aclose_delivery()
 
     asyncio.run(go())
-    out["t"]["digests"] = list(t.sinks.digests)
+    # the digests among what each Telegram consumer sent (a signal's
+    # message names its algorithm)
+    for key, eng in (("j", j), ("t", t)):
+        out[key]["digests"] = [m for m in eng._telegram_sent if "algorithm</strong>" not in m]
     out["j"]["registry"], out["t"]["registry"] = j.registry, t.registry
     return out
 

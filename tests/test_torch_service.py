@@ -186,7 +186,8 @@ def test_consume_loop_kill_and_restart(stream, tmp_path):
     asyncio.run(_consume(a, seq, clock, stop_after=cut))
     assert a.ticks_processed == cut and not a._pending
     assert a.checkpoint.last_saved_tick == save_tick
-    got_a = treplay.signal_tuples(a.sinks.fired)
+    # what the autotrade consumer was handed through the delivery plane
+    got_a = treplay.delivered_tuples(a._autotrade_received)
     assert got_a == [s for s in whole if s[0] <= seq[cut - 1][0]]
 
     b = treplay.make_stub_engine(capacity=CAP, window=WIN, device="cpu")
@@ -206,7 +207,8 @@ def test_consume_loop_kill_and_restart(stream, tmp_path):
     b._route = route
     asyncio.run(_consume(b, seq[save_tick:], clock))
     assert paths[0] == (False, "backfill") and all(p == (True, None) for p in paths[1:])
-    got = [s for s in got_a if s[0] <= seq[save_tick - 1][0]] + treplay.signal_tuples(b.sinks.fired)
+    got = [s for s in got_a if s[0] <= seq[save_tick - 1][0]] + treplay.delivered_tuples(
+        b._autotrade_received)
     assert got == whole
 
 
