@@ -45,7 +45,24 @@ pipelined production loop:
   ``wal_compact_every`` the acks between WAL compactions (0: none). The
   WAL is fsynced on every record;
 * ``telegram_bot_token``, ``telegram_user_id`` — the Telegram bot and the
-  chat the alerts go to.
+  chat the alerts go to;
+* the tick's observability, all on by default as in the reference:
+  ``trace_sample`` (1 traces every tick, 0.25 every 4th, 0 none),
+  ``trace_slow_ms`` (the flight recorder's busy-time budget) and
+  ``trace_ring`` (completed traces kept) for ``obs/tracing.py``;
+  ``freshness_enabled`` with ``freshness_slo_ms`` (0: no breach check) and
+  ``host_phase_enabled`` for ``obs/latency.py``; ``slo_enabled`` with
+  ``slo_window`` (the per-sink sample window of the delivery SLO's p99) and
+  ``slo_event_every`` (burning observations between re-emitted ``slo_burn``
+  events) for ``obs/slo.py``; ``delivery_health_enabled`` with
+  ``delivery_slo_ms`` (0: no delivery SLO) for ``obs/delivery_health.py``;
+  ``metrics_port`` (0: no ``/metrics`` server) and the liveness file
+  ``heartbeat_path`` (in the temporary directory by default) with its
+  staleness bound ``heartbeat_max_age_s`` for ``/healthz``;
+* ``ingest_watermarks_enabled`` — the ingest monitor's watermark half
+  (per-candle arrival and per-batch apply watermarks, ``symbols_report``).
+  The port's own switch: the reference runs it whenever the ingest digest
+  is on, as the port does by default. Off only to measure what it costs.
 """
 
 from __future__ import annotations
@@ -91,6 +108,23 @@ class Config:
     delivery_breaker_threshold: int = 5
     delivery_breaker_cooldown_s: float = 30.0
     wal_compact_every: int = 256
+    trace_sample: float = 1.0
+    trace_slow_ms: float = 50.0
+    trace_ring: int = 256
+    freshness_enabled: bool = True
+    freshness_slo_ms: float = 0.0
+    host_phase_enabled: bool = True
+    slo_enabled: bool = True
+    slo_window: int = 512
+    slo_event_every: int = 256
+    delivery_health_enabled: bool = True
+    delivery_slo_ms: float = 0.0
+    metrics_port: int = 0
+    heartbeat_path: str = field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(), "binquant_tpu.heartbeat")
+    )
+    heartbeat_max_age_s: float = 1500.0
+    ingest_watermarks_enabled: bool = True
     telegram_bot_token: str = ""
     telegram_user_id: str = ""
     env: str = field(default_factory=lambda: os.environ.get("ENV", ""))

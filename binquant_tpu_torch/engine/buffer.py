@@ -30,11 +30,14 @@ seconds since epoch; values float32 with NaN where empty.
 
 from __future__ import annotations
 
+import time
 from enum import IntEnum
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from binquant_tpu_torch.obs.instruments import INGEST_DEDUP_OVERWRITES
 
 
 class Field(IntEnum):
@@ -365,6 +368,10 @@ class IngestBatcher:
         self.registry = registry
         self._pending: dict[tuple[str, int], np.ndarray] = {}
         self._prebuilt: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+        # perf_counter of the OLDEST candle waiting since the last drain:
+        # the ingest-arrival anchor of the tick that drains it (the
+        # ingest→dispatch freshness stage). Reset by drain().
+        self.first_pending_mono: float | None = None
 
     def __len__(self) -> int:
         return len(self._pending) + sum(len(r) for r, _, _ in self._prebuilt)
@@ -374,6 +381,8 @@ class IngestBatcher:
     ) -> None:
         """Bulk ingest of an already-normalized (row_idx, ts_s, vals (U, F))
         sub-batch; rows must already be registry rows."""
+        if self.first_pending_mono is None:
+            self.first_pending_mono = time.perf_counter()
         self._prebuilt.append(
             (
                 np.asarray(row_idx, dtype=np.int32),
@@ -386,6 +395,8 @@ class IngestBatcher:
         symbol = str(kline.get("symbol", "")).strip().upper()
         if not symbol:
             return  # malformed kline; never claim a registry row for ""
+        if self.first_pending_mono is None:
+            self.first_pending_mono = time.perf_counter()
         open_time_ms = int(kline.get("open_time", 0))
         close_time_ms = int(kline.get("close_time", 0)) or open_time_ms
         row = np.array(
@@ -404,7 +415,11 @@ class IngestBatcher:
             ],
             dtype=np.float32,
         )
-        self._pending[(symbol, ms_to_s(open_time_ms))] = row
+        key = (symbol, ms_to_s(open_time_ms))
+        if key in self._pending:
+            # keep-last dedupe evicting a stale payload for the same bar
+            INGEST_DEDUP_OVERWRITES.inc()
+        self._pending[key] = row
 
     def drain(self) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """(row_idx, ts_s, vals) sub-batches, at most one candle per symbol
@@ -434,4 +449,5 @@ class IngestBatcher:
         # clear only after every registry.add() succeeded, so a full
         # registry raises without losing the tick's candles
         self._pending.clear()
+        self.first_pending_mono = None
         return batches

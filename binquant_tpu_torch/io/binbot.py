@@ -11,9 +11,9 @@ transport error or a 5xx, each after a jittered exponential backoff drawn
 from the client's own ``random.Random``; a 4xx and a backend error body
 (``{"error": 1}``) are not retried. Exhaustion is counted
 (``bqt_binbot_retries_total{outcome="exhausted"}``) and recorded as a
-``binbot_retry_exhausted`` event before the error propagates. The
-reference's per-request tracing span waits for the port's tracing: every
-request goes straight to :meth:`BinbotApi._request_inner`.
+``binbot_retry_exhausted`` event before the error propagates. A request
+made while a tick trace is active (on the tick's emission path) gets its
+own ``binbot.<method>`` span; off-tick calls see only the counters.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from typing import Any
 from binquant_tpu_torch.exceptions import BinbotError
 from binquant_tpu_torch.obs.events import get_event_log
 from binquant_tpu_torch.obs.instruments import BINBOT_REQUESTS, BINBOT_RETRIES
+from binquant_tpu_torch.obs.tracing import current_trace
 from binquant_tpu_torch.schemas import (
     AutotradeSettingsSchema,
     MarketBreadthSeries,
@@ -71,6 +72,21 @@ class BinbotApi:
         self._rng = rng or random.Random()
 
     # -- plumbing -----------------------------------------------------------
+
+    def _request(self, method: str, path: str, **kwargs) -> Any:
+        """One REST round trip, inside a ``binbot.<method>`` span of the
+        active tick trace when there is one (a failure marks the span, not
+        the trace)."""
+        trace = current_trace()
+        if trace is None:
+            return self._request_inner(method, path, **kwargs)
+        with trace.span(f"binbot.{method.lower()}", path=path) as span:
+            try:
+                payload = self._request_inner(method, path, **kwargs)
+            except Exception as exc:
+                span.set(error=str(exc))
+                raise
+            return payload
 
     def _request_inner(self, method: str, path: str, **kwargs) -> Any:
         """One bounded round trip (see the module docstring)."""
@@ -119,16 +135,16 @@ class BinbotApi:
         )
 
     def _get(self, path: str, **kwargs) -> Any:
-        return self._request_inner("GET", path, **kwargs)
+        return self._request("GET", path, **kwargs)
 
     def _post(self, path: str, json: Any = None, **kwargs) -> Any:
-        return self._request_inner("POST", path, json=json, **kwargs)
+        return self._request("POST", path, json=json, **kwargs)
 
     def _put(self, path: str, json: Any = None, **kwargs) -> Any:
-        return self._request_inner("PUT", path, json=json, **kwargs)
+        return self._request("PUT", path, json=json, **kwargs)
 
     def _delete(self, path: str, **kwargs) -> Any:
-        return self._request_inner("DELETE", path, **kwargs)
+        return self._request("DELETE", path, **kwargs)
 
     @staticmethod
     def _data(payload: Any) -> Any:

@@ -36,12 +36,16 @@ Three cooperating pieces:
     breaker, or ``retry_max`` exhausted attempts shed the entry with an
     explicit reason (``bqt_delivery_shed_total{sink,reason}``).
 
-Entry ids: the port does not trace ticks yet (ROADMAP queue A, item 4), so
-a signal carries no ``trace_id``/``tick_seq`` and its id is always the
-``t{tick_ms}/0/{strategy}/{symbol}`` form, the reference's with tracing
-off. ``freshness`` and ``health`` (the latency observatory and the
-delivery-health collector, item 4 as well) stay None: their branches are
-ported and inert.
+Entry ids: a signal of a traced tick carries ``trace_id``/``tick_seq`` and
+its id is ``{trace_id}/{tick_seq}/{strategy}/{symbol}``; a tick sampled
+out of tracing gives the ``t{tick_ms}/0/{strategy}/{symbol}`` form. The
+engine hands the plane its live ``freshness`` (``obs/latency.py``: every
+ack observes ``bqt_sink_delivery_ms``) and ``health``
+(``obs/delivery_health.py``: close→final-ack lag per sink, the delivery
+SLO, and one ``sink_span`` event per attempt of a traced entry). The WAL
+put carries the entry's ``lag0`` (candle close → dispatch, ms) and
+``trace``; a replayed entry restores them and leaves ``dispatched_at``
+None, so its lag is measured from the put's wall clock.
 """
 
 from __future__ import annotations
@@ -432,9 +436,8 @@ class DeliveryPlane:
         self.backoff_max_s = float(backoff_max_s)
         self._rng = rng or random.Random()
         self.freshness = freshness
-        # the delivery-health collector (obs/delivery_health.py in the
-        # reference; not ported yet, so None here): the ack-side
-        # close→ack lag consumer + per-attempt sink-span gate
+        # the delivery-health collector (obs/delivery_health.py): the
+        # ack-side close→ack lag consumer + per-attempt sink-span gate
         self.health = health
         self.wal: DeliveryWal | None = (
             DeliveryWal(
@@ -459,9 +462,16 @@ class DeliveryPlane:
         self.wal_replayed = 0
 
     @classmethod
-    def from_config(cls, config: Any, sinks: list[Any]) -> "DeliveryPlane":
+    def from_config(
+        cls,
+        config: Any,
+        sinks: list[Any],
+        freshness: Any | None = None,
+        health: Any | None = None,
+    ) -> "DeliveryPlane":
         """A plane over ``sinks`` with the config's delivery knobs (the
-        engine's at boot, and a restarted plane's)."""
+        engine's at boot, and a restarted plane's) and the engine's
+        observatories."""
         return cls(
             sinks=sinks,
             wal_path=config.delivery_wal_path or None,
@@ -473,6 +483,8 @@ class DeliveryPlane:
             breaker_threshold=config.delivery_breaker_threshold,
             breaker_cooldown_s=config.delivery_breaker_cooldown_s,
             wal_compact_every=config.wal_compact_every,
+            freshness=freshness,
+            health=health,
         )
 
     # -- lifecycle -----------------------------------------------------------

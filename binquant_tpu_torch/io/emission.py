@@ -106,10 +106,14 @@ class FiredSignal:
         self.analytics = analytics
         # the evaluated tick's wall-clock ms, stamped at finalize
         self.tick_ms: int | None = None
-        # the tick's trace provenance: None while ticks are not traced (the
-        # delivery plane's entry id then takes its untraced form)
+        # the tick's trace provenance, stamped at finalize when the tick was
+        # traced (None otherwise: the delivery plane's entry id then takes
+        # its untraced form)
         self.trace_id: str | None = None
         self.tick_seq: int | None = None
+        # candle close → emit ms, stamped at finalize while the freshness
+        # observatory is on
+        self.freshness_ms: float | None = None
 
 
 def _cast_diag(kind: str, v: float):

@@ -78,6 +78,33 @@ the Telegram consumer and autotrade admission. Without it finalize calls
 the three inline, each failure logged and swallowed, as the reference
 does. :meth:`aclose_delivery` retires the plane.
 
+Observability (on by default, as in the reference; ``Config.trace_*``,
+``freshness_*``, ``host_phase_enabled``, ``slo_*``, ``delivery_health_*``):
+every tick opens a span tree in ``_dispatch_tick`` (:class:`Tracer`,
+``obs/tracing.py``) carried on its ``_PendingTick`` and completed when the
+tick finalizes, with the reference's span names (``breadth_refresh``,
+``ingest_drain``, ``route_decision``, ``carry_audit``, ``buffer_fold``,
+``inputs_build``, ``device_dispatch``, ``wire_fetch``, ``numeric_digest``,
+``ingest_digest``, ``overflow_fallback``, ``extract_fired``, ``dedupe``,
+``emission`` and the sink spans under it); a tick whose busy time reaches
+``trace_slow_ms`` is force-emitted with :meth:`_flight_snapshot`. Every
+fired signal of a traced tick is stamped with its ``trace_id``/``tick_seq``
+(autotrade metadata, analytics record, a ``- Trace:`` line on the Telegram
+text, the delivery entry id) and, with freshness on, its ``freshness_ms``
+(candle close → emit). :class:`FreshnessTracker` and
+:class:`PhaseAccountant` (``obs/latency.py``) record the close→dispatch,
+ingest→dispatch, dispatch→fetch, close→emit stages and the
+plan/stack/dispatch/device_wait/decode/emit dwell of every
+``process_tick``; the delivery plane gets the live freshness tracker and
+:class:`DeliveryHealth` (close→ack lag per sink); :class:`SloRegistry`
+judges the freshness, staleness and delivery SLOs and the plane's
+zero-loss, zero-duplicate and breakers-closed invariants. The ingest
+monitor keeps per-symbol watermarks (arrival and apply). Spans are host
+clocks: none synchronizes the card, and only ``wire_fetch`` waits, on the
+wire copy's CUDA event. :meth:`health_snapshot` is the ``/healthz``
+payload and :meth:`touch_heartbeat` (every ``process_tick``) its liveness
+file; ``obs/exposition.py`` serves both and ``/metrics``.
+
 The service around the tick (``main.py``'s boot and
 ``SignalEngine.consume_loop`` in the reference): every finalize hands the
 regime notifier's digest to the Telegram consumer and, once per 15m
@@ -101,6 +128,7 @@ import time
 from collections import deque
 from collections.abc import Callable
 from datetime import datetime, timezone
+from pathlib import Path
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -141,10 +169,33 @@ from binquant_tpu_torch.io.emission import (
     make_signal_sinks,
 )
 from binquant_tpu_torch.io.leverage import CalibrationInputs, LeverageCalibrator
+from binquant_tpu_torch.io.metrics import LatencyTracker
 from binquant_tpu_torch.io.telegram import TelegramConsumer
+from binquant_tpu_torch.io.websocket import WS_HEALTH
+from binquant_tpu_torch.obs.delivery_health import DeliveryHealth
+from binquant_tpu_torch.obs.events import get_event_log
 from binquant_tpu_torch.obs.ingest import IngestHealthMonitor
+from binquant_tpu_torch.obs.instruments import (
+    BC_DIRTY_ROWS,
+    FULL_RECOMPUTE,
+    HEARTBEAT_FAILURES,
+    OVERFLOW_TICKS,
+    QUEUE_DEPTH,
+    SIGNALS,
+    TICKS,
+)
+from binquant_tpu_torch.obs.latency import FreshnessTracker, PhaseAccountant
+from binquant_tpu_torch.obs.ledger import LEDGER
 from binquant_tpu_torch.obs.numeric import DriftMeter, NumericHealthMonitor
 from binquant_tpu_torch.obs.outcomes import OutcomeTracker
+from binquant_tpu_torch.obs.slo import SloRegistry
+from binquant_tpu_torch.obs.tracing import (
+    NULL_TRACE,
+    Tracer,
+    detached,
+    profiler_window_active,
+    step_annotation,
+)
 from binquant_tpu_torch.regime.context import ContextConfig
 from binquant_tpu_torch.regime.grid_policy import GridOnlyPolicy
 from binquant_tpu_torch.regime.time_filter import is_quiet_hours
@@ -191,6 +242,12 @@ class _PendingTick(NamedTuple):
     ts15: int
     bucket15: int
     rows: Any  # FrozenRows as of dispatch
+    dispatched_at: float  # perf_counter at dispatch (freshness anchor)
+    # the tick's TickTrace (NULL_TRACE when sampled out), completed when
+    # the tick finalizes; its trace_id is every sink payload's provenance
+    trace: Any = NULL_TRACE
+    # perf_counter of the oldest candle this tick drained (None: unknown)
+    ingest_mono: float | None = None
 
 
 class SignalEngine:
@@ -300,13 +357,49 @@ class SignalEngine:
         # the last dispatched tick's path: "incremental", the full
         # recompute's reason, or "classic" on a classic engine
         self.last_path: str | None = None
+        # -- liveness (/healthz): the heartbeat file and its bookkeeping
+        self.heartbeat_path = Path(self.config.heartbeat_path)
+        self._last_heartbeat_s: float | None = None
+        self._last_tick_wall_s: float | None = None
+        self.heartbeat_write_failures = 0
+        self._hb_consecutive_failures = 0
+        self._hb_last_warn = float("-inf")
+        # -- the tick's observability (see the module docstring)
+        self.latency = LatencyTracker()
+        cfg = self.config
+        self.tracer = Tracer(
+            sample=cfg.trace_sample, slow_ms=cfg.trace_slow_ms, ring=cfg.trace_ring
+        )
+        self.slo = SloRegistry(event_every=cfg.slo_event_every) if cfg.slo_enabled else None
+        self.freshness = FreshnessTracker(
+            enabled=cfg.freshness_enabled, slo_ms=cfg.freshness_slo_ms, slo=self.slo
+        )
+        if self.slo is not None and self.freshness.enabled and self.freshness.slo_ms > 0:
+            self.slo.register("freshness", "freshness", self.freshness.slo_ms)
+        self.host_phase = PhaseAccountant(enabled=cfg.host_phase_enabled)
+        # the trace's tick_seq: advances on every dispatch ATTEMPT (a failed
+        # tick must not hand its number to the retry)
+        self._tick_seq = 0
         # -- the wire digests and the carry-drift meter
         self.numeric_digest = bool(self.config.numeric_digest)
         self.ingest_digest = bool(self.config.ingest_digest)
         self.numeric = NumericHealthMonitor(nan_budget=self.config.numeric_nan_budget)
         self.ingest_monitor = IngestHealthMonitor(
-            enabled=self.ingest_digest, stale_budget=self.config.ingest_stale_budget
+            self.registry,
+            enabled=self.ingest_digest,
+            stale_budget=self.config.ingest_stale_budget,
+            event_every=self.carry_audit_every or 256,
+            slo=self.slo,
         )
+        # the monitor's watermark half (the digest half runs regardless)
+        self.ingest_watermarks = self.ingest_monitor.enabled and bool(
+            self.config.ingest_watermarks_enabled
+        )
+        if self.slo is not None and self.ingest_monitor.enabled:
+            self.slo.register(
+                "staleness", "staleness", float(self.ingest_monitor.stale_budget),
+                unit="rows",
+            )
         # the (8,) ingest counts of this tick's folds, on the device
         self._ingest_fold_counts: torch.Tensor | None = None
         # a classic engine has no carry to drift
@@ -318,12 +411,33 @@ class SignalEngine:
             horizons=tuple(self.config.outcome_horizons),
             cap=int(self.config.outcome_cap),
         )
-        # -- the delivery plane (None: the sinks are called inline)
+        # -- the delivery plane (None: the sinks are called inline), its
+        # health collector and the plane's invariants in the SLO verdict
         self.delivery: DeliveryPlane | None = None
+        self.delivery_health: DeliveryHealth | None = None
         if self.config.delivery_enabled:
-            self.delivery = DeliveryPlane.from_config(
-                self.config, make_signal_sinks(binbot_api, telegram_consumer, at_consumer)
+            self.delivery_health = DeliveryHealth(
+                enabled=cfg.delivery_health_enabled,
+                window=cfg.slo_window,
+                slo=self.slo,
+                slo_ms=cfg.delivery_slo_ms,
             )
+            self.delivery = DeliveryPlane.from_config(
+                self.config,
+                make_signal_sinks(binbot_api, telegram_consumer, at_consumer),
+                freshness=self.freshness,
+                health=self.delivery_health,
+            )
+            if self.slo is not None:
+                self.slo.add_invariant(
+                    "delivery_zero_loss", self.delivery.zero_loss_invariant
+                )
+                self.slo.add_invariant(
+                    "delivery_zero_duplicate", self.delivery.zero_duplicate_invariant
+                )
+                self.slo.add_invariant(
+                    "delivery_breakers_closed", self.delivery.breakers_closed_invariant
+                )
 
     # -- ingest ---------------------------------------------------------------
 
@@ -335,6 +449,16 @@ class SignalEngine:
             self.batcher5.add(kline)
         elif abs(duration_s - FIFTEEN_MIN_S) <= 1:
             self.batcher15.add(kline)
+        else:
+            return
+        if self.ingest_watermarks:
+            # arrival watermark + per-exchange feed lag (replay streams
+            # carry no exchange: binance)
+            self.ingest_monitor.note_arrival(
+                str(kline.get("symbol", "")).strip().upper(),
+                int(kline["close_time"]),
+                exchange=str(kline.get("exchange", "binance")),
+            )
 
     def _to_device(self, batch) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         rows, ts, vals = batch
@@ -420,6 +544,7 @@ class SignalEngine:
         strictly-newer append (safe for the carry advance). Called once per
         drained batch set, in apply order."""
         clean = True
+        feed_monitor = self.ingest_watermarks
         for key, batches in (("5m", batches5), ("15m", batches15)):
             latest = self._host_latest[key]
             for rows, ts, _ in batches:
@@ -431,6 +556,10 @@ class SignalEngine:
                 rows, ts64 = rows[ok], ts64[ok]
                 if np.any(ts64 <= latest[rows]):
                     clean = False
+                if feed_monitor:
+                    # per-symbol watermarks and counters, classified
+                    # against the pre-apply mirror
+                    self.ingest_monitor.note_applied_batch(key, rows, ts64, latest[rows])
                 np.maximum.at(latest, rows, ts64)
         return clean
 
@@ -613,14 +742,20 @@ class SignalEngine:
             except Exception:
                 logging.exception("leverage calibration crashed; continuing")
             finally:
-                self.calibration_ms.append((time.perf_counter() - t0) * 1000.0)
+                ms = (time.perf_counter() - t0) * 1000.0
+                self.calibration_ms.append(ms)
+                self.latency.record("leverage_calibration_worker", ms)
 
         try:
             loop = asyncio.get_running_loop()
         except RuntimeError:
             work()
             return
-        self._calibration_task = loop.create_task(asyncio.to_thread(work))
+        # detach the tick's trace first: the worker thread would otherwise
+        # inherit it through the context variable and race the tick's span
+        # stack with its REST-call spans
+        with detached():
+            self._calibration_task = loop.create_task(asyncio.to_thread(work))
 
     def _tracked_mask(self) -> torch.Tensor:
         cached = self._tracked_cache
@@ -693,14 +828,26 @@ class SignalEngine:
         stamped with the ``tick_ms`` of the tick that produced it."""
         t0 = time.perf_counter()
         ts_ms = now_ms if now_ms is not None else int(time.time() * 1000)
+        # one host-phase "chunk" per call: the finalize halves of evicted
+        # ticks plus the new dispatch, against this call's wall clock
+        self.host_phase.begin_chunk("serial")
         fired: list = []
         while len(self._pending) >= max(self.pipeline_depth, 1):
-            fired.extend(await self._finalize_tick_inner(self._pending.popleft()))
-        self._pending.append(await self._dispatch_tick_inner(ts_ms))
+            fired.extend(await self._finalize_tick(self._pending.popleft()))
+        self._pending.append(await self._dispatch_tick(ts_ms))
         if self.pipeline_depth == 0:
-            fired.extend(await self._finalize_tick_inner(self._pending.popleft()))
-        self.tick_wall_ms.append((time.perf_counter() - t0) * 1000.0)
+            fired.extend(await self._finalize_tick(self._pending.popleft()))
+        tick_wall_ms = (time.perf_counter() - t0) * 1000.0
+        self.tick_wall_ms.append(tick_wall_ms)
+        self.latency.record("tick_total", tick_wall_ms)
+        self.host_phase.note_chunk("serial", tick_wall_ms, 1)
+        self.latency.maybe_log()
         self.ticks_processed += 1
+        self._last_tick_wall_s = time.time()
+        TICKS.inc()
+        # event-log records carry the tick they were emitted under
+        get_event_log().tick = self.ticks_processed
+        self.touch_heartbeat()
         return fired
 
     async def flush_pending(self) -> list:
@@ -708,7 +855,7 @@ class SignalEngine:
         dispatched tick's signals are lost."""
         fired: list = []
         while self._pending:
-            fired.extend(await self._finalize_tick_inner(self._pending.popleft()))
+            fired.extend(await self._finalize_tick(self._pending.popleft()))
         return fired
 
     async def emit_ready(self) -> list:
@@ -723,7 +870,7 @@ class SignalEngine:
             await asyncio.to_thread(head.ready.synchronize)
         if self._pending and self._pending[0] is head:
             self._pending.popleft()
-            return await self._finalize_tick_inner(head)
+            return await self._finalize_tick(head)
         return []
 
     def _donation_mode(self) -> str | None:
@@ -761,7 +908,7 @@ class SignalEngine:
         if any(p._version != v for p, v in zip(planes, versions)):
             self._reset_state_cold("an in-place tick failed after writing the rings")
 
-    def _measure_drift(self, pairs: list[tuple], btc_row: int, ts_ms: int) -> None:
+    def _measure_drift(self, pairs: list[tuple], btc_row: int, ts_ms: int, span) -> None:
         """The audit tick's carry-drift meter: replay this tick's
         carry-advancing folds on a FUNCTIONAL copy of ``self.state`` (the
         copying applies; the live rings are never written), then measure the
@@ -776,7 +923,11 @@ class SignalEngine:
             self.drift.note_skipped()
             logging.exception("carry-drift metering failed; the audit proceeds unmeasured")
             return
-        self.drift.observe(drift, tick_ms=ts_ms)
+        breached = self.drift.observe(drift, tick_ms=ts_ms)
+        span.set(
+            breached=len(breached),
+            **{f"drift_{fam}": v["max_abs"] for fam, v in drift.items()},
+        )
 
     def _start_wire_copy(self, wire: torch.Tensor) -> tuple[torch.Tensor, Any]:
         """Start the wire's copy to the host: on a card, non-blocking into
@@ -796,47 +947,85 @@ class SignalEngine:
         ready.record()
         return host, ready
 
-    async def _dispatch_tick_inner(self, ts_ms: int) -> _PendingTick:
+    async def _dispatch_tick(self, ts_ms: int) -> _PendingTick:
+        """Open this tick's trace (or NULL_TRACE when sampled out) and
+        dispatch it. The trace rides the ``_PendingTick`` and is completed
+        at finalize; a dispatch that raises completes it errored first (no
+        ``_PendingTick`` will carry it)."""
+        self._tick_seq += 1
+        trace = self.tracer.begin_tick(self._tick_seq, tick_ms=ts_ms)
+        try:
+            return await self._dispatch_tick_inner(ts_ms, trace)
+        except BaseException as exc:
+            trace.mark_error(exc)
+            self.tracer.complete(trace, snapshot_fn=self._flight_snapshot)
+            raise
+
+    async def _dispatch_tick_inner(self, ts_ms: int, trace=NULL_TRACE) -> _PendingTick:
         self._refuse_while_held("a tick dispatch")
+        t_plan0 = time.perf_counter()
         ts_s = ts_ms // 1000
         # evaluate against the bar that just CLOSED
         bucket15 = ts_s // FIFTEEN_MIN_S
         ts15 = bucket15 * FIFTEEN_MIN_S - FIFTEEN_MIN_S
         ts5 = (ts_s // FIVE_MIN_S) * FIVE_MIN_S - FIVE_MIN_S
-        await self._refresh_market_breadth(bucket15)
+        with self.latency.stage("breadth_refresh"), trace.span("breadth_refresh"):
+            await self._refresh_market_breadth(bucket15)
 
-        registry_version0 = self.registry.version
-        batches5 = self.batcher5.drain()
-        batches15 = self.batcher15.drain()
-        if self.registry.version != registry_version0:
-            # a symbol claimed a row in this drain: its carry was built on
-            # whatever window the last full recompute saw
-            self._mark_carry_desynced("churn")
-        # a mid-history rewrite leaves the latest bar alone, so the device
-        # carry cannot see it: the host mirror does
-        if not self._note_applied(batches5, batches15):
-            self._mark_carry_desynced("rewrite")
+        with self.latency.stage("ingest_drain"), trace.span("ingest_drain") as sp_drain:
+            # backlog at dispatch: how many deduped candles this tick drains
+            QUEUE_DEPTH.labels(queue="batcher5").set(len(self.batcher5))
+            QUEUE_DEPTH.labels(queue="batcher15").set(len(self.batcher15))
+            # the ingest-arrival anchor: the oldest candle THIS tick drains
+            # (read before the drain resets the stamps)
+            ingest_mono = self._oldest_pending_mono()
+            registry_version0 = self.registry.version
+            batches5 = self.batcher5.drain()
+            batches15 = self.batcher15.drain()
+            if self.registry.version != registry_version0:
+                # a symbol claimed a row in this drain: its carry was built
+                # on whatever window the last full recompute saw
+                self._mark_carry_desynced("churn")
+            # a mid-history rewrite leaves the latest bar alone, so the
+            # device carry cannot see it: the host mirror does
+            clean_appends = self._note_applied(batches5, batches15)
+            sp_drain.set(
+                batches5=len(batches5), batches15=len(batches15),
+                clean_appends=clean_appends,
+            )
+            if not clean_appends:
+                self._mark_carry_desynced("rewrite")
         # the window reads the EVALUATED tick time, so replays are deterministic
         quiet = is_quiet_hours(now=datetime.fromtimestamp(ts_ms / 1000, tz=timezone.utc))
         btc = self.registry.row_of(self.btc_symbol)
         btc_row = -1 if btc is None else int(btc)
 
-        use_incremental, reason = self._route()
-        if self.incremental:
-            if use_incremental:
-                self.incremental_ticks += 1
-            else:
-                self.full_recompute_ticks += 1
-                self.full_recompute_reasons[reason] = (
-                    self.full_recompute_reasons.get(reason, 0) + 1
-                )
+        with trace.span("route_decision") as sp_route:
+            use_incremental, reason = self._route()
+            if self.incremental:
+                if use_incremental:
+                    self.incremental_ticks += 1
+                else:
+                    self.full_recompute_ticks += 1
+                    FULL_RECOMPUTE.labels(reason=reason).inc()
+                    self.full_recompute_reasons[reason] = (
+                        self.full_recompute_reasons.get(reason, 0) + 1
+                    )
+            path = "incremental" if use_incremental else "full"
+            sp_route.set(path=path, full_recompute_reason=reason)
+            trace.set_attr(path=path if reason is None else f"{path}:{reason}")
         self.last_path = "incremental" if use_incremental else (reason or "classic")
+        # plan: breadth refresh, drain and routing; stack: the audit, the
+        # folds and the inputs below
+        self.host_phase.record("serial", "plan", (time.perf_counter() - t_plan0) * 1000.0)
+        t_stack0 = time.perf_counter()
 
         pairs = self._slot_pairs(batches5, batches15)
         if reason == "audit" and self.drift_meter_enabled:
             # before the folds: the meter measures what this tick's
             # updates do to the carry, then the full step resyncs it
-            self._measure_drift(pairs, btc_row, ts_ms)
+            with self.latency.stage("carry_audit"), trace.span("carry_audit") as sp_audit:
+                self._measure_drift(pairs, btc_row, ts_ms, sp_audit)
 
         mode = self._donation_mode()
         inplace = mode == "single"
@@ -849,16 +1038,34 @@ class SignalEngine:
         planes = self._ring_planes()
         versions = [p._version for p in planes]
         try:
-            u5, u15 = self._fold_updates(
-                pairs, advance_carry=use_incremental, btc_row=btc_row, inplace=inplace
-            )
+            with trace.span("buffer_fold", advance_carry=use_incremental):
+                u5, u15 = self._fold_updates(
+                    pairs, advance_carry=use_incremental, btc_row=btc_row, inplace=inplace
+                )
+            t_inputs0 = time.perf_counter()
             inputs = self._host_inputs(btc_row, ts15, ts5, quiet)
+            self.latency.record("inputs_build", (time.perf_counter() - t_inputs0) * 1000.0)
+            trace.record_span("inputs_build", t_inputs0)
+            self.host_phase.record(
+                "serial", "stack", (time.perf_counter() - t_stack0) * 1000.0
+            )
+            t_dispatch0 = time.perf_counter()
             pre = self.state
             step = tick_step_wire_inplace if inplace else tick_step_wire
-            self.state, wire = step(
-                pre, u5, u15, inputs, cfg, wire_enabled=key,
-                ingest_fold_counts=self._take_ingest_fold_counts(), **flags,
+            # a record_function range per tick while a profiler window is open
+            step_ctx = (
+                step_annotation(self._tick_seq)
+                if profiler_window_active()
+                else contextlib.nullcontext()
             )
+            with self.latency.stage("device_dispatch"), trace.span(
+                "device_dispatch", incremental=use_incremental, donated=inplace
+            ), trace.activate(), step_ctx:
+                self.state, wire = step(
+                    pre, u5, u15, inputs, cfg, wire_enabled=key,
+                    ingest_fold_counts=self._take_ingest_fold_counts(), **flags,
+                )
+                host, ready = self._start_wire_copy(wire)
         except BaseException:
             if inplace:
                 self._recover_after_inplace_failure(planes, versions)
@@ -892,7 +1099,9 @@ class SignalEngine:
                 _, full = tick_step(st, a, b, inp, cfg_, wire_enabled=key_, **flags_)
                 return full
 
-        host, ready = self._start_wire_copy(wire)
+        self.host_phase.record(
+            "serial", "dispatch", (time.perf_counter() - t_dispatch0) * 1000.0
+        )
         return _PendingTick(
             wire=wire,
             host=host,
@@ -903,28 +1112,100 @@ class SignalEngine:
             ts15=ts15,
             bucket15=bucket15,
             rows=self.registry.frozen_rows(),
+            dispatched_at=time.perf_counter(),
+            trace=trace,
+            ingest_mono=ingest_mono,
         )
+
+    def _oldest_pending_mono(self) -> float | None:
+        """perf_counter of the oldest candle waiting in either batcher."""
+        stamps = [
+            m
+            for m in (self.batcher5.first_pending_mono, self.batcher15.first_pending_mono)
+            if m is not None
+        ]
+        return min(stamps) if stamps else None
+
+    def _bar_close_ms(self, strategy: str, ts5: int, ts15: int) -> int:
+        """Close time (ms) of the bar a strategy evaluated this tick: the
+        anchor of every close→* freshness stamp."""
+        bar_ts = ts5 + FIVE_MIN_S if strategy in FIVE_MIN_STRATEGIES else ts15 + FIFTEEN_MIN_S
+        return bar_ts * 1000
+
+    async def _finalize_tick(self, pending: _PendingTick) -> list:
+        """Consume one dispatched tick's wire under its trace, then
+        complete the trace (ring, ``trace`` event, flight recorder) even if
+        finalize raised."""
+        trace = pending.trace
+        with trace.activate():
+            try:
+                return await self._finalize_tick_inner(pending)
+            except BaseException as exc:
+                trace.mark_error(exc)
+                raise
+            finally:
+                self.tracer.complete(trace, snapshot_fn=self._flight_snapshot)
 
     async def _finalize_tick_inner(self, pending: _PendingTick) -> list:
         ts5, ts15 = pending.ts5, pending.ts15
-        # the tick's one device-to-host copy: wait for it to land, then
-        # read it (the pinned buffer goes back into the rotation)
-        if pending.ready is not None:
-            pending.ready.synchronize()
-        self.last_wire = pending.host.numpy().copy()
-        unpacked = unpack_wire(
-            self.last_wire, numeric_digest=self.numeric_digest,
-            ingest_digest=self.ingest_digest,
-        )
+        # the host-phase drive: the port's one drive is the serial loop
+        trace, drive = pending.trace, "serial"
+        # the tick's one device-to-host copy: wait for it to land (the
+        # copy's CUDA event, nothing else), then read it; the pinned buffer
+        # goes back into the rotation
+        t_fetch0 = time.perf_counter()
+        with self.latency.stage("wire_fetch"), trace.span("wire_fetch") as sp_wire:
+            if pending.ready is not None:
+                pending.ready.synchronize()
+            self.last_wire = pending.host.numpy().copy()
+            unpacked = unpack_wire(
+                self.last_wire, numeric_digest=self.numeric_digest,
+                ingest_digest=self.ingest_digest,
+            )
+        t_fetch_end = time.perf_counter()
+        self.host_phase.record(drive, "device_wait", (t_fetch_end - t_fetch0) * 1000.0)
+        if self.freshness.enabled:
+            # logical close→dispatch: this tick's clock vs the newest
+            # evaluated bar's close
+            close_ms = max(ts5 + FIVE_MIN_S, ts15 + FIFTEEN_MIN_S) * 1000
+            self.freshness.observe_stage("close_to_dispatch", pending.ts_ms - close_ms)
+            if pending.ingest_mono is not None:
+                self.freshness.observe_stage(
+                    "ingest_to_dispatch",
+                    max((pending.dispatched_at - pending.ingest_mono) * 1000.0, 0.0),
+                )
+            self.freshness.observe_stage(
+                "dispatch_to_fetch", (t_fetch_end - pending.dispatched_at) * 1000.0
+            )
+        t_decode0 = t_fetch_end
         fired_w, ctx = unpacked
+        sp_wire.set(overflow=bool(fired_w.overflow))
+        BC_DIRTY_ROWS.set(int(ctx.get("bc_dirty_rows", 0) or 0))
         if "numeric_digest" in ctx:
-            self.numeric.observe(ctx["numeric_digest"], tick_ms=pending.ts_ms)
+            with trace.span("numeric_digest") as sp_num:
+                digest = self.numeric.observe(ctx["numeric_digest"], tick_ms=pending.ts_ms)
+                sp_num.set(nan_rows=digest["nan_total"], inf_rows=digest["inf_total"])
         if "ingest_digest" in ctx:
-            self.ingest_monitor.observe_digest(ctx["ingest_digest"])
+            with trace.span("ingest_digest") as sp_ing:
+                idig = self.ingest_monitor.observe_digest(
+                    ctx["ingest_digest"],
+                    tick_ms=pending.ts_ms,
+                    trace_id=trace.trace_id,
+                    snapshot_fn=self._flight_snapshot,
+                )
+                sp_ing.set(
+                    stale_rows=idig["stale_total"],
+                    fresh5=idig["5m"]["fresh"],
+                    fresh15=idig["15m"]["fresh"],
+                )
         outputs = None
         if fired_w.overflow:
             self.overflow_ticks += 1
-            outputs = pending.fallback()
+            OVERFLOW_TICKS.inc()
+            with self.latency.stage("overflow_fallback"), trace.span(
+                "overflow_fallback", overflow=True
+            ):
+                outputs = pending.fallback()
         regime = ctx["market_regime"]
         has_ctx = ctx["valid"]
         self.grid_only_policy = GridOnlyPolicy.resolve(
@@ -957,33 +1238,108 @@ class SignalEngine:
         else:
             self._last_regime = None
             self._last_transition_strength = 0.0
-        settings = self.at_consumer.autotrade_settings
-        fired = extract_fired(
-            outputs,
-            pending.rows,
-            env=self.config.env,
-            exchange=self.at_consumer.exchange,
-            market_type=getattr(settings.market_type, "value", settings.market_type),
-            settings=settings,
-            enabled=self.enabled_strategies,
-            skip=lambda strategy, row: self._already_emitted(
-                strategy, pending.rows.name_of(row), ts5, ts15
-            ),
-            unpacked=unpacked,
-            diag_layout=EMISSION_LAYOUTS.get(self._wire_enabled_key()),
-        )
-        fired = self._dedupe_fired(fired, ts5, ts15)
         t_emit = time.perf_counter()
-        for signal in fired:
-            signal.tick_ms = pending.ts_ms
-            if self.delivery is not None:
-                # the tick's whole cost of delivery: a WAL put (fsynced)
-                # and the queue puts; the workers do the rest
-                self.delivery.enqueue_fired(signal, tick_ms=pending.ts_ms)
-            else:
-                await self._dispatch_inline(signal)
+        settings = self.at_consumer.autotrade_settings
+        with trace.span("extract_fired") as sp_extract:
+            fired = extract_fired(
+                outputs,
+                pending.rows,
+                env=self.config.env,
+                exchange=self.at_consumer.exchange,
+                market_type=getattr(settings.market_type, "value", settings.market_type),
+                settings=settings,
+                enabled=self.enabled_strategies,
+                skip=lambda strategy, row: self._already_emitted(
+                    strategy, pending.rows.name_of(row), ts5, ts15
+                ),
+                unpacked=unpacked,
+                diag_layout=EMISSION_LAYOUTS.get(self._wire_enabled_key()),
+            )
+            sp_extract.set(fired=len(fired))
+        with trace.span("dedupe") as sp_dedupe:
+            fired = self._dedupe_fired(fired, ts5, ts15)
+            sp_dedupe.set(kept=len(fired))
+        if trace.active:
+            # provenance: every outbound payload joins back to the tick that
+            # produced it, stamped BEFORE any sink sees it
+            for signal in fired:
+                signal.trace_id = trace.trace_id
+                signal.tick_seq = trace.tick_seq
+                signal.value.metadata["trace_id"] = trace.trace_id
+                signal.value.metadata["tick_seq"] = trace.tick_seq
+                signal.analytics["trace_id"] = trace.trace_id
+                signal.analytics["tick_seq"] = trace.tick_seq
+                signal.message += f"\n- Trace: {trace.trace_id}/{trace.tick_seq}"
+        # decode done (wire -> deduped, stamped signals); emit is sink work
+        t_emit_phase0 = time.perf_counter()
+        self.host_phase.record(drive, "decode", (t_emit_phase0 - t_decode0) * 1000.0)
+        with trace.span("emission", signals=len(fired)):
+            for signal in fired:
+                signal.tick_ms = pending.ts_ms
+                # per-signal freshness, stamped BEFORE any sink sees it
+                sink_acks: dict[str, float] | None = None
+                lag0: float | None = None
+                if self.freshness.enabled:
+                    lag0 = pending.ts_ms - self._bar_close_ms(signal.strategy, ts5, ts15)
+                    signal.freshness_ms = round(
+                        lag0 + (time.perf_counter() - pending.dispatched_at) * 1000.0, 3
+                    )
+                    signal.analytics["freshness_ms"] = signal.freshness_ms
+                    signal.value.metadata["freshness_ms"] = signal.freshness_ms
+                    sink_acks = {}
+                if self.delivery is not None:
+                    # the tick's whole cost of delivery: a WAL put (fsynced)
+                    # and the queue puts; the workers do the rest
+                    with trace.span(
+                        "delivery.enqueue", strategy=signal.strategy, symbol=signal.symbol
+                    ):
+                        self.delivery.enqueue_fired(
+                            signal,
+                            tick_ms=pending.ts_ms,
+                            lag0_ms=lag0,
+                            dispatched_at=pending.dispatched_at,
+                        )
+                    # the plane's acks observe close→sink-ack per sink
+                    sink_acks = None
+                else:
+                    await self._dispatch_inline(
+                        signal, trace, pending.dispatched_at, lag0, sink_acks
+                    )
+                if self.freshness.enabled:
+                    self.freshness.observe_signal(
+                        strategy=signal.strategy,
+                        symbol=signal.symbol,
+                        close_to_emit_ms=signal.freshness_ms,
+                        sink_ack_ms=sink_acks,
+                        tick_ms=pending.ts_ms,
+                        trace_id=signal.trace_id,
+                        phases=self.host_phase.open_split(drive) or self.host_phase.last_chunk,
+                        snapshot_fn=self._flight_snapshot,
+                    )
         self.emit_ms.append((time.perf_counter() - t_emit) * 1000.0)
+        self.latency.record("emission", self.emit_ms[-1])
         self.signals_emitted += len(fired)
+        emit_lag_ms = (time.perf_counter() - pending.dispatched_at) * 1000.0
+        self.latency.record("dispatch_to_emit", emit_lag_ms)
+        event_log = get_event_log()
+        for signal in fired:
+            SIGNALS.labels(strategy=signal.strategy).inc()
+            extra = {} if signal.freshness_ms is None else {"freshness_ms": signal.freshness_ms}
+            event_log.emit(
+                "signal",
+                strategy=signal.strategy,
+                symbol=signal.symbol,
+                direction=str(signal.value.direction),
+                autotrade=bool(signal.value.autotrade),
+                tick_ms=pending.ts_ms,
+                trace_id=signal.trace_id,
+                tick_seq=signal.tick_seq,
+                **extra,
+            )
+            self.latency.record(
+                "candle_to_emit",
+                pending.ts_ms - self._bar_close_ms(signal.strategy, ts5, ts15) + emit_lag_ms,
+            )
         # the emitted set enters the open registry anchored on this tick's
         # evaluated 5m bar; everything due matures against the current ring
         if self.outcomes.enabled:
@@ -994,18 +1350,36 @@ class SignalEngine:
                     row=signal.row,
                     entry_ts5=ts5,
                     direction=signal.value.direction,
+                    trace_id=signal.trace_id,
+                    tick_seq=signal.tick_seq,
                     tick_ms=pending.ts_ms,
                 )
             self.outcomes.on_tick(ts5, self.state.buf5)
+        self.host_phase.record(drive, "emit", (time.perf_counter() - t_emit_phase0) * 1000.0)
         return fired
 
-    async def _dispatch_inline(self, signal) -> None:
-        """The three sinks called inline (the plane off): each failure is
-        logged and swallowed, so one sink cannot stop the others."""
-        dispatch_signal_record(self.binbot_api, signal.analytics)
-        self.telegram_consumer.dispatch_signal(signal.message)
+    async def _dispatch_inline(
+        self, signal, trace, dispatched_at: float, lag0: float | None, acks: dict | None
+    ) -> None:
+        """The three sinks called inline (the plane off), each in its span:
+        each failure is logged and swallowed, so one sink cannot stop the
+        others. With freshness on, ``acks`` gets each sink's close→return
+        ms (the autotrade sink's only on success)."""
+
+        def ack(sink: str) -> None:
+            if acks is not None:
+                acks[sink] = lag0 + (time.perf_counter() - dispatched_at) * 1000.0
+
+        with trace.span("sink.analytics", strategy=signal.strategy, symbol=signal.symbol):
+            dispatch_signal_record(self.binbot_api, signal.analytics)
+        ack("analytics")
+        with trace.span("sink.telegram", strategy=signal.strategy, symbol=signal.symbol):
+            self.telegram_consumer.dispatch_signal(signal.message)
+        ack("telegram")
         try:
-            await self.at_consumer.process_autotrade_restrictions(signal.value)
+            with trace.span("sink.autotrade", strategy=signal.strategy, symbol=signal.symbol):
+                await self.at_consumer.process_autotrade_restrictions(signal.value)
+            ack("autotrade")
         except Exception:
             logging.exception(
                 "autotrade processing crashed for %s/%s; continuing",
@@ -1126,6 +1500,164 @@ class SignalEngine:
             pass
         self._reset_state_cold("engine state poisoned by a failed device computation")
 
+    # -- liveness and health ------------------------------------------------------
+
+    _HB_WARN_EVERY_S = 60.0
+
+    def touch_heartbeat(self) -> None:
+        """Write the liveness file (every ``process_tick``). A write
+        failure is counted (``bqt_heartbeat_write_failures_total``; /healthz
+        reads ``degraded`` while they persist) and its warning rate-limited.
+        From the second tick on it also emits the boot's ``compile_summary``
+        (once: the kernel builds are synchronous, so none is in flight)."""
+        if self.ticks_processed > 1 and not LEDGER.summary_emitted:
+            LEDGER.emit_summary(reason="boot")
+        try:
+            self.heartbeat_path.write_text(str(time.time()))
+            self._last_heartbeat_s = time.time()
+            self._hb_consecutive_failures = 0
+        except OSError:
+            self.heartbeat_write_failures += 1
+            self._hb_consecutive_failures += 1
+            HEARTBEAT_FAILURES.inc()
+            now = time.monotonic()
+            if now - self._hb_last_warn >= self._HB_WARN_EVERY_S:
+                self._hb_last_warn = now
+                logging.warning(
+                    "failed to write heartbeat file (%d consecutive, %d total; further "
+                    "warnings rate-limited to one per %.0fs)",
+                    self._hb_consecutive_failures,
+                    self.heartbeat_write_failures,
+                    self._HB_WARN_EVERY_S,
+                )
+
+    def _flight_snapshot(self) -> dict:
+        """The engine state a flight-recorder force-emit (slow or errored
+        tick, SLO breach) attaches. Attribute reads only: no device read."""
+        return {
+            "queue_depth": {
+                "batcher5": len(self.batcher5),
+                "batcher15": len(self.batcher15),
+            },
+            "symbols": len(self.registry),
+            "pending_ticks": len(self._pending),
+            "ticks_processed": self.ticks_processed,
+            "signals_emitted": self.signals_emitted,
+            "overflow_ticks": self.overflow_ticks,
+            "incremental_ticks": self.incremental_ticks,
+            "full_recompute_ticks": self.full_recompute_ticks,
+            # the scanned and backtest drives are not ported
+            "scanned_ticks": 0,
+            "backtest_ticks": 0,
+            "carry_desync_reason": self._carry_desync_reason,
+            "numeric_anomaly_ticks": self.numeric.anomaly_ticks,
+            "drift_alarms": self.drift.alarms,
+            "ingest_anomaly_ticks": self.ingest_monitor.anomaly_ticks,
+            "ingest_burning": self.ingest_monitor.burning,
+            "freshness_slo_breaches": self.freshness.breaches,
+            "host_phase_last_chunk": self.host_phase.last_chunk,
+            "outcomes_open": len(self.outcomes._open),
+            "outcome_evictions": self.outcomes.evictions,
+            "delivery": (
+                {
+                    name: {
+                        "queue": lane.queue.qsize(),
+                        "breaker": lane.breaker.state,
+                        "deferred": lane.deferred,
+                    }
+                    for name, lane in self.delivery._lanes.items()
+                }
+                if self.delivery is not None
+                else None
+            ),
+            # the fan-out plane is not ported
+            "fanout": None,
+        }
+
+    def health_snapshot(self, max_age_s: float | None = None) -> dict:
+        """The ``/healthz`` JSON (``obs/exposition.py``), under the
+        reference's keys. ``status``: ``ok`` — a heartbeat write succeeded
+        within ``max_age_s`` (``Config.heartbeat_max_age_s`` by default);
+        ``degraded`` — ticking, but heartbeat writes are failing, the
+        websocket tracker is storming or ingest staleness is burning;
+        ``stale`` — no successful heartbeat inside the window. Sections of
+        parts the port lacks (fan-out, the mesh, the scanned and backtest
+        drives) answer what the reference answers with those parts off.
+        Attribute reads only, safe inline on the event loop: no device
+        read."""
+        if max_age_s is None:
+            max_age_s = float(self.config.heartbeat_max_age_s)
+        now = time.time()
+        heartbeat_age = (
+            None if self._last_heartbeat_s is None else round(now - self._last_heartbeat_s, 3)
+        )
+        last_tick_age = (
+            None if self._last_tick_wall_s is None else round(now - self._last_tick_wall_s, 3)
+        )
+        if heartbeat_age is not None and heartbeat_age <= max_age_s:
+            status = "degraded" if self._hb_consecutive_failures else "ok"
+        else:
+            status = "stale"
+        ws = WS_HEALTH.snapshot()
+        if status == "ok" and ws["storming"]:
+            status = "degraded"
+        ingest = self.ingest_monitor.snapshot()
+        if status == "ok" and ingest["status"] == "degraded":
+            status = "degraded"
+        return {
+            "status": status,
+            "ws": ws,
+            "heartbeat_age_s": heartbeat_age,
+            "heartbeat_max_age_s": max_age_s,
+            "heartbeat_write_failures": self.heartbeat_write_failures,
+            "last_tick_age_s": last_tick_age,
+            "ticks_processed": self.ticks_processed,
+            "signals_emitted": self.signals_emitted,
+            "overflow_ticks": self.overflow_ticks,
+            "pending_ticks": len(self._pending),
+            "incremental_enabled": self.incremental,
+            "incremental_ticks": self.incremental_ticks,
+            "full_recompute_ticks": self.full_recompute_ticks,
+            # ticks whose rings were written in place, and cold resets
+            # after an in-place failure
+            "donated_ticks": self.inplace_ticks,
+            "donated_state_resets": self.state_resets,
+            "scanned_ticks": 0,
+            "scan_chunks": 0,
+            "scan_overflow_reruns": 0,
+            "backtest_ticks": 0,
+            "backtest_chunks": 0,
+            "backtest_overflow_reruns": 0,
+            "numeric": {
+                "digest_enabled": self.numeric_digest,
+                "nan_budget": self.numeric.nan_budget,
+                "anomaly_ticks": self.numeric.anomaly_ticks,
+                "last_digest": self.numeric.last,
+                "drift_meter": self.drift_meter_enabled,
+                "drift_tol": self.drift.tol,
+                "drift_audits": self.drift.audits,
+                "drift_alarms": self.drift.alarms,
+                "drift_audits_unmeasured": self.drift.skipped,
+                "last_drift": self.drift.last,
+            },
+            "ingest": ingest,
+            "mesh": {"enabled": False},
+            "eventlog_dropped": get_event_log().dropped,
+            "last_tick_trace": self.tracer.last_tick_trace(),
+            "latency": {
+                "freshness": self.freshness.snapshot(),
+                "host_phase": self.host_phase.snapshot(),
+            },
+            "outcomes": self.outcomes.scoreboard(),
+            "delivery": (
+                self.delivery.snapshot() if self.delivery is not None else {"enabled": False}
+            ),
+            "fanout": {"enabled": False},
+            "slo": (
+                self.slo.verdict() if self.slo is not None else {"enabled": False, "ok": None}
+            ),
+        }
+
     # -- the live loop ------------------------------------------------------------
 
     async def consume_loop(
@@ -1190,6 +1722,7 @@ class SignalEngine:
                             break
                 except (TimeoutError, asyncio.TimeoutError):
                     pass
+                QUEUE_DEPTH.labels(queue="ingest").set(queue.qsize())
                 if time.monotonic() - last_tick >= tick_interval_s:
                     if len(self.batcher5) or len(self.batcher15):
                         last_tick = time.monotonic()

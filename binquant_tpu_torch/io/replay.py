@@ -121,6 +121,13 @@ def make_stub_engine(
     delivery: bool | None = None,
     delivery_wal: str | None = None,
     delivery_overrides: dict | None = None,
+    trace_sample: float | None = None,
+    freshness: bool | None = None,
+    host_phase: bool | None = None,
+    freshness_slo_ms: float | None = None,
+    slo: bool | None = None,
+    delivery_health: bool | None = None,
+    ingest_watermarks: bool | None = None,
 ) -> SignalEngine:
     """A SignalEngine wired to stubs (no network): a binbot client over
     ``session`` (a :class:`StubSession` serving ``breadth`` by default), a
@@ -140,6 +147,16 @@ def make_stub_engine(
     path. ``delivery_overrides`` sets config fields by name (drill-scale
     backoff, breaker and queue knobs).
 
+    ``trace_sample``, ``freshness``, ``host_phase``, ``freshness_slo_ms``,
+    ``slo`` and ``delivery_health`` set the tick's observability knobs
+    (``Config.trace_sample``, ``freshness_enabled``, ``host_phase_enabled``,
+    ``freshness_slo_ms``, ``slo_enabled``, ``delivery_health_enabled``); all
+    on by default, as in production. A drive compared with a reference
+    engine that runs with them off passes the same values here.
+    ``ingest_watermarks`` (``Config.ingest_watermarks_enabled``, the port's
+    own switch) turns the ingest monitor's watermark half off, so a drive
+    can measure what it costs; the reference always runs it.
+
     Runs on ``device`` — CUDA by default; raises when CUDA is missing unless
     ``device="cpu"``. Every other argument left None keeps the config's
     production default: depth 1 with rings in place, both digests, the drift
@@ -158,6 +175,13 @@ def make_stub_engine(
         "drift_meter": drift_meter,
         "outcomes_enabled": outcomes,
         "delivery_enabled": delivery,
+        "trace_sample": trace_sample,
+        "freshness_enabled": freshness,
+        "host_phase_enabled": host_phase,
+        "freshness_slo_ms": freshness_slo_ms,
+        "slo_enabled": slo,
+        "delivery_health_enabled": delivery_health,
+        "ingest_watermarks_enabled": ingest_watermarks,
     }
     for name, value in overrides.items():
         if value is not None:
@@ -269,15 +293,34 @@ def payloads_match(a: Any, b: Any, rtol: float = 1e-4, atol: float = 1e-4) -> bo
     return a == b
 
 
-def delivered_tuples(payloads) -> list[tuple]:
+def delivered_tuples(payloads, tracer=None) -> list[tuple]:
     """Autotrade payloads the delivery plane handed over → the
-    :func:`signal_tuples` form, the tick time read from the
-    ``delivery_id`` (``t{tick_ms}/0/{strategy}/{symbol}``) each carries."""
+    :func:`signal_tuples` form, the tick time read from the ``delivery_id``
+    each carries: an untraced id holds it (``t{tick_ms}/0/{strategy}/
+    {symbol}``), a traced one (``{trace_id}/{tick_seq}/...``) is resolved
+    through ``tracer``'s ring of completed traces (the engine's
+    :class:`Tracer`). The ring keeps the last ``trace_ring`` ticks: a drive
+    longer than that raises ``LookupError`` for its early entries."""
+    ticks = {}
+    if tracer is not None:
+        ticks = {
+            e["summary"]["trace_id"]: e["spans"]["attrs"]["tick_ms"] for e in tracer.entries()
+        }
     out = []
     for p in payloads:
         tid = p.metadata["delivery_id"].split("/", 1)[0]
-        out.append((int(tid[1:]), p.algorithm_name, p.symbol, str(p.direction),
-                    bool(p.autotrade)))
+        if tid.startswith("t") and tid[1:].isdigit():
+            tick_ms = int(tid[1:])
+        elif tid in ticks:
+            tick_ms = ticks[tid]
+        else:
+            ring = None if tracer is None else tracer._ring.maxlen
+            raise LookupError(
+                f"trace {tid} of {p.metadata['delivery_id']} is not in the tracer's ring "
+                f"(trace_ring={ring}): a traced id resolves only for the last trace_ring "
+                "ticks, so drive fewer ticks or raise trace_ring"
+            )
+        out.append((tick_ms, p.algorithm_name, p.symbol, str(p.direction), bool(p.autotrade)))
     return out
 
 

@@ -1,8 +1,10 @@
 """The metric families the port emits, defined once.
 
-Port of the signal-outcome, binbot-client, checkpoint, sink and
-delivery-plane families of ``binquant_tpu/obs/instruments.py`` under the
-reference's names, so a dashboard reads either package. Labels
+Port of the families of ``binquant_tpu/obs/instruments.py`` the port's
+modules export (the signal outcomes, the binbot client, checkpoints, the
+sinks, the delivery plane, the tick loop, traces, the latency and ingest
+observatories, kernel builds, delivery health and the SLO plane), under the
+reference's names and help texts, so a dashboard reads either package. Labels
 are bounded sets (strategy names, horizons); symbols go in events, never in
 labels.
 """
@@ -178,4 +180,243 @@ DELIVERY_CURSOR_LAG = REGISTRY.gauge(
     "Records behind head per consumer group: the sink workers (queued + "
     "inflight + WAL-deferred entries not yet acked).",
     labels=("group",),
+)
+
+# -- the tick loop (io/pipeline.py) and the heartbeat ---------------------------
+
+TICKS = REGISTRY.counter(
+    "bqt_ticks_total", "Engine ticks processed (one batched device step each)."
+)
+
+SIGNALS = REGISTRY.counter(
+    "bqt_signals_total",
+    "Signals emitted through the sinks, after per-bar dedupe.",
+    labels=("strategy",),
+)
+
+OVERFLOW_TICKS = REGISTRY.counter(
+    "bqt_wire_overflow_ticks_total",
+    "Ticks whose fired set overflowed the wire's compaction slots "
+    "(full-summary fallback ran).",
+)
+
+QUEUE_DEPTH = REGISTRY.gauge(
+    "bqt_queue_depth",
+    "Ingest backlog: asyncio queue (consume loop) and per-interval "
+    "batcher pending-candle counts at tick dispatch.",
+    labels=("queue",),
+)
+
+FULL_RECOMPUTE = REGISTRY.counter(
+    "bqt_full_recompute_total",
+    "Ticks routed to the full-window recompute while the incremental "
+    "fast path is enabled, by reason (cold_start / rewrite / backfill / "
+    "churn / audit). Full ticks re-anchor the carried indicator state.",
+    labels=("reason",),
+)
+
+BC_DIRTY_ROWS = REGISTRY.gauge(
+    "bqt_bc_dirty_rows",
+    "Beta/corr carry rows marked dirty on the last incremental tick "
+    "(asymmetric append vs the BTC row; they decode as null until the "
+    "next full-recompute resync) — sustained non-zero means resync "
+    "pressure.",
+)
+
+STAGE_LATENCY = REGISTRY.histogram(
+    "bqt_stage_latency_ms",
+    "Per-stage pipeline latency in milliseconds (absorbs LatencyTracker; "
+    "tick_total is the p99<50ms budget stage).",
+    labels=("stage",),
+)
+
+HEARTBEAT_FAILURES = REGISTRY.counter(
+    "bqt_heartbeat_write_failures_total",
+    "Failed heartbeat-file writes (persistent failure degrades /healthz).",
+)
+
+EVENTLOG_DROPPED = REGISTRY.counter(
+    "bqt_eventlog_dropped_total",
+    "Event-log records dropped: the sink write failed, or emit was "
+    "called after close().",
+)
+
+
+# -- tick traces (obs/tracing.py) and the latency observatory (obs/latency.py) ---
+
+SLOW_TICKS = REGISTRY.counter(
+    "bqt_slow_ticks_total",
+    "Traced ticks whose busy time breached BQT_TRACE_SLOW_MS (or that "
+    "errored), attributed to the dominant top-level stage; the flight "
+    "recorder force-emits each one's span tree + engine snapshot.",
+    labels=("stage",),
+)
+
+FRESHNESS = REGISTRY.histogram(
+    "bqt_freshness_ms",
+    "End-to-end signal freshness per stage: close_to_dispatch / "
+    "ingest_to_dispatch / dispatch_to_fetch / close_to_emit / "
+    "close_to_sink_ack. close_to_* stages are logical (measured against "
+    "the tick's own clock — exact live, deterministic in replay); the "
+    "rest are real monotonic deltas.",
+    labels=("stage",),
+    buckets=(1.0, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0, 1000.0,
+             2500.0, 10000.0, 60000.0),
+)
+
+FRESHNESS_SLO_BREACHES = REGISTRY.counter(
+    "bqt_freshness_slo_breaches_total",
+    "Signals whose worst close→sink-ack exceeded BQT_FRESHNESS_SLO_MS "
+    "(each force-emits a freshness_slo_breach event with the producing "
+    "chunk's host-phase breakdown).",
+)
+
+HOST_PHASE = REGISTRY.histogram(
+    "bqt_host_phase_ms",
+    "Host-phase dwell per drive (serial / scanned / backtest) and phase "
+    "(plan / stack / dispatch / device_wait / decode / emit) — one "
+    "observation per tick on the serial drive, per chunk-level bracket "
+    "on the batch drives.",
+    labels=("drive", "phase"),
+    buckets=(0.1, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
+             1000.0, 5000.0),
+)
+
+CHUNK_OCCUPANCY = REGISTRY.gauge(
+    "bqt_chunk_occupancy_ratio",
+    "The newest chunk's wall-clock split per drive: device_wait (blocking "
+    "wire fetch — a lower bound on device busy), host (named host "
+    "phases), dead_gap (unattributed residual), each as a fraction of "
+    "chunk wall.",
+    labels=("drive", "component"),
+)
+
+
+# -- kernel builds (obs/ledger.py) ----------------------------------------------
+
+COMPILE_SECONDS = REGISTRY.counter(
+    "bqt_compile_seconds",
+    "Wall seconds spent compiling each engine-owned jit executable "
+    "(first launch per dispatch signature; persistent-cache hits "
+    "deserialize in ~100ms and still count here).",
+    labels=("executable",),
+)
+
+
+# -- the ingest observatory (engine/buffer.py, obs/ingest.py) -------------------
+
+INGEST_DEDUP_OVERWRITES = REGISTRY.counter(
+    "bqt_ingest_dedup_overwrites_total",
+    "Pending candles overwritten before drain by a re-sent (symbol, "
+    "open_time) — the keep-last dedupe evicting the stale payload.",
+)
+
+INGEST_TRACKED = REGISTRY.gauge(
+    "bqt_ingest_tracked_rows",
+    "Tracked registry rows on the last ingest-digest tick (the universe "
+    "the staleness/coverage counts below are judged over).",
+)
+
+INGEST_STALE = REGISTRY.gauge(
+    "bqt_ingest_stale_rows",
+    "Tracked rows with data whose newest bar's age exceeds the bucket "
+    "threshold (1x / 3x / 10x the bar interval; cumulative thresholds — "
+    "a row counted under 10x also counts under 1x), per interval, on the "
+    "last digest tick. Sustained non-zero means per-symbol feed death.",
+    labels=("interval", "bucket"),
+)
+
+INGEST_COVERAGE = REGISTRY.gauge(
+    "bqt_ingest_coverage_rows",
+    "Coverage funnel per interval on the last digest tick: covered "
+    "(tracked rows holding any data) -> min_bars (filled >= MIN_BARS, "
+    "strategy-sufficient) -> fresh (sufficient AND holding the evaluated "
+    "bucket's bar).",
+    labels=("interval", "stage"),
+)
+
+INGEST_MAX_AGE = REGISTRY.gauge(
+    "bqt_ingest_max_age_seconds",
+    "Age of the stalest tracked row's newest bar per interval on the "
+    "last digest tick (0 when every covered row is fresh).",
+    labels=("interval",),
+)
+
+INGEST_APPLIED = REGISTRY.counter(
+    "bqt_ingest_applied_total",
+    "Update-batch routing decoded from the per-tick ingest digest, per "
+    "interval and kind (append / rewrite / gap_append / dropped) — "
+    "device-classified with apply_updates' exact rules, summed over "
+    "every sub-batch each finalized tick applied.",
+    labels=("interval", "kind"),
+)
+
+INGEST_FEED_LAG = REGISTRY.histogram(
+    "bqt_ingest_feed_lag_ms",
+    "Exchange feed lag per candle at ingest: host wall-clock arrival "
+    "minus the candle's close_time, per exchange. Replay lanes carry "
+    "historical close times, so their readings saturate the top bucket "
+    "by design.",
+    labels=("exchange",),
+    buckets=(50.0, 100.0, 250.0, 500.0, 1000.0, 2500.0, 5000.0, 15000.0,
+             60000.0, 300000.0),
+)
+
+INGEST_ANOMALIES = REGISTRY.counter(
+    "bqt_ingest_anomaly_ticks_total",
+    "Digest ticks whose 1x-stale row total exceeded "
+    "BQT_INGEST_STALE_BUDGET (each force-emits an ingest_anomaly event "
+    "with the decoded digest, the worst symbols, and an engine snapshot).",
+)
+
+INGEST_CHURN = REGISTRY.counter(
+    "bqt_ingest_churn_total",
+    "Symbol churn observed by the ingest monitor: a known symbol's "
+    "registry row moved (listing churn re-homing) or the engine marked "
+    "a churn carry-desync.",
+)
+
+INGEST_OOO = REGISTRY.counter(
+    "bqt_ingest_out_of_order_total",
+    "Host-classified non-append deliveries per interval (a candle at or "
+    "behind the row's latest applied bar: same-bar rewrites and "
+    "mid-history corrections/drops).",
+    labels=("interval",),
+)
+
+
+# -- delivery health (obs/delivery_health.py) and the SLO plane (obs/slo.py) ----
+
+DELIVERY_LAG = REGISTRY.histogram(
+    "bqt_delivery_lag_ms",
+    "End-to-end delivery lag per sink: candle close to the sink's FINAL "
+    "successful ack (queue dwell + every retry/backoff included; "
+    "WAL-replayed entries carry their original close anchor across the "
+    "process kill). bqt_sink_delivery_ms predates the plane and keeps "
+    "its freshness-gated semantics; this family is the ack-side truth.",
+    labels=("sink",),
+    buckets=(1.0, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0, 1000.0,
+             2500.0, 10000.0, 60000.0),
+)
+
+SLO_BURNING = REGISTRY.gauge(
+    "bqt_slo_burning",
+    "Whether the named SLO is currently burning (1) or clean (0) in the "
+    "unified registry (obs/slo.py) — freshness / staleness / "
+    "delivery.<sink>.",
+    labels=("slo",),
+)
+
+SLO_BREACHES = REGISTRY.counter(
+    "bqt_slo_breaches_total",
+    "Failing observations per registered SLO (burn entry force-emits an "
+    "slo_burn event; re-emits ride the BQT_SLO_EVENT_EVERY cadence).",
+    labels=("slo",),
+)
+
+SLO_RECOVERIES = REGISTRY.counter(
+    "bqt_slo_recoveries_total",
+    "Burn→clean transitions per registered SLO (each emits an "
+    "slo_recover event carrying the burn length).",
+    labels=("slo",),
 )

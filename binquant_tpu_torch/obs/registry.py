@@ -1,23 +1,31 @@
 """Metric primitives: Counter, Gauge and a fixed-bucket Histogram.
 
-Port of the parts of ``binquant_tpu/obs/registry.py`` the outcome tracker
-uses: Prometheus-shaped families without a dependency. A family is created
-through a :class:`MetricsRegistry` (get-or-create: every instrumented
-module may declare the family it uses, and the declarations must agree on
-kind and labels); an unlabeled family is its own single child, a labeled
-one mints children with ``.labels(key=value, ...)``. Mutation is
-lock-guarded. The exposition renderer is not ported: nothing serves these
-families over HTTP here, and tests read them through :meth:`get` and
-``.value`` / ``.count``.
+Port of ``binquant_tpu/obs/registry.py``: Prometheus-shaped families
+without a dependency. A family is created through a
+:class:`MetricsRegistry` (get-or-create: every instrumented module may
+declare the family it uses, and the declarations must agree on kind and
+labels); an unlabeled family is its own single child, a labeled one mints
+children with ``.labels(key=value, ...)``. Mutation is lock-guarded.
+Histograms count per bucket and expose cumulative counts for the
+Prometheus text renderer (``obs/exposition.py``), which walks
+:meth:`MetricsRegistry.collect`.
 """
 
 from __future__ import annotations
 
+import math
 import re
 import threading
+from typing import Iterable
 
 _METRIC_NAME = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 _LABEL_NAME = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
+
+# Latency-in-ms default buckets, shaped around the p99 < 50 ms budget.
+DEFAULT_LATENCY_BUCKETS_MS: tuple[float, ...] = (
+    0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0,
+    1000.0, 2500.0, 5000.0,
+)
 
 
 class Counter:
@@ -48,6 +56,13 @@ class Gauge:
     def set(self, value: float) -> None:
         with self._lock:
             self._value = float(value)
+
+    def inc(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self._value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        self.inc(-amount)
 
     @property
     def value(self) -> float:
@@ -86,6 +101,15 @@ class Histogram:
     def count(self) -> int:
         return self._count
 
+    def cumulative_counts(self) -> list[int]:
+        """Per-``le`` cumulative counts, one per bucket plus ``+Inf``."""
+        with self._lock:
+            out, acc = [], 0
+            for c in self._counts:
+                acc += c
+                out.append(acc)
+            return out
+
 
 _KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}
 
@@ -109,9 +133,7 @@ class MetricFamily:
         if kind not in _KINDS:
             raise ValueError(f"unknown metric kind {kind!r}")
         if kind == "histogram":
-            if not buckets:
-                raise ValueError("a histogram needs its bucket bounds")
-            buckets = tuple(float(b) for b in buckets)
+            buckets = tuple(float(b) for b in (buckets or DEFAULT_LATENCY_BUCKETS_MS))
             if list(buckets) != sorted(set(buckets)):
                 raise ValueError("histogram buckets must be strictly increasing")
         self.name = name
@@ -142,6 +164,10 @@ class MetricFamily:
                 child = self._children.setdefault(key, self._new_child())
         return child
 
+    def children(self) -> Iterable[tuple[tuple[str, ...], object]]:
+        with self._lock:
+            return list(self._children.items())
+
     # -- unlabeled: the family is its single child
 
     def _solo(self):
@@ -151,6 +177,9 @@ class MetricFamily:
 
     def inc(self, amount: float = 1.0) -> None:
         self._solo().inc(amount)
+
+    def dec(self, amount: float = 1.0) -> None:
+        self._solo().dec(amount)
 
     def set(self, value: float) -> None:
         self._solo().set(value)
@@ -164,7 +193,7 @@ class MetricFamily:
 
 
 class MetricsRegistry:
-    """Get-or-create family store."""
+    """Get-or-create family store; the exposition layer renders it."""
 
     def __init__(self) -> None:
         self._families: dict[str, MetricFamily] = {}
@@ -213,6 +242,22 @@ class MetricsRegistry:
     def get(self, name: str) -> MetricFamily | None:
         with self._lock:
             return self._families.get(name)
+
+    def collect(self) -> list[MetricFamily]:
+        with self._lock:
+            return [self._families[n] for n in sorted(self._families)]
+
+
+def format_value(v: float) -> str:
+    """Prometheus sample value: integral floats render bare, +/-Inf and NaN
+    in the exposition spellings."""
+    if math.isinf(v):
+        return "+Inf" if v > 0 else "-Inf"
+    if math.isnan(v):
+        return "NaN"
+    if float(v).is_integer() and abs(v) < 1e15:
+        return str(int(v))
+    return repr(float(v))
 
 
 #: The process-wide registry every instrument of ``obs.instruments`` joins.

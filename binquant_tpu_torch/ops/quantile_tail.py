@@ -17,7 +17,11 @@ each row, NaN-aware, with ``min_periods``.
 ``launches`` counts kernel launches (never twin calls), so a run can show
 that its main path went through the kernel; ``launches_by_site`` splits the
 same count by the caller's ``site`` label (``abp_core`` on every full tick,
-``abp_init_from_window`` on every carry resync).
+``abp_init_from_window`` on every carry resync); ``twin_calls_by_site``
+counts the calls the twin served, so a CPU drive's count can be held
+against a card drive's launches. Inside an open profiler window
+(``obs/tracing.py``) each launch runs in a ``qtail_launch[<site>]`` range. The first use records
+the build in the kernel-build ledger (``obs/ledger.py``, ``qt.build``).
 
 On the card the kernel is latency-bound (see the note in ``qtail.cu``): at
 ActivityBurstPump's shape it reads ~0.7 MB, sorts each row's 83 tail values
@@ -26,6 +30,7 @@ once and selects its 4 windows' order statistics from that one ordering.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -35,6 +40,9 @@ import time
 from pathlib import Path
 
 import torch
+
+from binquant_tpu_torch.obs.ledger import LEDGER
+from binquant_tpu_torch.obs.tracing import profiler_window_active
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCE = _PKG_DIR / "csrc" / "qtail.cu"
@@ -46,6 +54,7 @@ NVCC_FLAGS = (
 
 launches = 0  # kernel launches since import (or the caller's last reset)
 launches_by_site: dict[str, int] = {}  # the same launches by call site
+twin_calls_by_site: dict[str, int] = {}  # calls the twin served (CPU tensors), by site
 _lib: ctypes.CDLL | None = None
 _max_span: int | None = None  # the largest window + num_out - 1 the kernel takes
 
@@ -54,6 +63,7 @@ def reset_launches() -> None:
     global launches
     launches = 0
     launches_by_site.clear()
+    twin_calls_by_site.clear()
 
 
 def _nvcc() -> str:
@@ -78,9 +88,12 @@ def build_command(out: Path) -> list[str]:
 def build(verbose: bool = False) -> tuple[Path, float]:
     """Compile ``csrc/qtail.cu`` (once per source revision) and return
     ``(library path, seconds spent compiling)``; 0 seconds when the library
-    for this source is already built."""
+    for this source is already built. The process's first call records the
+    build in the kernel-build ledger: ``cold`` with the nvcc seconds, or
+    ``warm`` when the library was reused."""
     out = library_path()
     if out.exists():
+        _record_build(out, 0.0)
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -95,7 +108,24 @@ def build(verbose: bool = False) -> tuple[Path, float]:
     if verbose and proc.stderr:
         print(proc.stderr.strip())
     tmp.replace(out)
+    _record_build(out, seconds)
     return out, seconds
+
+
+_build_recorded = False
+
+
+def _record_build(path: Path, seconds: float) -> None:
+    global _build_recorded
+    if _build_recorded:
+        return
+    _build_recorded = True
+    LEDGER.record(
+        "qt.build",
+        f"{SOURCE.relative_to(_PKG_DIR).as_posix()} sm_90a {path.stem}",
+        seconds,
+        "cold" if seconds > 0 else "warm",
+    )
 
 
 def _load() -> ctypes.CDLL:
@@ -197,6 +227,7 @@ def rolling_quantile_tail(
     if window < 1 or num_out < 1:
         raise ValueError("window and num_out must be >= 1")
     if x.device.type == "cpu":
+        twin_calls_by_site[site] = twin_calls_by_site.get(site, 0) + 1
         return rolling_quantile_tail_reference(x, window, q, num_out, min_periods)
     if x.device.type != "cuda":
         raise ValueError(f"rolling_quantile_tail: unsupported device {x.device}")
@@ -214,10 +245,18 @@ def rolling_quantile_tail(
         )
     S, W = x.shape
     out = torch.empty((S, K), dtype=torch.float32, device=x.device)
-    err = lib.qtail_launch(
-        x.data_ptr(), out.data_ptr(), S, W, window, K, float(q), mp,
-        torch.cuda.current_stream().cuda_stream,
+    # a named range in an open profiler window (the trace names the launch
+    # on the host side; the kernel itself shows on the device side)
+    rng = (
+        torch.profiler.record_function(f"qtail_launch[{site}]")
+        if profiler_window_active()
+        else contextlib.nullcontext()
     )
+    with rng:
+        err = lib.qtail_launch(
+            x.data_ptr(), out.data_ptr(), S, W, window, K, float(q), mp,
+            torch.cuda.current_stream().cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"qtail kernel launch failed: cudaError {err}")
     launches += 1

@@ -124,7 +124,38 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    tick, the ms
    per fsynced WAL put, the queue-to-ack lag per sink, the replay ms and
    the WAL's bytes before and after the closing compaction.
-8. Print the kernels line, the card's name and power limit, and the result.
+8. Drive the tick's default observability (``[slice observability]``):
+   phase 5's market under phase 6's breadth schedule (1 warm + 16 live
+   ticks + the crash tick) through ``consume_loop`` at production defaults
+   (depth 1, rings in place, digests, the meter, outcomes, the plane with
+   its fsynced WAL, tracing at sample 1, freshness, host phase, the SLO
+   plane, delivery health; the flight recorder's budget 50 ms, the delivery
+   SLO 1000 ms, the freshness SLO 5000 ms), a ``MetricsServer`` on
+   127.0.0.1:0 scraped after every tick and a ``/debug/profile?seconds=2``
+   window opened over the second audit tick; a CPU engine with the same
+   knobs is the reference. Checks: one completed trace per tick with the
+   CPU's span names, the same traced ``(tick_seq, strategy, symbol)``
+   entries per sink, the Telegram texts' trace lines, the payloads equal
+   once the trace id and ``freshness_ms`` are masked (``freshness_ms`` at
+   least the signal's lag0), ``bqt_freshness_ms`` once per signal and
+   ``bqt_delivery_lag_ms`` once per ack, the crash tick among the slow
+   ticks, the SLO verdict's zero-loss and zero-duplicate invariants and the
+   same SLO names as the CPU's, the ``/metrics`` signal counter equal to
+   the engine's after every tick, ``/healthz`` 200 ``ok``, ``/debug/slo``
+   and ``/debug/symbols`` answering, the profiler trace naming the qtail
+   kernel on the device, and qtail launches by site per tick equal to the
+   CPU twin's calls. It prints the close→ack lag per sink from
+   ``DeliveryHealth`` beside the queue→ack lag, the ``bqt_host_phase_ms``
+   p50 per phase, the traces' busy and wall ms, the build ledger, and the
+   slice's host cost: fresh engines with its switchable parts all on and
+   all off (:data:`OBS_OFF`), four runs each in pairs whose first arm
+   alternates, over the warm tick, 3 live ticks, an audit (every 4 ticks
+   there) and 1 more, the lanes running in the loop's gaps
+   (incremental-tick p50/p99 and audit-tick p50 of the tick's host path,
+   its candles' ingest plus ``process_tick`` plus the finalize, and of the
+   loop's ms from queueing a tick's klines to its signals emitted; the
+   per-pair on − off of the host path's incremental p50).
+9. Print the kernels line, the card's name and power limit, and the result.
 
 Phase 5 times three card configurations (depth 1 in place; depth 0
 copying; depth 0 copying without the digests and the meter) over two
@@ -166,8 +197,17 @@ TILED_BARS = 130  # the reference's dormant markets' own length, tiled over S ro
 TILED_TICKS = 2  # live ticks of each tiled drive (the setups are on the last two)
 # the classic, incremental and dormant-market drives: the serial loop, copied
 # rings, no digests, no outcome tracker, the sinks called inline
+# the tick's observability off as far as it has switches: the reference's
+# five and the port's switch of the ingest watermarks, so phases 3-7 check
+# what they checked before it was ported (phase 8 drives it at its
+# defaults). What has no switch stays on: the LatencyTracker's records, the
+# tick, signal, overflow and full-recompute counters and the queue gauges,
+# the per-signal ``signal`` event, the heartbeat file, the sampled-out
+# (null) spans and the batchers' arrival stamps.
+OBS_OFF = dict(trace_sample=0.0, freshness=False, host_phase=False, slo=False,
+               delivery_health=False, ingest_watermarks=False)
 SERIAL = dict(pipeline_depth=0, donate=False, numeric_digest=False, ingest_digest=False,
-              drift_meter=False, outcomes=False, delivery=False)
+              drift_meter=False, outcomes=False, delivery=False, **OBS_OFF)
 # the extended dormant market's scripted breadth: rising twice
 RISING_BREADTH = {
     "timestamp": [1, 2, 3, 4],
@@ -1139,6 +1179,7 @@ def _pipelined_engine(device: str, m5: dict, m15: dict, depth: int, donate: bool
         capacity=S, window=W, context_config=ContextConfig(), device=device,
         incremental=True, carry_audit_every=AUDIT_EVERY, pipeline_depth=depth, donate=donate,
         numeric_digest=digests, ingest_digest=digests, drift_meter=digests, outcomes=digests,
+        **OBS_OFF,
     )
     for monitor in (engine.numeric, engine.ingest_monitor, engine.drift):
         monitor.record_history = True
@@ -1575,6 +1616,7 @@ def service_drive(device: str, m5: dict, m15: dict, first: int, ckpt_path, symbo
     engine = make_stub_engine(
         capacity=S, window=W, context_config=ContextConfig(), device=device, incremental=True,
         carry_audit_every=SERVICE_EVERY, session=session, all_symbols=symbols_list, **flags,
+        **OBS_OFF,
     )
     engine.checkpoint = CheckpointManager(ckpt_path, every_ticks=SERVICE_EVERY)
     # every regime digest shares one dedupe key: with the 900 s cooldown the
@@ -1974,7 +2016,9 @@ def delivery_engine(device: str, wal_path, faults: bool, delivery: bool = True):
     telegram._min_send_interval_seconds = 0.0
     telegram._retry_after_pad_seconds = 0.0
     config = Config(max_symbols=S, window_bars=W, carry_audit_every_ticks=AUDIT_EVERY, env="CI",
-                    delivery_enabled=delivery, delivery_wal_path=str(wal_path), **DRILL)
+                    delivery_enabled=delivery, delivery_wal_path=str(wal_path), **DRILL,
+                    trace_sample=0.0, freshness_enabled=False, host_phase_enabled=False,
+                    slo_enabled=False, delivery_health_enabled=False)
     if device == "cpu":
         config.pipeline_depth, config.donate = 0, False
     # phase 6's breadth schedule: the breadth-gated strategies fire on the
@@ -2029,7 +2073,8 @@ async def kill_and_reboot(engine, rec: dict) -> dict:
     unacked = {rec["id"] for rec in old.wal.unacked() if rec["sink"] == "autotrade"}
     t0 = time.perf_counter()
     plane = DeliveryPlane.from_config(engine.config, make_signal_sinks(
-        engine.binbot_api, engine.telegram_consumer, engine.at_consumer))
+        engine.binbot_api, engine.telegram_consumer, engine.at_consumer),
+        freshness=engine.freshness, health=engine.delivery_health)
     instrument(plane, rec)
     plane.start()
     replay_ms = (time.perf_counter() - t0) * 1000.0
@@ -2419,6 +2464,500 @@ def check_delivery(m5, m15, card: str = "cuda") -> dict:
     return result
 
 
+# -- phase 8: the tick's default observability -------------------------------------
+
+OBS_SLOW_MS = 50.0  # the flight recorder's busy-time budget
+OBS_DELIVERY_SLO_MS = 1000.0  # the delivery SLO's p99 budget per sink
+OBS_FRESHNESS_SLO_MS = 5000.0  # the freshness SLO's close→ack budget
+OBS_PROFILE_S = 2.0  # the profiler window opened over an audit tick
+OBS_COST_RUNS = 4  # runs of each host-cost arm, in pairs whose first arm alternates
+OBS_COST_AUDIT = 4  # the cost runs' audit cadence: warm, 3 live, the audit, 1 more
+
+
+def obs_engine(device: str, wal_path, m5: dict, m15: dict, on: bool = True,
+               audit_every: int = AUDIT_EVERY):
+    """A production engine (depth 1, rings in place, both digests, the
+    meter, outcomes, the plane with its WAL at ``wal_path``; phase 6's
+    breadth schedule) with the tick's observability at its defaults
+    (``on``) or all off, and its ticks."""
+    from binquant_tpu_torch.io.replay import StubSession, make_stub_engine
+    from binquant_tpu_torch.regime.context import ContextConfig
+
+    engine = make_stub_engine(
+        capacity=S, window=W, context_config=ContextConfig(), device=device, incremental=True,
+        carry_audit_every=audit_every, session=StubSession({"schedule": service_breadth()}),
+        delivery_wal=str(wal_path), freshness_slo_ms=OBS_FRESHNESS_SLO_MS,
+        delivery_overrides=dict(trace_slow_ms=OBS_SLOW_MS, delivery_slo_ms=OBS_DELIVERY_SLO_MS),
+        **({} if on else OBS_OFF),
+    )
+    # every regime digest shares one dedupe key (see the service drive)
+    engine.telegram_consumer._signal_dedupe_seconds = 0.0
+    return engine, tick_plan(engine, m5, m15, LIVE_TICKS + 1)
+
+
+async def http_get(port: int, target: str, timeout_s: float = 60.0) -> tuple[int, str]:
+    """One GET to the engine's metrics server on this loop (served in the
+    loop's gaps, between ticks)."""
+    reader, writer = await asyncio.wait_for(
+        asyncio.open_connection("127.0.0.1", port), timeout_s)
+    writer.write(f"GET {target} HTTP/1.1\r\nHost: smoke\r\n\r\n".encode())
+    await writer.drain()
+    raw = await asyncio.wait_for(reader.read(), timeout_s)
+    writer.close()
+    head, _, body = raw.decode().partition("\r\n\r\n")
+    return int(head.split()[1]), body
+
+
+def metric_total(text: str, name: str, labels: str = "") -> float:
+    """The sum of a family's samples in a /metrics body (those whose label
+    set holds ``labels``)."""
+    total = 0.0
+    for line in text.splitlines():
+        if line.startswith(name + "{") or line.startswith(name + " "):
+            if labels in line:
+                total += float(line.rsplit(" ", 1)[1])
+    return total
+
+
+async def obs_drive(engine, ticks, rec: dict, server=None, profile_at: int | None = None,
+                    settle_each: bool = True) -> dict:
+    """The ticks through ``consume_loop``; per tick the ms from queueing its
+    klines to its signals emitted, ``process_tick``'s own ms, the path, the
+    qtail launches (card) or twin calls (CPU) by site. With ``settle_each``
+    the plane drains after every tick (the comparisons need it); without,
+    its lanes run in the loop's gaps between back-to-back ticks. With
+    ``server`` (a ``MetricsServer`` over the engine) ``/metrics`` is
+    scraped after every tick and the debug routes are read at the end;
+    with ``profile_at`` a ``/debug/profile`` window opens just before that
+    tick."""
+    from binquant_tpu_torch.obs.instruments import SIGNALS
+    from binquant_tpu_torch.ops import quantile_tail as qt
+
+    counts = qt.launches_by_site if engine.device.type == "cuda" else qt.twin_calls_by_site
+    out = {"loop_ms": [], "tick_ms": [], "ingest_ms": [], "finalize_ms": [], "host_ms": [],
+           "paths": [], "sites": [], "overflowed": [], "scrapes": [], "profile": None,
+           "routes": {}}
+    # the tick's host path: its candles' ingest, process_tick (the
+    # dispatch) and its finalize; none of them yields to the loop, so the
+    # lanes' work stays out
+    spent = {"ingest_ms": 0.0, "finalize_ms": 0.0}
+    ingest, finalize = engine.ingest, engine._finalize_tick
+
+    def timed_ingest(kline):
+        t = time.perf_counter()
+        try:
+            return ingest(kline)
+        finally:
+            spent["ingest_ms"] += (time.perf_counter() - t) * 1000.0
+
+    async def timed_finalize(pending):
+        t = time.perf_counter()
+        try:
+            return await finalize(pending)
+        finally:
+            spent["finalize_ms"] += (time.perf_counter() - t) * 1000.0
+
+    engine.ingest, engine._finalize_tick = timed_ingest, timed_finalize
+    port = await server.start() if server is not None else None
+    signals0 = sum(c.value for _, c in SIGNALS.children())
+    queue: asyncio.Queue = asyncio.Queue()
+    clock = {"now": ticks[0][0]}
+    task = asyncio.create_task(
+        engine.consume_loop(queue, tick_interval_s=0.0, clock=lambda: clock["now"]))
+    for n, (now_ms, klines) in enumerate(ticks):
+        clock["now"] = now_ms
+        if profile_at == n:
+            code, body = await http_get(port, f"/debug/profile?seconds={OBS_PROFILE_S}")
+            out["profile"] = (code, json.loads(body))
+        before, ticks0, over0 = dict(counts), engine.ticks_processed, engine.overflow_ticks
+        spent["ingest_ms"] = spent["finalize_ms"] = 0.0
+        rec["queued"][now_ms] = t0 = time.perf_counter()
+        for k in klines:
+            queue.put_nowait(k)
+        while engine.ticks_processed == ticks0 or engine._pending:
+            await asyncio.sleep(0.0002)
+        out["loop_ms"].append((time.perf_counter() - t0) * 1000.0)
+        out["tick_ms"].append(engine.tick_wall_ms[-1])
+        for key, ms in spent.items():
+            out[key].append(ms)
+        out["host_ms"].append(spent["ingest_ms"] + engine.tick_wall_ms[-1]
+                              + spent["finalize_ms"])
+        out["paths"].append(engine.last_path)
+        out["overflowed"].append(engine.overflow_ticks > over0)
+        out["sites"].append({k: v - before.get(k, 0) for k, v in counts.items()
+                             if v != before.get(k, 0)})
+        if settle_each:
+            await settle(engine)
+        if port is not None:
+            code, text = await http_get(port, "/metrics")
+            out["scrapes"].append((code, metric_total(text, "bqt_signals_total") - signals0,
+                                   engine.signals_emitted))
+    if server is not None:
+        ctl = server.profiler
+        for _ in range(600):
+            if ctl is None or ctl.closed.is_set():
+                break
+            await asyncio.sleep(0.1)
+        for route in ("/healthz", "/debug/slo", "/debug/symbols?limit=5", "/debug/executables",
+                      "/metrics"):
+            out["routes"][route] = await http_get(port, route)
+        await server.stop()
+    task.cancel()
+    try:
+        await task
+    except asyncio.CancelledError:
+        pass
+    else:
+        fail("observability: the consume loop returned instead of being cancelled")
+    return out
+
+
+def _span_names(node: dict) -> list:
+    return [node["name"]] + [n for c in node.get("children", ()) for n in _span_names(c)]
+
+
+def _traced_keys(acked: dict) -> dict:
+    """(sink, tick_seq, strategy, symbol) -> payload of every acked entry;
+    fails on an untraced entry id."""
+    import re
+
+    out = {}
+    for (sink, entry_id), payload in acked.items():
+        tid, seq, strategy, symbol = entry_id.split("/")
+        if not re.fullmatch(r"[0-9a-f]{16}", tid):
+            fail(f"observability: entry {entry_id} of {sink} is not traced")
+        out[(sink, int(seq), strategy, symbol)] = payload
+    return out
+
+
+def _masked(sink: str, payload):
+    """A delivered payload with its trace id and ``freshness_ms`` masked
+    (the tick_seq stays); fails when either is missing or not finite."""
+    import math
+    import re
+
+    if sink == "telegram":
+        m = re.search(r"\n- Trace: ([0-9a-f]{16})/(\d+)$", payload)
+        if m is None:
+            fail(f"observability: a Telegram text lacks its trace line: {payload[-120:]!r}")
+        return payload[: m.start()] + f"\n- Trace: <id>/{m.group(2)}"
+    payload = _comparable(sink, payload)
+    meta = payload["metadata"] if sink == "autotrade" else payload
+    if not re.fullmatch(r"[0-9a-f]{16}", str(meta.get("trace_id"))) or not math.isfinite(
+            meta.get("freshness_ms", float("nan"))):
+        fail(f"observability: {sink} payload without trace_id/freshness_ms: {str(meta)[:300]}")
+    meta["trace_id"] = meta["freshness_ms"] = "<masked>"
+    if "delivery_id" in meta:
+        meta["delivery_id"] = "<id>/" + meta["delivery_id"].split("/", 1)[1]
+    return payload
+
+
+def _profile_names(path) -> dict:
+    """What a profiler window's Chrome trace names of the qtail kernel: its
+    device kernels and the wrapper's host launch ranges."""
+    events = json.loads(Path(path).read_text()).get("traceEvents", [])
+    kernels = sorted({e["name"] for e in events
+                      if "qtail" in str(e.get("name")) and e.get("cat") == "kernel"})
+    ranges = sorted({e["name"] for e in events
+                     if str(e.get("name", "")).startswith("qtail_launch")})
+    ticks = sorted({e["name"] for e in events if str(e.get("name", "")).startswith("bqt_tick#")})
+    return {"events": len(events), "kernels": kernels, "launch_ranges": ranges, "ticks": ticks}
+
+
+def check_observability(m5, m15, card: str = "cuda") -> dict:
+    """Phase 8: the production loop at production defaults (tracing,
+    freshness, host phase, SLOs, delivery health) with a ``MetricsServer``
+    on 127.0.0.1:0, on the card, against a CPU engine with the same knobs;
+    then the slice's host cost, its parts all on against all off, in turns."""
+    from binquant_tpu_torch.obs.events import EventLog, set_event_log
+    from binquant_tpu_torch.obs.exposition import MetricsServer
+    from binquant_tpu_torch.obs.instruments import DELIVERY_LAG, FRESHNESS
+    from binquant_tpu_torch.obs.ledger import LEDGER
+    from binquant_tpu_torch.obs.tracing import ProfileController
+    from binquant_tpu_torch.ops import quantile_tail as qt
+
+    def rec() -> dict:
+        return {"puts": [], "acked": {}, "ack_counts": {}, "lag_ms": {}, "queued": {},
+                "via_wal": set()}
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        # -- the checked run: card, with the server, the event log and a
+        # profiler window over the second audit tick
+        card_device = card
+        card, card_ticks = obs_engine(card_device, tmp / "card.wal.jsonl", m5, m15)
+        card_rec = rec()
+        instrument(card.delivery, card_rec)
+        # every host-phase record of the checked run, for per-phase p50s
+        phase_samples: dict[str, list] = {}
+        record_phase = card.host_phase.record
+
+        def on_phase(drive, phase, ms, _record=record_phase):
+            phase_samples.setdefault(phase, []).append(float(ms))
+            _record(drive, phase, ms)
+
+        card.host_phase.record = on_phase
+        # every close→ack lag DeliveryHealth takes (its window keeps 512)
+        health_samples: dict[str, list] = {}
+        on_ack = card.delivery_health.on_ack
+
+        def on_health_ack(sink, lag_ms, *a, _on_ack=on_ack, **k):
+            health_samples.setdefault(sink, []).append(float(lag_ms))
+            _on_ack(sink, lag_ms, *a, **k)
+
+        card.delivery_health.on_ack = on_health_ack
+        server = MetricsServer(
+            health_fn=card.health_snapshot, port=0, host="127.0.0.1",
+            profiler=ProfileController(log_dir=str(tmp / "profile")),
+            ingest=card.ingest_monitor, slo=card.slo,
+        )
+        events_path = tmp / "events.jsonl"
+        log = EventLog(events_path)
+        set_event_log(log)
+        fresh0 = FRESHNESS.labels(stage="close_to_emit").count
+        lag0 = {s: DELIVERY_LAG.labels(sink=s).count for s in ("analytics", "telegram",
+                                                                "autotrade")}
+        t0 = time.perf_counter()
+        qt.reset_launches()  # launches made elsewhere do not count
+        main = asyncio.run(obs_drive(card, card_ticks, card_rec, server=server,
+                                     profile_at=2 * AUDIT_EVERY))
+        launches, launches_by_site = qt.launches, dict(qt.launches_by_site)
+        card_s = time.perf_counter() - t0
+        set_event_log(None)
+        log.close()
+        fresh_obs = FRESHNESS.labels(stage="close_to_emit").count - fresh0
+        lag_obs = {s: DELIVERY_LAG.labels(sink=s).count - n for s, n in lag0.items()}
+        events = [json.loads(x) for x in events_path.read_text().splitlines()]
+        verdict = card.slo.verdict()
+        health = main["routes"]["/healthz"]
+        # -- the reference: a CPU engine with the same knobs
+        cpu, cpu_ticks = obs_engine("cpu", tmp / "cpu.wal.jsonl", m5, m15)
+        cpu_rec = rec()
+        instrument(cpu.delivery, cpu_rec)
+        t0 = time.perf_counter()
+        ref = asyncio.run(obs_drive(cpu, cpu_ticks, cpu_rec))
+        cpu_s = time.perf_counter() - t0
+
+        # -- checks
+        n_ticks = len(card_ticks)
+        traces = card.tracer.entries()
+        if [e["summary"]["tick_seq"] for e in traces] != list(range(1, n_ticks + 1)):
+            fail(f"observability: {len(traces)} completed traces for {n_ticks} ticks")
+        ref_traces = cpu.tracer.entries()
+        for a, b in zip(traces, ref_traces):
+            if _span_names(a["spans"]) != _span_names(b["spans"]):
+                fail(f"observability: tick {a['summary']['tick_seq']} span names differ: "
+                     f"{_span_names(a['spans'])} vs {_span_names(b['spans'])}")
+        if main["paths"] != ref["paths"]:
+            fail(f"observability: routing {main['paths']} vs the cpu's {ref['paths']}")
+        if main["sites"] != ref["sites"]:
+            fail(f"observability: qtail launches by site {main['sites']} != the twin's "
+                 f"calls on the cpu {ref['sites']}")
+        if not main["overflowed"][-1] or main["overflowed"] != ref["overflowed"]:
+            fail(f"observability: overflowed ticks {main['overflowed']} vs the cpu's "
+                 f"{ref['overflowed']}")
+        for path, sites, over in zip(main["paths"], main["sites"], main["overflowed"]):
+            want = dict(EXPECT_SITES[path])
+            for k, v in (_expected_sites(path, dormant=True) if over else {}).items():
+                want[k] = want.get(k, 0) + v
+            if sites != want:
+                fail(f"observability: a {path} tick launched {sites}, expected {want}")
+        kc, kr = _traced_keys(card_rec["acked"]), _traced_keys(cpu_rec["acked"])
+        if set(kc) != set(kr):
+            fail(f"observability: traced entries differ: card only "
+                 f"{sorted(set(kc) - set(kr))[:5]}, cpu only {sorted(set(kr) - set(kc))[:5]}")
+        from binquant_tpu_torch.io.replay import payloads_match
+
+        compared = {}
+        for key in sorted(kc):
+            a, b = _masked(key[0], kc[key]), _masked(key[0], kr[key])
+            if not payloads_match(a, b):
+                fail(f"observability: {key} delivered differently once masked: "
+                     f"{str(a)[:300]} vs {str(b)[:300]}")
+            compared[key[0]] = compared.get(key[0], 0) + 1
+        sent = [m for m in card._telegram_sent if "algorithm</strong>" in m]
+        if len(sent) != compared.get("telegram", 0) or not all(
+                "\n- Trace: " in m for m in sent):
+            fail(f"observability: {len(sent)} signal texts sent, {compared.get('telegram')} "
+                 "acked, or a text without its trace line")
+        # freshness_ms: at least the signal's lag0 (tick clock - bar close)
+        tick_of = {e["summary"]["trace_id"]: e["spans"]["attrs"]["tick_ms"] for e in traces}
+        for key, payload in kc.items():
+            if key[0] != "analytics":
+                continue
+            tick_ms = tick_of[payload["trace_id"]]
+            ts_s = tick_ms // 1000
+            lag0_ms = tick_ms - card._bar_close_ms(key[2], ts_s // 300 * 300 - 300,
+                                                   ts_s // 900 * 900 - 900)
+            if not payload["freshness_ms"] >= lag0_ms:
+                fail(f"observability: {key} freshness_ms {payload['freshness_ms']} < lag0 "
+                     f"{lag0_ms}")
+        if fresh_obs != card.signals_emitted or card.signals_emitted == 0:
+            fail(f"observability: bqt_freshness_ms close_to_emit observed {fresh_obs} times "
+                 f"for {card.signals_emitted} signals")
+        if lag_obs != card_rec["ack_counts"]:
+            fail(f"observability: bqt_delivery_lag_ms observations {lag_obs} != acks "
+                 f"{card_rec['ack_counts']}")
+        slow = [e for e in events if e["event"] == "slow_tick"]
+        slow_by_stage: dict[str, int] = {}
+        for e in slow:
+            slow_by_stage[e["stage"]] = slow_by_stage.get(e["stage"], 0) + 1
+        if n_ticks not in {e["tick_seq"] for e in slow}:
+            fail(f"observability: the crash tick is not among the slow ticks {slow_by_stage}")
+        if sum(e["event"] == "trace" for e in events) != n_ticks:
+            fail("observability: not one trace event per tick")
+        inv = verdict["invariants"]
+        if not (inv["delivery_zero_loss"]["ok"] and inv["delivery_zero_duplicate"]["ok"]):
+            fail(f"observability: SLO invariants {inv}")
+        ref_verdict = cpu.slo.verdict()
+        if set(verdict["slos"]) != set(ref_verdict["slos"]) or set(inv) != set(
+                ref_verdict["invariants"]):
+            fail(f"observability: SLO names {sorted(verdict['slos'])} vs the cpu's "
+                 f"{sorted(ref_verdict['slos'])}")
+        bad_scrapes = [s for s in main["scrapes"] if s[0] != 200 or s[1] != s[2]]
+        if bad_scrapes or len(main["scrapes"]) != n_ticks:
+            fail(f"observability: /metrics scrapes (code, counter, engine) {bad_scrapes[:3]}")
+        code, body = health
+        if code != 200 or json.loads(body)["status"] != "ok":
+            fail(f"observability: /healthz answered {code} {body[:300]}")
+        for route in ("/debug/slo", "/debug/symbols?limit=5", "/debug/executables"):
+            if main["routes"][route][0] != 200:
+                fail(f"observability: {route} answered {main['routes'][route][0]}")
+        symbols_page = json.loads(main["routes"]["/debug/symbols?limit=5"][1])
+        if not symbols_page.get("enabled") or symbols_page["total"] != S:
+            fail(f"observability: /debug/symbols {str(symbols_page)[:200]}")
+        if main["profile"] is None or main["profile"][0] != 200 or not main["profile"][1].get(
+                "started"):
+            fail(f"observability: the profiler window did not open: {main['profile']}")
+        ctl = server.profiler
+        if ctl.last_trace is None:
+            fail("observability: the profiler window wrote no trace")
+        prof = _profile_names(ctl.last_trace)
+        if not prof["kernels"]:
+            fail(f"observability: the profiler trace names no qtail kernel on the device: "
+                 f"{prof}")
+        if not prof["launch_ranges"]:
+            fail(f"observability: the profiler trace holds no qtail_launch range: {prof}")
+        if main["paths"][2 * AUDIT_EVERY] != "audit":
+            fail(f"observability: the profiled tick took {main['paths'][2 * AUDIT_EVERY]}")
+
+        # -- the slice's host cost: on against off, fresh engines, in pairs
+        # whose first arm alternates (off-on, on-off, ...) so that neither
+        # arm always runs on the other's warmed process
+        cost = {"on": [], "off": []}
+        for run in range(OBS_COST_RUNS):
+            for arm in (("off", "on") if run % 2 == 0 else ("on", "off")):
+                eng, eng_ticks = obs_engine(card_device, tmp / f"cost_{arm}{run}.wal.jsonl", m5,
+                                            m15, on=arm == "on", audit_every=OBS_COST_AUDIT)
+                got = asyncio.run(obs_drive(eng, eng_ticks[:OBS_COST_AUDIT + 2], rec(),
+                                            settle_each=False))
+                cost[arm].append(got)
+                del eng
+                torch_empty_cache()
+
+    def pooled(arm: str, path: str, key: str) -> list:
+        return [v for got in cost[arm] for p, v in zip(got["paths"], got[key]) if p == path]
+
+    host_cost = {}
+    for arm in ("on", "off"):
+        host_cost[arm] = {
+            key: {"incremental_p50": _p(pooled(arm, "incremental", key), 50),
+                  "incremental_p99": _p(pooled(arm, "incremental", key), 99),
+                  "audit_p50": _p(pooled(arm, "audit", key), 50),
+                  "incremental_n": len(pooled(arm, "incremental", key))}
+            for key in ("host_ms", "loop_ms")
+        }
+    # paired by tick (both arms take the same ticks; burst and quiet ticks
+    # differ by seconds): on - off per tick, per part of the host path
+    def deltas(key: str, path: str, pair=None) -> list:
+        pairs = zip(cost["on"], cost["off"]) if pair is None else [pair]
+        return [on[key][k] - off[key][k] for on, off in pairs
+                for k, p in enumerate(on["paths"]) if p == path == off["paths"][k]]
+
+    host_cost["paired_ms"] = {
+        key: {"incremental_median": _p(deltas(key, "incremental"), 50),
+              "incremental_p25": _p(deltas(key, "incremental"), 25),
+              "incremental_p75": _p(deltas(key, "incremental"), 75),
+              "audit_median": _p(deltas(key, "audit"), 50),
+              "incremental_n": len(deltas(key, "incremental"))}
+        for key in ("ingest_ms", "tick_ms", "finalize_ms", "host_ms", "loop_ms")
+    }
+    # per pair (in run order): the median of its incremental ticks' deltas
+    host_cost["pair_deltas_ms"] = [_p(deltas("host_ms", "incremental", pair), 50)
+                                   for pair in zip(cost["on"], cost["off"])]
+    health_lag = {sink: {"p50": _p(v, 50), "p99": _p(v, 99), "acks": len(v)}
+                  for sink, v in health_samples.items()}
+    queue_lag = {sink: {"p50": _p(v, 50), "p99": _p(v, 99)} for sink, v in
+                 card_rec["lag_ms"].items()}
+    busy = [e["summary"]["busy_ms"] for e in traces]
+    wall = [e["summary"]["wall_ms"] for e in traces]
+    builds = LEDGER.snapshot()
+    result = {
+        "ticks": n_ticks, "paths": main["paths"], "launches": launches,
+        "launches_by_site": launches_by_site, "signals": card.signals_emitted,
+        "compared": compared, "slow_ticks_by_stage": slow_by_stage,
+        "slo_ok": verdict["ok"], "slos": sorted(verdict["slos"]),
+        "invariants": sorted(inv), "profile": prof,
+        "delivery_health_lag_ms": health_lag, "queue_to_ack_ms": queue_lag,
+        "host_phase_p50_ms": {p: _p(v, 50) for p, v in phase_samples.items()},
+        "trace_busy_ms": {"p50": _p(busy, 50), "max": max(busy)},
+        "trace_wall_ms": {"p50": _p(wall, 50), "max": max(wall)},
+        "builds": builds["executables"], "host_cost": host_cost,
+        "card_s": card_s, "cpu_s": cpu_s,
+    }
+    print(
+        f"[slice observability] {n_ticks} ticks through consume_loop at production defaults, "
+        f"{card.signals_emitted} signals; traces equal to the cpu's span names per tick; "
+        f"entries compared once masked {compared}; slow ticks by stage {slow_by_stage}; "
+        f"SLO ok {verdict['ok']} ({len(verdict['slos'])} SLOs, invariants {sorted(inv)}); "
+        f"/metrics scraped {len(main['scrapes'])} times, /healthz ok; qtail launches "
+        f"{launches} {launches_by_site} (equal to the cpu twin's calls per tick); card run "
+        f"{card_s:.1f} s, cpu {cpu_s:.1f} s"
+    )
+    print(f"[slice observability] profiler window over the audit tick: {prof}")
+    print("[slice observability] close->ack lag per sink from DeliveryHealth (ms): "
+          + ", ".join(f"{s} p50 {v['p50']:.2f} p99 {v['p99']:.2f} ({v['acks']} acks)"
+                      for s, v in sorted(health_lag.items()))
+          + "; queue->ack (phase 7's measure): "
+          + ", ".join(f"{s} p50 {v['p50']:.2f} p99 {v['p99']:.2f}"
+                      for s, v in sorted(queue_lag.items())))
+    print("[slice observability] bqt_host_phase_ms p50 per phase (serial drive): "
+          + ", ".join(f"{p} {v:.3f}" for p, v in result["host_phase_p50_ms"].items()))
+    print(f"[slice observability] trace busy ms p50 {result['trace_busy_ms']['p50']:.2f} "
+          f"max {result['trace_busy_ms']['max']:.2f}, wall ms p50 "
+          f"{result['trace_wall_ms']['p50']:.2f} max {result['trace_wall_ms']['max']:.2f}")
+    print("[slice observability] build ledger: "
+          + ", ".join(f"{e['executable']} {e['cache']} {e['compile_seconds']:.2f} s"
+                      for e in builds["executables"]))
+    for key in ("host_ms", "loop_ms"):
+        on, off = host_cost["on"][key], host_cost["off"][key]
+        print(f"[slice observability] host cost ({key}, {OBS_COST_RUNS} runs per arm, pairs "
+              f"alternating): incremental p50 on {on['incremental_p50']:.2f} off "
+              f"{off['incremental_p50']:.2f}, p99 on {on['incremental_p99']:.2f} off "
+              f"{off['incremental_p99']:.2f}; audit p50 on {on['audit_p50']:.2f} off "
+              f"{off['audit_p50']:.2f} ({on['incremental_n']} incremental ticks per arm)")
+    print("[slice observability] host cost paired by tick, on - off (ms), incremental median "
+          "[p25, p75] / audit median: "
+          + ", ".join(f"{k} {v['incremental_median']:+.2f} [{v['incremental_p25']:+.2f}, "
+                      f"{v['incremental_p75']:+.2f}] / {v['audit_median']:+.2f}"
+                      for k, v in host_cost["paired_ms"].items())
+          + f" ({host_cost['paired_ms']['host_ms']['incremental_n']} incremental tick pairs); "
+          "per run pair (off-on, on-off, ...), host_ms incremental median: "
+          + ", ".join(f"{d:+.2f}" for d in host_cost["pair_deltas_ms"]))
+    return result
+
+
+def torch_empty_cache() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
 def _profile_report(prof, paths: list[str]) -> dict:
     """Device activities of a profiled drive assigned to the
     ``chip_smoke_tick`` range they start in, reported per tick kind
@@ -2571,6 +3110,9 @@ def main() -> int:
     # phase 7: the delivery plane and the real sinks, on phase 5's market
     delivery = check_delivery(cm5, cm15)
     lap("delivery")
+    # phase 8: the tick's default observability, on phase 5's market
+    observability = check_observability(cm5, cm15)
+    lap("observability")
     slices = {
         "classic": {k: v for k, v in classic.items()
                     if k not in ("fired", "indicators", "tick_times")},
@@ -2579,6 +3121,7 @@ def main() -> int:
         "pipelined": pipelined,
         "service": service,
         "delivery": delivery,
+        "observability": {k: v for k, v in observability.items() if k != "paths"},
     }
     if "--profile" in sys.argv[1:]:
         slices["profile"] = profile_slice(m5, m15, cm5, cm15)
@@ -2586,7 +3129,8 @@ def main() -> int:
     abp = qreport["abp"]
     by_site: dict[str, int] = {}
     drives = {"classic": classic, "incremental": incremental, "dormant": dormant,
-              "pipelined": pipelined, "service": service, "delivery": delivery}
+              "pipelined": pipelined, "service": service, "delivery": delivery,
+              "observability": observability}
     for run in drives.values():
         for k, v in run["launches_by_site"].items():
             by_site[k] = by_site.get(k, 0) + v

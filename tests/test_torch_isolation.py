@@ -1,7 +1,9 @@
 """The port stands alone: no JAX, nothing of the reference package, no
 pydantic, ``httpx`` only where a network client is built without a session
 or transport (and then only at its first request, but for the binbot
-client), and no silent CPU fallback at its entry points."""
+client), and no silent CPU fallback at its entry points. ``import torch``
+itself loads ``torch.profiler``, so the import check asserts instead that no
+profiler is created until a profiler window opens."""
 
 import ast
 import subprocess
@@ -32,7 +34,18 @@ def test_import_pulls_in_no_jax_and_no_reference_module():
         "import binquant_tpu_torch.io.delivery, binquant_tpu_torch.io.telegram\n"
         "import binquant_tpu_torch.io.autotrade, binquant_tpu_torch.io.exchanges\n"
         "import binquant_tpu_torch.io.emission, binquant_tpu_torch.obs.tracing\n"
+        "import binquant_tpu_torch.obs.latency, binquant_tpu_torch.obs.slo\n"
+        "import binquant_tpu_torch.obs.delivery_health, binquant_tpu_torch.obs.exposition\n"
+        "import binquant_tpu_torch.obs.ledger, binquant_tpu_torch.io.metrics\n"
+        "import binquant_tpu_torch.io.websocket\n"
         "import asyncio\n"
+        "import torch.profiler\n"
+        "made = []\n"
+        "class Spy(torch.profiler.profile):\n"
+        "    def __init__(self, *a, **k):\n"
+        "        made.append(1)\n"
+        "        super().__init__(*a, **k)\n"
+        "torch.profiler.profile = Spy\n"
         "from binquant_tpu_torch.io.emission import FiredSignal\n"
         "from binquant_tpu_torch.io.replay import StubSession, make_stub_engine\n"
         "from binquant_tpu_torch.schemas import BotBase, SignalsConsumer\n"
@@ -47,6 +60,18 @@ def test_import_pulls_in_no_jax_and_no_reference_module():
         "    await eng.aclose_delivery()\n"
         "asyncio.run(go())\n"
         "assert len(eng._telegram_sent) == 1 and len(eng._autotrade_received) == 1\n"
+        "assert eng.tracer.enabled and eng.slo is not None and eng.delivery_health.enabled\n"
+        "# no profiler exists until a window opens; the window builds one\n"
+        "assert made == []\n"
+        "from binquant_tpu_torch.obs.tracing import ProfileController\n"
+        "import tempfile\n"
+        "ctl = ProfileController(log_dir=tempfile.mkdtemp())\n"
+        "assert ctl.start_window(0.01) == {'started': False, 'reason': 'no_event_loop'}\n"
+        "async def window():\n"
+        "    assert ctl.start_window(0.01)['started']\n"
+        "    await ctl._stop_task\n"
+        "asyncio.run(window())\n"
+        "assert ctl.closed.is_set() and made == [1] and ctl.last_trace is not None\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'binquant_tpu', 'httpx', 'pydantic'))\n"
         "print(','.join(bad))\n"

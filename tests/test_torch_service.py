@@ -187,7 +187,7 @@ def test_consume_loop_kill_and_restart(stream, tmp_path):
     assert a.ticks_processed == cut and not a._pending
     assert a.checkpoint.last_saved_tick == save_tick
     # what the autotrade consumer was handed through the delivery plane
-    got_a = treplay.delivered_tuples(a._autotrade_received)
+    got_a = treplay.delivered_tuples(a._autotrade_received, tracer=a.tracer)
     assert got_a == [s for s in whole if s[0] <= seq[cut - 1][0]]
 
     b = treplay.make_stub_engine(capacity=CAP, window=WIN, device="cpu")
@@ -208,7 +208,7 @@ def test_consume_loop_kill_and_restart(stream, tmp_path):
     asyncio.run(_consume(b, seq[save_tick:], clock))
     assert paths[0] == (False, "backfill") and all(p == (True, None) for p in paths[1:])
     got = [s for s in got_a if s[0] <= seq[save_tick - 1][0]] + treplay.delivered_tuples(
-        b._autotrade_received)
+        b._autotrade_received, tracer=b.tracer)
     assert got == whole
 
 

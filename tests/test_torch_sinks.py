@@ -52,6 +52,13 @@ from tests.test_autotrade_gates import FuturesFakeSession
 # small shapes: extra intra-op threads only spin and crowd parallel test workers
 torch.set_num_threads(1)
 
+# the observability knobs the reference engine runs with here (its
+# trace_sample/freshness arguments and the test lane's pins): the port's
+# engine takes the same, so both hand the sinks the same payloads
+REFERENCE_PINS = dict(
+    trace_sample=0.0, freshness=False, host_phase=False, slo=False, delivery_health=False
+)
+
 JSON_UTC = re.compile(r"^\d{4}-\d{2}-\d{2}T\d{2}:\d{2}:\d{2}(\.\d{6})?Z$")
 
 
@@ -308,7 +315,7 @@ def _engines(tmp_path, delivery: bool):
     t = treplay.make_stub_engine(
         capacity=CAPACITY, window=WINDOW, device="cpu", incremental=False, pipeline_depth=0,
         donate=False, numeric_digest=False, ingest_digest=False, drift_meter=False,
-        outcomes=False, delivery=delivery, session=FuturesFakeSession(),
+        outcomes=False, delivery=delivery, session=FuturesFakeSession(), **REFERENCE_PINS,
         **({"delivery_wal": str(tmp_path / "t.wal.jsonl")} if delivery else {}),
     )
     j.telegram_consumer._min_send_interval_seconds = 0.0
