@@ -62,7 +62,27 @@ pipelined production loop:
 * ``ingest_watermarks_enabled`` — the ingest monitor's watermark half
   (per-candle arrival and per-batch apply watermarks, ``symbols_report``).
   The port's own switch: the reference runs it whenever the ingest digest
-  is on, as the port does by default. Off only to measure what it costs.
+  is on, as the port does by default. Off only to measure what it costs;
+* ``fanout_enabled`` — the subscription fan-out plane (``fanout/``): user
+  subscriptions compiled into bitset planes on the engine's device, every
+  fired tick's deduped signals matched against them at finalize, the
+  matched frames appended to the outbox and broadcast over the WS/SSE hub
+  (behind the delivery plane when it is on). ``fanout_capacity`` is the
+  initial user-slot capacity (rounded up to a multiple of 32; growing past
+  it doubles the planes); ``fanout_port`` the hub's port (0: not served by
+  the service; matching and the outbox still run) on ``fanout_host``;
+  ``fanout_conn_queue`` each connection's bounded frame queue (a full one
+  sheds, ``slow_consumer``); ``fanout_outbox_path`` the frame outbox a
+  reconnecting cursor replays from (empty: no replay; by default in the
+  temporary directory, as the reference keeps it in ``/tmp``) with
+  ``fanout_outbox_cap`` entries a generation; ``fanout_outbox_shards`` and
+  ``fanout_snapshot_shards`` above 1 ask for the sharded outbox and
+  snapshots, which the port does not have yet (the plane raises);
+  ``fanout_snapshot_path`` the snapshot-warm boot sidecar saved with every
+  checkpoint (empty: none); ``fanout_compact_frac`` the freed/claimed slot
+  fraction past which an unsubscribe compacts the planes (0: never);
+  ``fanout_resume_tail`` the hub's in-memory ring of recent frames that
+  serves a reconnect's cursor without an outbox scan (0: no ring).
 """
 
 from __future__ import annotations
@@ -125,6 +145,22 @@ class Config:
     )
     heartbeat_max_age_s: float = 1500.0
     ingest_watermarks_enabled: bool = True
+    fanout_enabled: bool = True
+    fanout_capacity: int = 1024
+    fanout_port: int = 0
+    fanout_host: str = "0.0.0.0"
+    fanout_conn_queue: int = 256
+    fanout_outbox_path: str = field(
+        default_factory=lambda: os.path.join(
+            tempfile.gettempdir(), "binquant_tpu.fanout.jsonl"
+        )
+    )
+    fanout_outbox_cap: int = 4096
+    fanout_outbox_shards: int = 0
+    fanout_snapshot_path: str = ""
+    fanout_snapshot_shards: int = 0
+    fanout_compact_frac: float = 0.5
+    fanout_resume_tail: int = 1024
     telegram_bot_token: str = ""
     telegram_user_id: str = ""
     env: str = field(default_factory=lambda: os.environ.get("ENV", ""))

@@ -20,7 +20,8 @@ the engine's empty carry, and the restore reports ``_carry_rebuilt`` so
 the first tick recomputes it from the windows. Sharded archives (a
 manifest with ``shard_count > 1``) are not ported yet: loading one raises,
 and :meth:`CheckpointManager.try_restore` starts cold, as on any load
-error.
+error. Every save also writes the fan-out plane's snapshot sidecar
+(``fanout/snapshot.py``) when the engine has a plane with a snapshot path.
 """
 
 from __future__ import annotations
@@ -242,6 +243,13 @@ class CheckpointManager:
             shards=n_shards,
             duration_ms=round(self.last_save_ms, 3),
         )
+        fan = getattr(engine, "fanout", None)
+        if fan is not None:
+            # the fan-out snapshot sidecar rides the same cadence, so a
+            # restart is warm on both planes or neither (a no-op without a
+            # snapshot path; its failures are counted inside, never
+            # failing the engine's save)
+            fan.maybe_save_snapshot(default_shards=n_shards)
         return True
 
     @staticmethod

@@ -114,6 +114,11 @@ class FiredSignal:
         # candle close → emit ms, stamped at finalize while the freshness
         # observatory is on
         self.freshness_ms: float | None = None
+        # the fan-out broadcast handoff (frame dict, packed recipient
+        # words, publish perf_counter), stamped by FanoutPlane.on_fired at
+        # finalize: what the delivery plane's fanout consumer group
+        # delivers
+        self.fanout_frame: tuple | None = None
 
 
 def _cast_diag(kind: str, v: float):

@@ -105,6 +105,17 @@ wire copy's CUDA event. :meth:`health_snapshot` is the ``/healthz``
 payload and :meth:`touch_heartbeat` (every ``process_tick``) its liveness
 file; ``obs/exposition.py`` serves both and ``/metrics``.
 
+The subscription fan-out plane (``fanout_enabled``, production on, as in
+the reference): :class:`FanoutPlane` compiles user subscriptions into
+bitset planes on the engine's device; at finalize, after the provenance
+stamps, the deduped fired set is matched against them in one match on the
+device (span ``fanout_match``), each signal gets its frame and packed
+recipient words (``fanout_frame``) and the outbox its line. With the
+delivery plane on, :class:`FanoutSink` is its fourth (lossy) sink and the
+hub handoff runs on that lane's worker; without it the plane offers each
+frame to the hub's connections on the tick's thread.
+:meth:`aclose_fanout` retires it; checkpoints save its snapshot sidecar.
+
 The service around the tick (``main.py``'s boot and
 ``SignalEngine.consume_loop`` in the reference): every finalize hands the
 regime notifier's digest to the Telegram consumer and, once per 15m
@@ -160,6 +171,7 @@ from binquant_tpu_torch.engine.step import (
     tick_step_wire_inplace,
     unpack_wire,
 )
+from binquant_tpu_torch.fanout.plane import FanoutPlane, FanoutSink
 from binquant_tpu_torch.io.autotrade import AutotradeConsumer
 from binquant_tpu_torch.io.binbot import BinbotApi
 from binquant_tpu_torch.io.delivery import DeliveryPlane
@@ -411,8 +423,35 @@ class SignalEngine:
             horizons=tuple(self.config.outcome_horizons),
             cap=int(self.config.outcome_cap),
         )
+        # -- the subscription fan-out plane (None: off): subscriptions
+        # compiled into bitset planes on this engine's device, every fired
+        # tick's deduped signals matched against them at finalize; a
+        # snapshot sidecar, when configured, restores the planes warm; its
+        # recipient-set integrity joins the SLO verdict
+        self.fanout: FanoutPlane | None = None
+        if cfg.fanout_enabled:
+            self.fanout = FanoutPlane(
+                self.registry,
+                capacity=int(cfg.fanout_capacity),
+                outbox_path=cfg.fanout_outbox_path or None,
+                outbox_cap=int(cfg.fanout_outbox_cap),
+                conn_queue_max=int(cfg.fanout_conn_queue),
+                outbox_shards=int(cfg.fanout_outbox_shards or 0) or 1,
+                snapshot_path=cfg.fanout_snapshot_path or None,
+                snapshot_shards=int(cfg.fanout_snapshot_shards or 0),
+                compact_frac=float(cfg.fanout_compact_frac or 0.0),
+                resume_tail=int(cfg.fanout_resume_tail or 0),
+                device=self.device,
+            )
+            if self.fanout.snapshot_path is not None:
+                self.fanout.try_restore_snapshot()
+            if self.slo is not None:
+                self.slo.add_invariant(
+                    "fanout_recipient_set", self.fanout.recipient_set_invariant
+                )
         # -- the delivery plane (None: the sinks are called inline), its
-        # health collector and the plane's invariants in the SLO verdict
+        # health collector and the plane's invariants in the SLO verdict;
+        # the fan-out plane's broadcast is its fourth, lossy sink
         self.delivery: DeliveryPlane | None = None
         self.delivery_health: DeliveryHealth | None = None
         if self.config.delivery_enabled:
@@ -422,9 +461,12 @@ class SignalEngine:
                 slo=self.slo,
                 slo_ms=cfg.delivery_slo_ms,
             )
+            sinks = make_signal_sinks(binbot_api, telegram_consumer, at_consumer)
+            if self.fanout is not None:
+                sinks.append(FanoutSink(self.fanout))
             self.delivery = DeliveryPlane.from_config(
                 self.config,
-                make_signal_sinks(binbot_api, telegram_consumer, at_consumer),
+                sinks,
                 freshness=self.freshness,
                 health=self.delivery_health,
             )
@@ -1270,6 +1312,14 @@ class SignalEngine:
                 signal.analytics["trace_id"] = trace.trace_id
                 signal.analytics["tick_seq"] = trace.tick_seq
                 signal.message += f"\n- Trace: {trace.trace_id}/{trace.tick_seq}"
+        # the fan-out match: the deduped, stamped fired set against the
+        # subscription planes on the device, frames minted and appended to
+        # the outbox; the hub handoff rides the delivery plane's fanout
+        # lane when it is on, else the plane offers to connections here
+        if self.fanout is not None and fired:
+            with trace.span("fanout_match") as sp_fanout:
+                fanout_stats = self.fanout.on_fired(fired, ctx, tick_ms=pending.ts_ms)
+                sp_fanout.set(**fanout_stats)
         # decode done (wire -> deduped, stamped signals); emit is sink work
         t_emit_phase0 = time.perf_counter()
         self.host_phase.record(drive, "decode", (t_emit_phase0 - t_decode0) * 1000.0)
@@ -1394,6 +1444,12 @@ class SignalEngine:
         tick path: a sink outage must not stall the tick."""
         if self.delivery is not None and self.delivery.started:
             await self.delivery.aclose(drain_s=drain_s)
+
+    async def aclose_fanout(self) -> None:
+        """Retire the fan-out plane: stop the hub (if served), emit the
+        ``fanout_summary`` scoreboard, close the outbox."""
+        if self.fanout is not None:
+            await self.fanout.aclose()
 
     def _already_emitted(
         self, strategy: str, symbol: str | None, ts5: int, ts15: int
@@ -1570,8 +1626,17 @@ class SignalEngine:
                 if self.delivery is not None
                 else None
             ),
-            # the fan-out plane is not ported
-            "fanout": None,
+            # fan-out plane pressure at the breach (attribute reads only)
+            "fanout": (
+                {
+                    "users": len(self.fanout.subscriptions),
+                    "published": self.fanout.published,
+                    "connections": self.fanout.hub.connections,
+                    "shed": self.fanout.hub.shed,
+                }
+                if self.fanout is not None
+                else None
+            ),
         }
 
     def health_snapshot(self, max_age_s: float | None = None) -> dict:
@@ -1581,8 +1646,10 @@ class SignalEngine:
         ``degraded`` — ticking, but heartbeat writes are failing, the
         websocket tracker is storming or ingest staleness is burning;
         ``stale`` — no successful heartbeat inside the window. Sections of
-        parts the port lacks (fan-out, the mesh, the scanned and backtest
-        drives) answer what the reference answers with those parts off.
+        parts the port lacks (the mesh, the scanned and backtest drives)
+        answer what the reference answers with those parts off; the
+        ``fanout`` section is the plane's :meth:`FanoutPlane.snapshot`, or
+        ``{"enabled": False}`` with it off.
         Attribute reads only, safe inline on the event loop: no device
         read."""
         if max_age_s is None:
@@ -1652,7 +1719,9 @@ class SignalEngine:
             "delivery": (
                 self.delivery.snapshot() if self.delivery is not None else {"enabled": False}
             ),
-            "fanout": {"enabled": False},
+            "fanout": (
+                self.fanout.snapshot() if self.fanout is not None else {"enabled": False}
+            ),
             "slo": (
                 self.slo.verdict() if self.slo is not None else {"enabled": False, "ok": None}
             ),
@@ -1682,8 +1751,8 @@ class SignalEngine:
         On cancellation the ticks in flight are flushed (their signals
         enqueued), then the plane is retired last: a best-effort drain of
         two seconds, and what a down sink never acked stays in the WAL for
-        the next boot. The reference's loop also retires its fan-out hub
-        here, which is not ported yet (ROADMAP queue A)."""
+        the next boot. The fan-out plane retires after it (its lane's last
+        frames reach the connections first)."""
         if self.delivery is not None:
             self.delivery.start()
         try:
@@ -1702,6 +1771,12 @@ class SignalEngine:
                 logging.warning("shutdown delivery drain interrupted")
             except Exception:
                 logging.exception("shutdown delivery close failed")
+            try:
+                await self.aclose_fanout()
+            except asyncio.CancelledError:
+                logging.warning("shutdown fanout close interrupted")
+            except Exception:
+                logging.exception("shutdown fanout close failed")
 
     async def _consume_loop_body(
         self,

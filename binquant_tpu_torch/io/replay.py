@@ -128,6 +128,8 @@ def make_stub_engine(
     slo: bool | None = None,
     delivery_health: bool | None = None,
     ingest_watermarks: bool | None = None,
+    fanout: bool | None = None,
+    fanout_overrides: dict | None = None,
 ) -> SignalEngine:
     """A SignalEngine wired to stubs (no network): a binbot client over
     ``session`` (a :class:`StubSession` serving ``breadth`` by default), a
@@ -156,6 +158,13 @@ def make_stub_engine(
     ``ingest_watermarks`` (``Config.ingest_watermarks_enabled``, the port's
     own switch) turns the ingest monitor's watermark half off, so a drive
     can measure what it costs; the reference always runs it.
+
+    The fan-out plane is on unless ``fanout=False``. Unless
+    ``fanout_overrides`` names ``fanout_outbox_path``, each engine writes
+    its own throwaway frame outbox in the temporary directory, removed at
+    exit: a plane seeds its frame ``seq`` from a retained outbox, so engines
+    sharing one would read each other's frames. ``fanout_overrides`` sets
+    the other ``fanout_*`` fields by name.
 
     Runs on ``device`` — CUDA by default; raises when CUDA is missing unless
     ``device="cpu"``. Every other argument left None keeps the config's
@@ -193,6 +202,12 @@ def make_stub_engine(
     elif config.delivery_enabled:
         config.delivery_wal_path = _throwaway_wal()
     for name, value in (delivery_overrides or {}).items():
+        setattr(config, name, value)
+    if fanout is not None:
+        config.fanout_enabled = bool(fanout)
+    if config.fanout_enabled and "fanout_outbox_path" not in (fanout_overrides or {}):
+        config.fanout_outbox_path = _throwaway_path(".fanout.jsonl")
+    for name, value in (fanout_overrides or {}).items():
         setattr(config, name, value)
     binbot_api = BinbotApi(
         "http://stub", session=session if session is not None else StubSession(breadth)
@@ -247,11 +262,17 @@ class _RecordingAutotrade(AutotradeConsumer):
 
 def _throwaway_wal() -> str:
     """A fresh WAL path in the temporary directory, removed at exit."""
-    fd, path = tempfile.mkstemp(prefix="bqt_stub_", suffix=".wal.jsonl")
+    return _throwaway_path(".wal.jsonl")
+
+
+def _throwaway_path(suffix: str) -> str:
+    """A fresh file in the temporary directory, removed at exit with its
+    ``.tmp`` and rotated ``.1`` siblings."""
+    fd, path = tempfile.mkstemp(prefix="bqt_stub_", suffix=suffix)
     os.close(fd)
 
     def discard(path: str = path) -> None:
-        for p in (path, path + ".tmp"):
+        for p in (path, path + ".tmp", path + ".1"):
             with contextlib.suppress(OSError):
                 os.unlink(p)
 
@@ -389,7 +410,7 @@ def run_replay(
     appended as a :func:`signal_tuples` tuple. The engine's arguments are
     :func:`make_stub_engine`'s; the ticks still in flight at the end of the
     file are flushed, then the delivery plane is retired (drained, WAL
-    compacted). ``dominance_is_losers`` and
+    compacted) and the fan-out plane after it. ``dominance_is_losers`` and
     ``market_domination_reversal`` script the host's market-dominance flags
     (the dominance-gated dormant strategies read them). With the outcome
     tracker on, the stats carry its scoreboard under ``outcomes`` and
@@ -431,6 +452,7 @@ def run_replay(
             record(await engine.process_tick(now_ms=tick_ms))
         record(await engine.flush_pending())
         await engine.aclose_delivery()
+        await engine.aclose_fanout()
 
     asyncio.run(drive())
     wall = time.perf_counter() - t_start

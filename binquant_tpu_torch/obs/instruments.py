@@ -2,8 +2,9 @@
 
 Port of the families of ``binquant_tpu/obs/instruments.py`` the port's
 modules export (the signal outcomes, the binbot client, checkpoints, the
-sinks, the delivery plane, the tick loop, traces, the latency and ingest
-observatories, kernel builds, delivery health and the SLO plane), under the
+fan-out plane, the sinks, the delivery plane, the tick loop, traces, the
+latency and ingest observatories, kernel builds, delivery health and the SLO
+plane), under the
 reference's names and help texts, so a dashboard reads either package. Labels
 are bounded sets (strategy names, horizons); symbols go in events, never in
 labels.
@@ -86,6 +87,93 @@ CHECKPOINT_SAVES = REGISTRY.counter(
     "bqt_checkpoint_saves_total",
     "Engine-state snapshot attempts by outcome (ok / error).",
     labels=("outcome",),
+)
+
+# -- the subscription fan-out plane (fanout/) -----------------------------------
+
+FANOUT_SUBSCRIPTIONS = REGISTRY.gauge(
+    "bqt_fanout_subscriptions",
+    "Live subscriptions compiled into the device bitset planes "
+    "(user x symbols/strategies/regimes/min-strength).",
+)
+FANOUT_RECOMPILES = REGISTRY.counter(
+    "bqt_fanout_recompiles_total",
+    "Device plane resyncs by kind: incremental (dirty word columns "
+    "scattered in one jit'd update after churn) vs full (first use, "
+    "capacity growth, or a symbol-row refresh after registry churn — "
+    "the only case that retraces the match kernel; the tick step never "
+    "retraces either way).",
+    labels=("kind",),
+)
+FANOUT_MATCH_DISPATCHES = REGISTRY.counter(
+    "bqt_fanout_match_dispatches_total",
+    "Per-tick subscription match kernel launches (one per fired tick, "
+    "joining every deduped fired slot in a single dispatch).",
+)
+FANOUT_RECIPIENTS = REGISTRY.counter(
+    "bqt_fanout_matched_recipients_total",
+    "Total (signal, subscriber) matches the kernel produced.",
+)
+FANOUT_PUBLISHED = REGISTRY.counter(
+    "bqt_fanout_published_total",
+    "Signal frames entering the broadcast tier (outbox-appended; "
+    "delivered to connections by the hub or the delivery worker).",
+)
+FANOUT_FRAMES = REGISTRY.counter(
+    "bqt_fanout_frames_total",
+    "Frames written to subscriber connections, per transport.",
+    labels=("transport",),
+)
+FANOUT_CONNECTIONS = REGISTRY.gauge(
+    "bqt_fanout_connections",
+    "Open hub connections per transport (ws / sse).",
+    labels=("transport",),
+)
+FANOUT_SHED = REGISTRY.counter(
+    "bqt_fanout_shed_total",
+    "Broadcast frames dropped by reason (slow_consumer: a connection's "
+    "bounded queue was full; resume_overflow: a reconnect gap exceeded "
+    "the queue) — counted, never silent; the client recovers by "
+    "reconnecting with its cursor.",
+    labels=("reason",),
+)
+FANOUT_RESUME_REPLAYED = REGISTRY.counter(
+    "bqt_fanout_resume_replayed_total",
+    "Frames replayed from the broadcast outbox to reconnecting clients "
+    "presenting a cursor.",
+)
+FANOUT_RESUME_FALLBACK = REGISTRY.counter(
+    "bqt_fanout_resume_fallback_total",
+    "Cursor reconnects that could NOT be served from the hub's in-memory "
+    "tail ring and fell back to a full outbox scan, by reason "
+    "(tail_off: ring disabled; tail_cold: nothing broadcast yet this "
+    "boot / ring invalidated by compaction; cursor_gap: cursor older "
+    "than the retained ring; trace_cursor: provenance cursors resolve "
+    "through the outbox).",
+    labels=("reason",),
+)
+FANOUT_DELTA_WORDS = REGISTRY.histogram(
+    "bqt_fanout_delta_words",
+    "Words patched per incremental apply_subscription_deltas dispatch — "
+    "the per-tick device cost of subscription churn (O(cells touched), "
+    "independent of the resident population).",
+    buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0, 512.0,
+             1024.0, 4096.0),
+)
+FANOUT_COMPACTIONS = REGISTRY.counter(
+    "bqt_fanout_compactions_total",
+    "Tombstone-folding plane compactions (fragmentation crossed the "
+    "fanout_compact_frac threshold): live slots re-packed dense, "
+    "capacity shrunk toward the initial allocation, one counted FULL "
+    "device resync.",
+)
+FANOUT_SNAPSHOT = REGISTRY.counter(
+    "bqt_fanout_snapshot_total",
+    "Fan-out snapshot sidecar operations by op (save / restore) and "
+    "outcome (ok / rejected / error): the restart-warm boot path — "
+    "rejected restores (torn save, version or plane-shape mismatch) "
+    "fall back to a cold rebuild.",
+    labels=("op", "outcome"),
 )
 
 # -- the sinks (io/telegram.py, io/autotrade.py, io/emission.py) ------------
@@ -177,9 +265,27 @@ DELIVERY_OLDEST_AGE = REGISTRY.gauge(
 )
 DELIVERY_CURSOR_LAG = REGISTRY.gauge(
     "bqt_delivery_cursor_lag",
-    "Records behind head per consumer group: the sink workers (queued + "
-    "inflight + WAL-deferred entries not yet acked).",
+    "Records behind head per consumer group: the three sink workers "
+    "(queued + inflight + WAL-deferred entries not yet acked) and the "
+    "fan-out hub as a fourth group (broadcast frames the laggiest open "
+    "connection has not received).",
     labels=("group",),
+)
+FANOUT_CONN_QUEUE_DEPTH = REGISTRY.histogram(
+    "bqt_fanout_conn_queue_depth",
+    "Per-connection frame-queue occupancy sampled at every broadcast "
+    "offer — the distribution (not just the max) of how far behind the "
+    "hub's consumers run.",
+    buckets=(0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0),
+)
+FANOUT_WRITE_LATENCY = REGISTRY.histogram(
+    "bqt_fanout_write_latency_ms",
+    "Subscriber match→socket-write latency per transport: the device "
+    "match dispatch that selected the recipient to the frame leaving "
+    "for that connection's socket.",
+    labels=("transport",),
+    buckets=(0.1, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
+             1000.0, 5000.0),
 )
 
 # -- the tick loop (io/pipeline.py) and the heartbeat ---------------------------

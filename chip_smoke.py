@@ -155,7 +155,39 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    its candles' ingest plus ``process_tick`` plus the finalize, and of the
    loop's ms from queueing a tick's klines to its signals emitted; the
    per-pair on − off of the host path's incremental p50).
-9. Print the kernels line, the card's name and power limit, and the result.
+9. Drive the subscription fan-out plane (``[slice fanout]``): phase 8's
+   engine (phase 5's market under phase 6's breadth schedule, 1 warm + 16
+   live ticks + the crash tick through ``consume_loop`` at production
+   defaults) with the plane on at its defaults (``compact_frac`` 0.5,
+   ``resume_tail`` 1024), its outbox and snapshot sidecar in a temporary
+   directory, a checkpoint every 8 ticks; a CPU engine on the same script is
+   the reference. 100,000 seeded subscriptions (10% wildcard, 30% one
+   strategy, 30% 1-16 symbols, 15% symbols and a strategy, 10% a regime
+   subset, 5% a ``min_strength`` from a grid with an unreachable 1e6) are
+   bulk-loaded and pushed before the warm tick; live ticks 1-15 bring 400
+   subscribes, 300 updates and 300 unsubscribes each, synced before the
+   tick (tick 10 adds a flash mob that grows the planes, tick 13 an
+   unsubscribe wave that compacts them); the hub serves 127.0.0.1:0 to a WS
+   and an SSE watcher and holds a stalled consumer (a 2-frame queue nobody
+   drains) that reconnects with its cursor after the crash. Checks: every
+   fired signal's recipients on the card equal the oracle's predicate over
+   the population the match ran against (``Subscription.matches``, all at
+   once) and, for a sample, ``match_oracle`` itself; per (tick, strategy,
+   symbol) they equal the CPU's but for subscribers whose floor lies within
+   the wire tolerance of ``|score|`` (counted); frames (the trace id masked,
+   the score at the wire tolerance) and the outbox; the ``bqt_fanout_*``
+   counters; one full push for the load, the growth and the compaction and
+   one incremental sync, of exactly its dirty cells, per other churn tick;
+   the watchers got exactly what the hub broadcast to them; the stalled
+   consumer's sheds and its cursor replay of exactly its outbox frames; the
+   ``fanout_recipient_set`` invariant; a second card engine booted from the
+   last archive and its snapshot (planes bit for bit, its first match on
+   the crash tick's signals equal to the first engine's); qtail launches by
+   site per tick equal to the CPU twin's calls. Then 1,000,000 subscriptions
+   alone: the full push, one match at K = 8, 128 and 2048 (CUDA events,
+   warm) with its peak device memory, K=8 against the CPU torch path and
+   K=2048 against ``match_oracle`` on 1,000 sampled users.
+10. Print the kernels line, the card's name and power limit, and the result.
 
 Phase 5 times three card configurations (depth 1 in place; depth 0
 copying; depth 0 copying without the digests and the meter) over two
@@ -206,8 +238,11 @@ TILED_TICKS = 2  # live ticks of each tiled drive (the setups are on the last tw
 # (null) spans and the batchers' arrival stamps.
 OBS_OFF = dict(trace_sample=0.0, freshness=False, host_phase=False, slo=False,
                delivery_health=False, ingest_watermarks=False)
+# the subscription fan-out plane off, so phases 3-8 check and time what they
+# did before it was ported (phase 9 drives it at its defaults)
+FANOUT_OFF = dict(fanout=False)
 SERIAL = dict(pipeline_depth=0, donate=False, numeric_digest=False, ingest_digest=False,
-              drift_meter=False, outcomes=False, delivery=False, **OBS_OFF)
+              drift_meter=False, outcomes=False, delivery=False, **OBS_OFF, **FANOUT_OFF)
 # the extended dormant market's scripted breadth: rising twice
 RISING_BREADTH = {
     "timestamp": [1, 2, 3, 4],
@@ -1179,7 +1214,7 @@ def _pipelined_engine(device: str, m5: dict, m15: dict, depth: int, donate: bool
         capacity=S, window=W, context_config=ContextConfig(), device=device,
         incremental=True, carry_audit_every=AUDIT_EVERY, pipeline_depth=depth, donate=donate,
         numeric_digest=digests, ingest_digest=digests, drift_meter=digests, outcomes=digests,
-        **OBS_OFF,
+        **OBS_OFF, **FANOUT_OFF,
     )
     for monitor in (engine.numeric, engine.ingest_monitor, engine.drift):
         monitor.record_history = True
@@ -1616,7 +1651,7 @@ def service_drive(device: str, m5: dict, m15: dict, first: int, ckpt_path, symbo
     engine = make_stub_engine(
         capacity=S, window=W, context_config=ContextConfig(), device=device, incremental=True,
         carry_audit_every=SERVICE_EVERY, session=session, all_symbols=symbols_list, **flags,
-        **OBS_OFF,
+        **OBS_OFF, **FANOUT_OFF,
     )
     engine.checkpoint = CheckpointManager(ckpt_path, every_ticks=SERVICE_EVERY)
     # every regime digest shares one dedupe key: with the 900 s cooldown the
@@ -2018,7 +2053,7 @@ def delivery_engine(device: str, wal_path, faults: bool, delivery: bool = True):
     config = Config(max_symbols=S, window_bars=W, carry_audit_every_ticks=AUDIT_EVERY, env="CI",
                     delivery_enabled=delivery, delivery_wal_path=str(wal_path), **DRILL,
                     trace_sample=0.0, freshness_enabled=False, host_phase_enabled=False,
-                    slo_enabled=False, delivery_health_enabled=False)
+                    slo_enabled=False, delivery_health_enabled=False, fanout_enabled=False)
     if device == "cpu":
         config.pipeline_depth, config.donate = 0, False
     # phase 6's breadth schedule: the breadth-gated strategies fire on the
@@ -2475,11 +2510,12 @@ OBS_COST_AUDIT = 4  # the cost runs' audit cadence: warm, 3 live, the audit, 1 m
 
 
 def obs_engine(device: str, wal_path, m5: dict, m15: dict, on: bool = True,
-               audit_every: int = AUDIT_EVERY):
+               audit_every: int = AUDIT_EVERY, fanout: dict | None = None):
     """A production engine (depth 1, rings in place, both digests, the
     meter, outcomes, the plane with its WAL at ``wal_path``; phase 6's
     breadth schedule) with the tick's observability at its defaults
-    (``on``) or all off, and its ticks."""
+    (``on``) or all off, and its ticks. The fan-out plane is off unless
+    ``fanout`` gives its ``fanout_overrides`` (phase 9)."""
     from binquant_tpu_torch.io.replay import StubSession, make_stub_engine
     from binquant_tpu_torch.regime.context import ContextConfig
 
@@ -2489,6 +2525,7 @@ def obs_engine(device: str, wal_path, m5: dict, m15: dict, on: bool = True,
         delivery_wal=str(wal_path), freshness_slo_ms=OBS_FRESHNESS_SLO_MS,
         delivery_overrides=dict(trace_slow_ms=OBS_SLOW_MS, delivery_slo_ms=OBS_DELIVERY_SLO_MS),
         **({} if on else OBS_OFF),
+        **(FANOUT_OFF if fanout is None else dict(fanout=True, fanout_overrides=fanout)),
     )
     # every regime digest shares one dedupe key (see the service drive)
     engine.telegram_consumer._signal_dedupe_seconds = 0.0
@@ -2520,7 +2557,8 @@ def metric_total(text: str, name: str, labels: str = "") -> float:
 
 
 async def obs_drive(engine, ticks, rec: dict, server=None, profile_at: int | None = None,
-                    settle_each: bool = True) -> dict:
+                    settle_each: bool = True, start=None, before_tick=None,
+                    after_ticks=None) -> dict:
     """The ticks through ``consume_loop``; per tick the ms from queueing its
     klines to its signals emitted, ``process_tick``'s own ms, the path, the
     qtail launches (card) or twin calls (CPU) by site. With ``settle_each``
@@ -2529,7 +2567,10 @@ async def obs_drive(engine, ticks, rec: dict, server=None, profile_at: int | Non
     ``server`` (a ``MetricsServer`` over the engine) ``/metrics`` is
     scraped after every tick and the debug routes are read at the end;
     with ``profile_at`` a ``/debug/profile`` window opens just before that
-    tick."""
+    tick. ``start()``, ``before_tick(n)`` and ``after_ticks()`` (coroutines)
+    run on the loop before the consume loop starts (it takes the warm tick
+    at once), before tick ``n``'s klines are queued, and after the last tick
+    settled while the consume loop still runs."""
     from binquant_tpu_torch.obs.instruments import SIGNALS
     from binquant_tpu_torch.ops import quantile_tail as qt
 
@@ -2558,6 +2599,8 @@ async def obs_drive(engine, ticks, rec: dict, server=None, profile_at: int | Non
             spent["finalize_ms"] += (time.perf_counter() - t) * 1000.0
 
     engine.ingest, engine._finalize_tick = timed_ingest, timed_finalize
+    if start is not None:
+        await start()
     port = await server.start() if server is not None else None
     signals0 = sum(c.value for _, c in SIGNALS.children())
     queue: asyncio.Queue = asyncio.Queue()
@@ -2566,6 +2609,8 @@ async def obs_drive(engine, ticks, rec: dict, server=None, profile_at: int | Non
         engine.consume_loop(queue, tick_interval_s=0.0, clock=lambda: clock["now"]))
     for n, (now_ms, klines) in enumerate(ticks):
         clock["now"] = now_ms
+        if before_tick is not None:
+            await before_tick(n)
         if profile_at == n:
             code, body = await http_get(port, f"/debug/profile?seconds={OBS_PROFILE_S}")
             out["profile"] = (code, json.loads(body))
@@ -2592,6 +2637,8 @@ async def obs_drive(engine, ticks, rec: dict, server=None, profile_at: int | Non
             code, text = await http_get(port, "/metrics")
             out["scrapes"].append((code, metric_total(text, "bqt_signals_total") - signals0,
                                    engine.signals_emitted))
+    if after_ticks is not None:
+        await after_ticks()
     if server is not None:
         ctl = server.profiler
         for _ in range(600):
@@ -2948,6 +2995,803 @@ def check_observability(m5, m15, card: str = "cuda") -> dict:
     return result
 
 
+# -- phase 9: the subscription fan-out plane -----------------------------------------
+
+FAN_USERS = 100_000  # the population bulk-loaded before the warm tick
+FAN_CHURN = (400, 300, 300)  # subscribes, updates, unsubscribes before each churn tick
+# live ticks 1-15 bring churn; live tick 16 and the crash come after the last
+# checkpoint (ticks_processed 16), so its snapshot holds the crash's population
+FAN_CHURN_TICKS = range(1, LIVE_TICKS)
+FAN_MOB_TICK, FAN_MOB = 10, 32_000  # the flash mob that grows the planes past capacity
+FAN_WAVE_TICK, FAN_WAVE = 13, 70_000  # the unsubscribe wave that crosses compact_frac
+FAN_EVERY = 8  # the checkpoint (and snapshot sidecar) cadence
+FAN_FLOORS = (0.0, 0.25, 0.5, 1.0, 2.0, 5.0, 1e6)  # the min_strength grid (1e6: unreachable)
+FAN_RTOL, FAN_ATOL = 1e-4, 1e-5  # the wire contract: a floor this close to |score| may flip
+FAN_ORACLE_SAMPLE = 6  # signals per fired tick also held to match_oracle itself
+FAN_MILLION = 1_000_000
+FAN_MATCH_K = (8, 128, 2048)
+FAN_MATCH_REPS = 5  # timed matches per K (after one warm call)
+
+
+def fan_subscriptions(rng: np.random.Generator, n: int, prefix: str) -> list:
+    """``n`` seeded subscriptions of the population's mix: 10% wildcard,
+    30% one live strategy, 30% 1-16 of the S symbols (drawn with
+    replacement, so a few name fewer), 15% symbols and one strategy, 10% a
+    regime subset, 5% a ``min_strength`` from :data:`FAN_FLOORS`."""
+    from binquant_tpu_torch.engine.step import STRATEGY_ORDER
+    from binquant_tpu_torch.fanout.registry import Subscription
+
+    names, live = symbols(), STRATEGY_ORDER[:5]
+    kind = rng.choice(6, size=n, p=[0.10, 0.30, 0.30, 0.15, 0.10, 0.05])
+    strat = rng.integers(0, len(live), n)
+    nsym = rng.integers(1, 17, n)
+    sym = rng.integers(0, S, (n, 16))
+    reg = rng.integers(1, 32, n)  # a non-empty subset of the 5 regimes, as bits
+    floor = rng.integers(0, len(FAN_FLOORS), n)
+    subsets = [frozenset(r for r in range(5) if m >> r & 1) for m in range(32)]
+    out = []
+    for i, k, st, ns, row, rg, fl in zip(range(n), kind.tolist(), strat.tolist(),
+                                         nsym.tolist(), sym.tolist(), reg.tolist(),
+                                         floor.tolist()):
+        out.append(Subscription(
+            f"{prefix}{i}",
+            frozenset([names[j] for j in row[:ns]]) if k in (2, 3) else None,
+            frozenset((live[st],)) if k in (1, 3) else None,
+            subsets[rg] if k == 4 else None,
+            FAN_FLOORS[fl] if k == 5 else 0.0,
+        ))
+    return out
+
+
+def fan_script(rng: np.random.Generator) -> dict:
+    """The drive's subscription script, made once and applied alike to
+    every engine: the protected users (a WS and an SSE watcher on 16
+    low-row symbols each, the stalled consumer on 12; subscribed first,
+    never churned), the population, and per churn tick its shuffled
+    subscribes, updates and unsubscribes, the flash mob, the wave."""
+    from binquant_tpu_torch.fanout.registry import Subscription
+
+    names = symbols()
+    low = [names[j] for j in rng.choice(np.arange(1, 48), 44, replace=False)]
+    protected = [Subscription("watch_ws", frozenset(low[:16])),
+                 Subscription("watch_sse", frozenset(low[16:32])),
+                 Subscription("stalled", frozenset(low[32:44]))]
+    population = fan_subscriptions(rng, FAN_USERS, "u")
+    live = [s.user_id for s in population]
+    ticks: dict[int, dict] = {}
+    for t in FAN_CHURN_TICKS:
+        n_sub, n_upd, n_uns = FAN_CHURN
+        subs = fan_subscriptions(rng, n_sub, f"c{t}_")
+        picks = rng.choice(len(live), n_upd + n_uns, replace=False)
+        upd = [Subscription(live[j], p.symbols, p.strategies, p.regimes, p.min_strength)
+               for j, p in zip(picks[:n_upd], fan_subscriptions(rng, n_upd, "x"))]
+        gone = {live[j] for j in picks[n_upd:]}
+        ops = ([("subscribe", s) for s in subs] + [("update", s) for s in upd]
+               + [("unsubscribe", u) for u in sorted(gone)])
+        step = {"ops": [ops[k] for k in rng.permutation(len(ops))]}
+        live = [u for u in live if u not in gone] + [s.user_id for s in subs]
+        if t == FAN_MOB_TICK:
+            step["mob"] = fan_subscriptions(rng, FAN_MOB, f"mob{t}_")
+            live += [s.user_id for s in step["mob"]]
+        if t == FAN_WAVE_TICK:
+            step["wave"] = [live[j] for j in np.sort(rng.choice(len(live), FAN_WAVE,
+                                                                replace=False))]
+            wave = set(step["wave"])
+            live = [u for u in live if u not in wave]
+        ticks[t] = step
+    return {"protected": protected, "population": population, "ticks": ticks}
+
+
+def fan_engine(device: str, tmp: Path, m5: dict, m15: dict, tag: str):
+    """Phase 8's production engine with the fan-out plane on at its
+    defaults (compact_frac 0.5, resume_tail 1024), its outbox and snapshot
+    in ``tmp``, a checkpoint every FAN_EVERY ticks; and its ticks."""
+    from binquant_tpu_torch.io.checkpoint import CheckpointManager
+
+    engine, ticks = obs_engine(
+        device, tmp / f"{tag}.wal.jsonl", m5, m15,
+        fanout=dict(fanout_outbox_path=str(tmp / f"{tag}.outbox.jsonl"),
+                    fanout_snapshot_path=str(tmp / f"{tag}.fanout.npz")),
+    )
+    engine.checkpoint = CheckpointManager(tmp / f"{tag}.ckpt.npz", every_ticks=FAN_EVERY)
+    return engine, ticks
+
+
+def _fan_counters() -> dict:
+    """Every ``bqt_fanout_*`` counter and histogram child: value, or
+    (count, sum) of a histogram."""
+    from binquant_tpu_torch.obs import instruments
+
+    out = {}
+    for name in dir(instruments):
+        fam = getattr(instruments, name)
+        if not name.startswith("FANOUT_") or fam.kind == "gauge":
+            continue
+        for labels, child in fam.children():
+            out[(fam.name, labels)] = (child.value if fam.kind == "counter"
+                                       else (child.count, round(child.sum, 6)))
+    return out
+
+
+async def _ws_client(port: int, user: str, cursor: str | None = None):
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    q = f"/ws?user={user}" + (f"&cursor={cursor}" if cursor else "")
+    writer.write((f"GET {q} HTTP/1.1\r\nHost: smoke\r\nUpgrade: websocket\r\n"
+                  "Connection: Upgrade\r\nSec-WebSocket-Key: dGhlIHNhbXBsZQ==\r\n"
+                  "Sec-WebSocket-Version: 13\r\n\r\n").encode())
+    await writer.drain()
+    status = (await reader.readline()).decode()
+    while (await reader.readline()) not in (b"\r\n", b""):
+        pass
+    if "101" not in status:
+        fail(f"fanout: the hub answered {user}'s WS upgrade {status!r}")
+    return reader, writer
+
+
+async def _sse_client(port: int, user: str):
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET /sse?user={user} HTTP/1.1\r\nHost: smoke\r\n\r\n".encode())
+    await writer.drain()
+    status = (await reader.readline()).decode()
+    while (await reader.readline()) not in (b"\r\n", b""):
+        pass
+    if "200" not in status:
+        fail(f"fanout: the hub answered {user}'s SSE request {status!r}")
+    return reader, writer
+
+
+async def _read_ws(reader, got: list) -> None:
+    from binquant_tpu_torch.fanout.hub import ws_read_frame
+
+    try:
+        while True:
+            opcode, payload = await ws_read_frame(reader)
+            if opcode == 0x8:
+                return
+            got.append(json.loads(payload)["seq"])
+    except (ConnectionError, asyncio.IncompleteReadError):
+        return
+
+
+async def _read_sse(reader, got: list) -> None:
+    while True:
+        line = await reader.readline()
+        if not line:
+            return
+        if line.startswith(b"id:"):
+            got.append(int(line[3:].strip()))
+
+
+def fan_drive(engine, ticks, script: dict, rec: dict, keep_pop: bool) -> dict:
+    """The ticks through ``consume_loop`` (phase 8's drive) with the
+    script applied: the protected users and the population subscribed and
+    synced (one full push) before the warm tick, the hub served on
+    127.0.0.1:0 with its WS and SSE watchers reading and the stalled
+    consumer (a 2-frame queue nobody drains) registered, each churn tick's
+    operations applied and synced before its klines are queued, and after
+    the crash the stalled consumer reconnected with its cursor. On the card
+    the device match is timed with CUDA events. ``keep_pop`` keeps, per
+    fired tick, the population the match ran against (the oracle check)."""
+    import torch
+
+    from binquant_tpu_torch.fanout import kernel as fk
+    from binquant_tpu_torch.fanout.hub import _Connection, ws_read_frame
+
+    plane = engine.fanout
+    reg = plane.subscriptions
+    timed = engine.device.type == "cuda"
+    out = {"syncs": [], "records": [], "on_fired_ms": [], "match_host_ms": [],
+           "append_ms": [], "match_device_ms": [], "outbox_bytes": [], "saves": 0,
+           "watch": {"watch_ws": [], "watch_sse": []}, "expect": {"watch_ws": [],
+                                                               "watch_sse": []}}
+    # checkpoint attempts finished (the consume loop saves in a worker
+    # thread; churn waits until the tick's save, sidecar included, is done)
+    saves = {"done": 0}
+    maybe_save = engine.checkpoint.maybe_save
+
+    def counted_save(eng):
+        try:
+            if maybe_save(eng):
+                out["saves"] += 1
+        finally:
+            saves["done"] += 1
+
+    engine.checkpoint.maybe_save = counted_save
+    # the on_fired split: the match (host, and the device part by CUDA
+    # events on the card), the outbox appends, the rest (popcounts, frames)
+    on_fired, match, append = plane.on_fired, plane.match, plane.outbox.append
+    spent = {"match": 0.0, "append": 0.0}
+
+    def timed_match(fired, ctx):
+        t = time.perf_counter()
+        try:
+            return match(fired, ctx)
+        finally:
+            spent["match"] += (time.perf_counter() - t) * 1000.0
+
+    def timed_append(frame, words):
+        t = time.perf_counter()
+        try:
+            return append(frame, words)
+        finally:
+            spent["append"] += (time.perf_counter() - t) * 1000.0
+
+    planes_match = fk.match_planes
+
+    def device_timed_match(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        words = planes_match(*args)
+        end.record()
+        end.synchronize()
+        out["match_device_ms"].append((int(args[5].shape[0]), start.elapsed_time(end)))
+        return words
+
+    def spy(fired, ctx, tick_ms=None):
+        spent["match"] = spent["append"] = 0.0
+        size0 = plane.outbox.path.stat().st_size
+        t = time.perf_counter()
+        stats = on_fired(fired, ctx, tick_ms=tick_ms)
+        out["on_fired_ms"].append((tick_ms, len(fired), (time.perf_counter() - t) * 1000.0))
+        out["match_host_ms"].append(spent["match"])
+        out["append_ms"].append(spent["append"])
+        out["outbox_bytes"].append(plane.outbox.path.stat().st_size - size0)
+        regime = int(ctx.get("market_regime", -1))
+        valid = bool(ctx.get("valid", False))
+        out["records"].append({
+            "tick_ms": tick_ms,
+            "ctx": {"market_regime": regime, "valid": valid},
+            "regime": regime if valid and 0 <= regime < 5 else None,
+            "pop": [(r.slot, r.sub) for r in reg._records.values()] if keep_pop else None,
+            "signals": [(s, s.fanout_frame[0], np.array(s.fanout_frame[1])) for s in fired],
+        })
+        return stats
+
+    plane.on_fired, plane.match, plane.outbox.append = spy, timed_match, timed_append
+    if timed:
+        fk.match_planes = device_timed_match
+    # what the hub broadcast (the delivery plane's fanout lane delivers it)
+    broadcast = plane.hub.broadcast
+    slots: dict[str, int] = {}
+
+    def recorded_broadcast(frame, words, t_pub=None):
+        for user in ("watch_ws", "watch_sse"):
+            s = slots[user]
+            if s >> 5 < len(words) and int(words[s >> 5]) >> (s & 31) & 1:
+                out["expect"][user].append(int(frame["seq"]))
+        return broadcast(frame, words, t_pub=t_pub)
+
+    plane.hub.broadcast = recorded_broadcast
+
+    def sync(t: int, kind_want: str) -> None:
+        cells = len(reg.dirty_cells) + len(reg.dirty_floor_words)
+        gen = reg.capacity_generation
+        t0 = time.perf_counter()
+        kind = plane.sync_device()
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1000.0
+        words = plane._device.last_delta_words if kind == "incremental" else None
+        out["syncs"].append((t, kind, ms, words, cells, gen))
+
+    t0 = time.perf_counter()
+    for sub in script["protected"]:
+        plane.subscribe(sub)
+    plane.bulk_load(script["population"])
+    out["bulk_load_ms"] = (time.perf_counter() - t0) * 1000.0
+    sync(0, "full")
+    for user in ("watch_ws", "watch_sse", "stalled"):
+        slots[user] = reg.slot_of(user)
+    clients: dict = {}
+
+    async def start() -> None:
+        port = await plane.serve(0, host="127.0.0.1")
+        r_ws, w_ws = await _ws_client(port, "watch_ws")
+        r_sse, w_sse = await _sse_client(port, "watch_sse")
+        clients.update(port=port, writers=[w_ws, w_sse], tasks=[
+            asyncio.create_task(_read_ws(r_ws, out["watch"]["watch_ws"])),
+            asyncio.create_task(_read_sse(r_sse, out["watch"]["watch_sse"]))])
+        clients["stalled"] = _Connection("stalled", slots["stalled"], "ws", queue_max=2)
+        plane.hub._conns.add(clients["stalled"])
+
+    async def before_tick(n: int) -> None:
+        # the previous tick settled and no klines are queued, so the consume
+        # loop is idle: wait for its checkpoint save (sidecar included)
+        while saves["done"] < engine.ticks_processed // FAN_EVERY:
+            await asyncio.sleep(0.005)
+        step = script["ticks"].get(n)
+        if step is None:
+            return
+        for op, arg in step["ops"]:
+            getattr(plane, op)(arg)
+        if "mob" in step:
+            plane.bulk_load(step["mob"])
+        for uid in step.get("wave", ()):
+            plane.unsubscribe(uid)
+        sync(n, "incremental")
+
+    async def after_ticks() -> None:
+        for user in ("watch_ws", "watch_sse"):
+            for _ in range(600):
+                if len(out["watch"][user]) >= len(out["expect"][user]):
+                    break
+                await asyncio.sleep(0.05)
+        stalled = clients["stalled"]
+        plane.hub._conns.discard(stalled)
+        out["stalled"] = {"dropped": stalled.dropped, "queued": stalled.queue.qsize()}
+        floor = plane._slot_min_seq.get(slots["stalled"], 0)
+        s = slots["stalled"]
+        want = [int(f["seq"]) for f, w in plane.outbox.entries()
+                if int(f["seq"]) >= floor and s >> 5 < len(w) and int(w[s >> 5]) >> (s & 31) & 1]
+        t0 = time.perf_counter()
+        reader, writer = await _ws_client(clients["port"], "stalled", cursor="-1")
+        got = []
+        for _ in want:
+            opcode, payload = await asyncio.wait_for(ws_read_frame(reader), 60)
+            got.append(json.loads(payload)["seq"])
+        out["stalled"]["replay_ms"] = (time.perf_counter() - t0) * 1000.0
+        try:
+            extra = await asyncio.wait_for(ws_read_frame(reader), 0.5)
+            got.append(("extra", extra))
+        except (asyncio.TimeoutError, TimeoutError):
+            pass
+        out["stalled"].update(want=want, got=got)
+        writer.close()
+        for w in clients["writers"]:
+            w.close()
+        out["hub"] = plane.hub.snapshot()
+        out["verdict"] = engine.slo.verdict()
+        out["health"] = engine.health_snapshot()
+
+    counters0 = _fan_counters()
+    try:
+        run = asyncio.run(obs_drive(engine, ticks, rec, start=start, before_tick=before_tick,
+                                    after_ticks=after_ticks))
+    finally:
+        fk.match_planes = planes_match
+    delta = {}
+    for key, v in _fan_counters().items():
+        v0 = counters0.get(key, 0.0 if not isinstance(v, tuple) else (0, 0.0))
+        delta[key] = (v - v0) if not isinstance(v, tuple) else (v[0] - v0[0], v[1] - v0[1])
+    out["outbox"] = [(f, np.asarray(w)) for f, w in plane.outbox.entries()]
+    out.update(run=run, counters=delta, compactions=plane.compactions,
+               recompiles=dict(plane.recompiles), published=plane.published,
+               matched=plane.matched_recipients, dispatches=plane.match_dispatches,
+               capacity=reg.capacity, slots=slots)
+    return out
+
+
+class PopOracle:
+    """``Subscription.matches`` (the oracle's predicate) over a captured
+    population at once: per fired signal, the sorted slots it matches."""
+
+    def __init__(self, pop: list) -> None:
+        from binquant_tpu_torch.engine.step import STRATEGY_ORDER
+
+        n = len(pop)
+        index = {name: i for i, name in enumerate(STRATEGY_ORDER)}
+        self.index = index
+        self.slots = np.fromiter((slot for slot, _ in pop), np.int64, n)
+        self.floors = np.fromiter((sub.min_strength for _, sub in pop), np.float32, n)
+        self.strat_ok = np.zeros((n, len(STRATEGY_ORDER)), bool)
+        self.reg_ok = np.zeros((n, 5), bool)
+        self.reg_any = np.zeros(n, bool)
+        self.sym_any = np.zeros(n, bool)
+        self.by_sym: dict[str, list[int]] = {}
+        for i, (_, sub) in enumerate(pop):
+            if sub.strategies is None:
+                self.strat_ok[i] = True
+            else:
+                self.strat_ok[i, [index[x] for x in sub.strategies]] = True
+            if sub.regimes is None:
+                self.reg_ok[i] = self.reg_any[i] = True
+            else:
+                self.reg_ok[i, [int(r) for r in sub.regimes]] = True
+            if sub.symbols is None:
+                self.sym_any[i] = True
+            else:
+                for name in sub.symbols:
+                    self.by_sym.setdefault(name, []).append(i)
+
+    def slots_of(self, strategy: str, symbol: str, score: float, regime) -> np.ndarray:
+        m = self.strat_ok[:, self.index[strategy]] & (
+            self.reg_any if regime is None else self.reg_ok[:, regime])
+        m &= np.abs(np.float32(score)) >= self.floors
+        sym = self.sym_any.copy()
+        sym[self.by_sym.get(symbol.strip().upper(), [])] = True
+        return np.sort(self.slots[m & sym])
+
+
+def _masked_frame(frame: dict) -> dict:
+    return {k: v for k, v in frame.items() if k not in ("trace_id", "score", "recipients")}
+
+
+def check_fanout(m5, m15, card: str = "cuda") -> dict:
+    """Phase 9: the production loop with the fan-out plane on at its
+    defaults, 100,000 subscriptions and their churn, the hub served with
+    two watchers and a stalled consumer, on the card against a CPU engine
+    on the same script; a second card engine booted from the last archive
+    and its snapshot; then a 1,000,000-subscription match alone."""
+    from binquant_tpu_torch.engine.step import STRATEGY_ORDER
+    from binquant_tpu_torch.fanout.kernel import unpack_slots
+    from binquant_tpu_torch.fanout.registry import SubscriptionRegistry, _SlotRecord
+    from binquant_tpu_torch.fanout.snapshot import load_snapshot
+    from binquant_tpu_torch.io.checkpoint import CheckpointManager
+    from binquant_tpu_torch.io.replay import make_stub_engine
+    from binquant_tpu_torch.obs.events import EventLog, set_event_log
+    from binquant_tpu_torch.ops import quantile_tail as qt
+    from binquant_tpu_torch.regime.context import ContextConfig
+
+    def rec() -> dict:
+        return {"puts": [], "acked": {}, "ack_counts": {}, "lag_ms": {}, "queued": {},
+                "via_wal": set()}
+
+    t0 = time.perf_counter()
+    script = fan_script(np.random.default_rng(SEED + 9))
+    script_s = time.perf_counter() - t0
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        # -- the checked run: the card, with the event log
+        engine, ticks = fan_engine(card, tmp, m5, m15, "card")
+        card_rec = rec()
+        instrument(engine.delivery, card_rec)
+        events_path = tmp / "events.jsonl"
+        log = EventLog(events_path)
+        set_event_log(log)
+        qt.reset_launches()  # launches made elsewhere do not count
+        t0 = time.perf_counter()
+        main = fan_drive(engine, ticks, script, card_rec, keep_pop=True)
+        launches, launches_by_site = qt.launches, dict(qt.launches_by_site)
+        card_s = time.perf_counter() - t0
+        print(f"[slice fanout] card drive {card_s:.1f} s (script {script_s:.1f} s)", flush=True)
+        crash = main["records"][-1]
+        plane = engine.fanout
+        # -- a second card engine boots from the last archive and its sidecar
+        paths = {k: str(tmp / f"card.{k}") for k in ("outbox.jsonl", "fanout.npz", "ckpt.npz")}
+        archive, _, meta = load_snapshot(paths["fanout.npz"])
+        boot = make_stub_engine(
+            capacity=S, window=W, context_config=ContextConfig(), device=card, delivery=False,
+            fanout=True, fanout_overrides=dict(fanout_outbox_path=paths["outbox.jsonl"],
+                                               fanout_snapshot_path=paths["fanout.npz"]),
+            **OBS_OFF,
+        )
+        restored = {name: getattr(boot.fanout.subscriptions, name).copy()
+                    for name in archive}
+        if not CheckpointManager(paths["ckpt.npz"]).try_restore(boot):
+            fail("fanout: the second engine did not restore the last checkpoint")
+        boot_kind = boot.fanout.sync_device()
+        boot_planes = dict(zip(("sym_plane", "strat_plane", "regime_plane", "any_masks",
+                                "floors"), boot.fanout._device.host_planes()))
+        boot_words = boot.fanout.match([s for s, _, _ in crash["signals"]], crash["ctx"])
+        # the crash tick's match again, warm (in the drive it was the first
+        # match of its bucket: the allocator's first blocks of that size)
+        sigs = [s for s, _, _ in crash["signals"]]
+        _, crash_warm_ms, crash_peak = timed_match(
+            boot.fanout._device, [boot.registry.row_of(s.symbol) for s in sigs],
+            [STRATEGY_ORDER.index(s.strategy) for s in sigs],
+            [float(s.value.score or 0.0) for s in sigs], boot.fanout.regime_row(crash["ctx"]))
+        set_event_log(None)
+        log.close()
+        events = [json.loads(x) for x in events_path.read_text().splitlines()]
+        del boot
+        # -- the reference: a CPU engine on the same script
+        cpu, cpu_ticks = fan_engine("cpu", tmp, m5, m15, "cpu")
+        cpu_rec = rec()
+        instrument(cpu.delivery, cpu_rec)
+        t0 = time.perf_counter()
+        ref = fan_drive(cpu, cpu_ticks, script, cpu_rec, keep_pop=False)
+        cpu_s = time.perf_counter() - t0
+        print(f"[slice fanout] cpu drive {cpu_s:.1f} s", flush=True)
+
+    # -- the tick: routing, qtail per site, as phase 8
+    run, ref_run = main["run"], ref["run"]
+    if run["paths"] != ref_run["paths"] or run["overflowed"] != ref_run["overflowed"]:
+        fail(f"fanout: routing {run['paths']} / overflows {run['overflowed']} vs the cpu's "
+             f"{ref_run['paths']} / {ref_run['overflowed']}")
+    if run["sites"] != ref_run["sites"]:
+        fail(f"fanout: qtail launches by site {run['sites']} != the twin's calls on the cpu "
+             f"{ref_run['sites']}")
+    for path, sites, over in zip(run["paths"], run["sites"], run["overflowed"]):
+        want = dict(EXPECT_SITES[path])
+        for k, v in (_expected_sites(path, dormant=True) if over else {}).items():
+            want[k] = want.get(k, 0) + v
+        if sites != want:
+            fail(f"fanout: a {path} tick launched {sites}, expected {want}")
+    # -- syncs: one full push for the load, the growth and the compaction,
+    # one incremental per other churn tick, O(cells touched) each
+    kinds = [(t, k) for t, k, *_ in main["syncs"]]
+    want_kinds = [(0, "full")] + [
+        (t, "full" if t in (FAN_MOB_TICK, FAN_WAVE_TICK) else "incremental")
+        for t in FAN_CHURN_TICKS]
+    if kinds != want_kinds or [(t, k) for t, k, *_ in ref["syncs"]] != want_kinds:
+        fail(f"fanout: syncs {kinds} (cpu {[(t, k) for t, k, *_ in ref['syncs']]}), "
+             f"expected {want_kinds}")
+    ops = sum(FAN_CHURN)
+    for t, kind, _, words, cells, _ in main["syncs"]:
+        if kind == "incremental" and not (words == cells and 0 < words <= 48 * ops):
+            fail(f"fanout: tick {t} patched {words} words for {cells} dirty cells")
+    if main["recompiles"] != {"full": 3, "incremental": len(FAN_CHURN_TICKS) - 2} or (
+            main["compactions"] != 1 or main["recompiles"] != ref["recompiles"]):
+        fail(f"fanout: recompiles {main['recompiles']} (cpu {ref['recompiles']}), "
+             f"compactions {main['compactions']}")
+    # -- the card against the oracle, on the card's own fired signals
+    checked = sampled = 0
+    oracle_ms = []
+    for r in main["records"]:
+        oracle = PopOracle(r["pop"])
+        uid_of = {slot: sub.user_id for slot, sub in r["pop"]}
+        for sig, frame, words in r["signals"]:
+            got = unpack_slots(words)
+            want = oracle.slots_of(sig.strategy, sig.symbol, float(sig.value.score or 0.0),
+                                   r["regime"])
+            if not np.array_equal(got, want):
+                fail(f"fanout: {sig.strategy}/{sig.symbol} at {r['tick_ms']}: the card "
+                     f"matched {len(got)} slots, the oracle {len(want)}")
+            checked += 1
+        # match_oracle itself on a sample of the tick's signals, over a
+        # registry holding the captured records (match_oracle reads only them)
+        small = SubscriptionRegistry(S)
+        for slot, sub in r["pop"]:
+            small._records[sub.user_id] = _SlotRecord(sub=sub, slot=slot)
+        for sig, _, words in r["signals"][:: max(len(r["signals"]) // FAN_ORACLE_SAMPLE, 1)]:
+            t0 = time.perf_counter()
+            want = small.match_oracle(
+                [(sig.strategy, sig.symbol, float(sig.value.score or 0.0))], r["regime"])[0]
+            oracle_ms.append((time.perf_counter() - t0) * 1000.0)
+            if {uid_of[int(s)] for s in unpack_slots(words)} != want:
+                fail(f"fanout: {sig.strategy}/{sig.symbol}: match_oracle disagrees")
+            sampled += 1
+    # -- the card against the CPU engine, per (tick, strategy, symbol)
+    def keyed(records):
+        return {(r["tick_ms"], s.strategy, s.symbol): (s, f, w) for r in records
+                for s, f, w in r["signals"]}
+
+    kc, kr = keyed(main["records"]), keyed(ref["records"])
+    if set(kc) != set(kr):
+        fail(f"fanout: fired sets differ: card only {sorted(set(kc) - set(kr))[:5]}, "
+             f"cpu only {sorted(set(kr) - set(kc))[:5]}")
+    floor_of = {}  # per fired tick: each slot's floor (+inf where free)
+    for r in main["records"]:
+        fl = np.full(main["capacity"], np.inf, np.float32)
+        fl[[slot for slot, _ in r["pop"]]] = [sub.min_strength for _, sub in r["pop"]]
+        floor_of[r["tick_ms"]] = fl
+    margin = 0
+    for key, (sig, frame, words) in kc.items():
+        _, rframe, rwords = kr[key]
+        diff = unpack_slots(words ^ rwords)
+        score = abs(float(sig.value.score or 0.0))
+        away = np.abs(floor_of[key[0]][diff] - score) > FAN_ATOL + FAN_RTOL * score
+        if away.any():
+            fail(f"fanout: {key} slots {diff[away][:5]} (floors "
+                 f"{floor_of[key[0]][diff[away][:5]]}) differ between the card and the cpu "
+                 f"away from |score| {score}")
+        margin += len(diff)
+        if _masked_frame(frame) != _masked_frame(rframe) or not np.isclose(
+                frame["score"], rframe["score"], rtol=FAN_RTOL, atol=FAN_ATOL):
+            fail(f"fanout: {key} frames differ: {frame} vs {rframe}")
+    # -- the outbox holds exactly the published frames, in order
+    for side in (main, ref):
+        published = [(f, w) for r in side["records"] for _, f, w in r["signals"]]
+        if len(side["outbox"]) != len(published) or any(
+                f != pf or not np.array_equal(w, pw)
+                for (f, w), (pf, pw) in zip(side["outbox"], published)):
+            fail("fanout: the outbox differs from the published frames")
+    # -- the counters, card against cpu (recipients but for the margin)
+    cc, rc = main["counters"], ref["counters"]
+    timing = ("bqt_fanout_write_latency_ms", "bqt_fanout_conn_queue_depth")
+    for key in sorted(set(cc) | set(rc)):
+        a, b = cc.get(key, 0), rc.get(key, 0)
+        if key[0] in timing:
+            a, b = a[0] if a else 0, b[0] if b else 0
+        if key[0] == "bqt_fanout_matched_recipients_total":
+            if abs(a - b) > margin:
+                fail(f"fanout: recipients {a} vs the cpu's {b} beyond {margin} margin flips")
+        elif a != b:
+            fail(f"fanout: {key} {a} vs the cpu's {b}")
+    # -- the hub: watchers got exactly what was broadcast to them, the
+    # stalled consumer shed and then replayed exactly its outbox frames
+    for side in (main, ref):
+        for user in ("watch_ws", "watch_sse"):
+            if not side["expect"][user] or side["watch"][user] != side["expect"][user]:
+                fail(f"fanout: {user} received {len(side['watch'][user])} frames, the hub "
+                     f"broadcast {len(side['expect'][user])} to it")
+        st = side["stalled"]
+        if st["dropped"] < 1 or st["got"] != st["want"] or len(st["want"]) <= 2:
+            fail(f"fanout: the stalled consumer dropped {st['dropped']}, replayed "
+                 f"{len(st['got'])} of {len(st['want'])}")
+    hub = main["hub"]
+    watch_conns = [c for c in hub["connections"] if c["user"].startswith("watch_")]
+    if len(watch_conns) != 2 or any(c["dropped"] for c in watch_conns):
+        fail(f"fanout: watcher connections {watch_conns}")
+    if not main["verdict"]["invariants"]["fanout_recipient_set"]["ok"]:
+        fail(f"fanout: {main['verdict']['invariants']['fanout_recipient_set']}")
+    # -- the second engine's boot
+    for name, arr in archive.items():
+        if not (np.array_equal(restored[name], arr) and np.array_equal(boot_planes[name], arr)):
+            fail(f"fanout: the restored {name} differs from the archive's")
+    if boot_kind != "full" or not all(
+            np.array_equal(bw, w) for bw, (_, _, w) in zip(boot_words, crash["signals"])):
+        fail("fanout: the restored engine's first match differs from the crash tick's")
+
+    # -- numbers
+    def ev(kind):
+        return [e["duration_ms"] for e in events if e["event"] == kind]
+
+    saves = len(run["paths"]) // FAN_EVERY
+    if main["saves"] != saves or len(ev("fanout_snapshot_save")) != saves:
+        fail(f"fanout: {main['saves']} checkpoints and {len(ev('fanout_snapshot_save'))} "
+             f"snapshots saved, expected {saves} of each")
+
+    incr = [(t, ms, w) for t, k, ms, w, _, _ in main["syncs"] if k == "incremental"]
+    full = [(t, ms) for t, k, ms, *_ in main["syncs"] if k == "full"]
+    fired = [(r["tick_ms"], len(r["signals"])) for r in main["records"]]
+    lag = card_rec["lag_ms"].get("fanout", [])
+    result = {
+        "ticks": len(run["paths"]), "paths": run["paths"], "launches": launches,
+        "launches_by_site": launches_by_site, "fired": fired,
+        "users": FAN_USERS, "capacity": main["capacity"], "syncs": kinds,
+        "checked": checked, "oracle_sampled": sampled, "margin_flips": margin,
+        "match_device_ms": main["match_device_ms"],
+        "crash_match_warm": {"ms": crash_warm_ms, "peak_mib": crash_peak},
+        "incremental_sync": incr, "full_push_ms": full,
+        "on_fired_ms": main["on_fired_ms"], "match_host_ms": main["match_host_ms"],
+        "append_ms": main["append_ms"], "outbox_bytes": main["outbox_bytes"],
+        "fanout_lag_ms": {"p50": _p(lag, 50), "p99": _p(lag, 99), "acks": len(lag)}
+        if lag else None,
+        "hub": {k: hub[k] for k in ("frames_sent", "shed", "resumed", "tail_resumes",
+                                    "resume_fallbacks")},
+        "stalled": {k: v for k, v in main["stalled"].items() if k not in ("want", "got")}
+        | {"replayed": len(main["stalled"]["got"])},
+        "snapshot_save_ms": ev("fanout_snapshot_save"),
+        "snapshot_restore_ms": ev("fanout_snapshot_restore"),
+        "compact_ms": ev("fanout_compact"), "bulk_load_ms": main["bulk_load_ms"],
+        "match_oracle_ms": oracle_ms, "script_s": script_s, "card_s": card_s, "cpu_s": cpu_s,
+    }
+    result["million"] = fan_million(card)
+    on_crash = main["on_fired_ms"][-1]
+    print(f"[slice fanout] S={S} W={W}: {result['ticks']} ticks through consume_loop at "
+          f"production defaults with the plane on: {FAN_USERS} subscriptions bulk-loaded, "
+          f"churn {FAN_CHURN} on live ticks {FAN_CHURN_TICKS.start}-{FAN_CHURN_TICKS.stop - 1}, "
+          f"flash mob {FAN_MOB} on tick {FAN_MOB_TICK}, wave {FAN_WAVE} on tick "
+          f"{FAN_WAVE_TICK}; syncs {kinds}; fired {fired}; {checked} signals equal to the "
+          f"oracle ({sampled} to match_oracle itself), equal to the cpu's but for {margin} "
+          f"floor-margin flips; qtail launches {launches} {launches_by_site}; card run "
+          f"{card_s:.1f} s, cpu {cpu_s:.1f} s")
+    print("[slice fanout] match device ms per fired bucket in the drive (fired/bucket ms): "
+          + ", ".join(f"{n}/{kb} {ms:.4f}" for (_, n), (kb, ms)
+                      in zip(fired, main["match_device_ms"]))
+          + (f"; the crash tick's {fired[-1][1]} signals again, warm: {crash_warm_ms:.4f} ms, "
+             f"peak {crash_peak:.1f} MiB above the planes" if crash_warm_ms is not None else ""))
+    print("[slice fanout] full push ms: " + ", ".join(f"t{t} {ms:.2f}" for t, ms in full)
+          + "; incremental sync ms / delta words per churn tick: "
+          + ", ".join(f"t{t} {ms:.2f}/{w}" for t, ms, w in incr))
+    print("[slice fanout] on_fired host ms per fired tick (signals: total / match / "
+          "outbox append / rest): " + ", ".join(
+              f"{n}: {tot:.1f} / {m:.1f} / {a:.1f} / {tot - m - a:.1f}" for (_, n, tot), m, a in
+              zip(main["on_fired_ms"], main["match_host_ms"], main["append_ms"]))
+          + f"; crash tick {on_crash[2]:.1f} ms for {on_crash[1]} signals, its outbox "
+          f"{main['outbox_bytes'][-1] / 2**20:.2f} MB")
+    if lag:
+        print(f"[slice fanout] fanout sink queue->ack lag p50 {_p(lag, 50):.2f} p99 "
+              f"{_p(lag, 99):.2f} ms ({len(lag)} acks)")
+    print(f"[slice fanout] hub {result['hub']}; stalled consumer {result['stalled']}; "
+          f"snapshot save ms {result['snapshot_save_ms']}, restore ms "
+          f"{result['snapshot_restore_ms']}, compaction ms {result['compact_ms']}, "
+          f"bulk load {main['bulk_load_ms']:.0f} ms, match_oracle ms/signal p50 "
+          f"{_p(oracle_ms, 50):.1f}")
+    return result
+
+
+def timed_match(dev, rows, strats, scores, regime: int):
+    """One match of ``len(rows)`` fired slots on ``dev``'s planes (no
+    padding): its words, and on the card its warm device ms (CUDA events
+    over FAN_MATCH_REPS calls after one warm call) and the peak device MiB
+    it allocates above what was resident."""
+    import torch
+
+    from binquant_tpu_torch.fanout import kernel as fk
+
+    device = dev.device
+    args = (*dev._arrays, torch.from_numpy(np.asarray(rows, np.int64)).to(device),
+            torch.from_numpy(np.asarray(strats, np.int64)).to(device),
+            torch.from_numpy(np.asarray(scores, np.float32)).to(device),
+            torch.ones(len(rows), dtype=torch.bool, device=device), int(regime))
+    words = fk.match_planes(*args)
+    if device.type != "cuda":
+        return fk.to_host_words(words), None, None
+    torch.cuda.synchronize()
+    del words
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(FAN_MATCH_REPS):
+        words = fk.match_planes(*args)
+    end.record()
+    end.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    return fk.to_host_words(words), start.elapsed_time(end) / FAN_MATCH_REPS, peak
+
+
+def fan_million(card: str) -> dict:
+    """1,000,000 subscriptions of the population's mix bulk-loaded and
+    pushed to the card; one match at each K of FAN_MATCH_K timed by CUDA
+    events (warm, FAN_MATCH_REPS calls) with its peak device memory above
+    the resident planes; K=8 against the CPU torch path, K=2048 against
+    ``match_oracle`` on 1,000 sampled users."""
+    import torch
+
+    from binquant_tpu_torch.engine.step import STRATEGY_ORDER
+    from binquant_tpu_torch.fanout import kernel as fk
+    from binquant_tpu_torch.fanout.registry import SubscriptionRegistry
+
+    rng = np.random.default_rng(SEED + 10)
+    names = symbols()
+    row_of = {name: r for r, name in enumerate(names)}.get
+    t0 = time.perf_counter()
+    subs = fan_subscriptions(rng, FAN_MILLION, "m")
+    build_s = time.perf_counter() - t0
+    reg = SubscriptionRegistry(S, capacity=FAN_MILLION)
+    t0 = time.perf_counter()
+    reg.bulk_load(subs, row_of=row_of)
+    bulk_s = time.perf_counter() - t0
+    dev = fk.DevicePlanes(reg, device=card)
+    t0 = time.perf_counter()
+    if dev.sync() != "full":
+        fail("fanout 1M: the first sync was not a full push")
+    if card == "cuda":
+        torch.cuda.synchronize()
+    push_ms = (time.perf_counter() - t0) * 1000.0
+    out = {"users": FAN_MILLION, "capacity": reg.capacity, "build_s": build_s,
+           "bulk_load_s": bulk_s, "full_push_ms": push_ms, "k": {}}
+    kept = {}
+    for k in FAN_MATCH_K:
+        rows = rng.integers(0, S, k)
+        strats = rng.integers(0, 5, k)
+        scores = rng.normal(0.0, 2.0, k).astype(np.float32)
+        regime = int(rng.integers(0, 6))  # 5: the invalid-context row
+        words, ms, peak = timed_match(dev, rows, strats, scores, regime)
+        if ms is not None:
+            out["k"][k] = {"ms": ms, "peak_mib": peak}
+        kept[k] = (rows, strats, scores, regime, words)
+    # K=8: the card against the CPU torch path on the same registry
+    rows, strats, scores, regime, words = kept[8]
+    cpu = fk.DevicePlanes(reg, device="cpu")
+    cpu.sync()
+    if not np.array_equal(cpu.match(rows, strats, scores, regime), words):
+        fail("fanout 1M: the K=8 match differs from the CPU torch path")
+    # K=2048: the card against match_oracle on 1,000 sampled users
+    rows, strats, scores, regime, words = kept[2048]
+    sample = [subs[i] for i in rng.choice(FAN_MILLION, 1000, replace=False)]
+    small = SubscriptionRegistry(S, capacity=1024)
+    small.bulk_load(sample, row_of=row_of)
+    t0 = time.perf_counter()
+    oracle = small.match_oracle(
+        [(STRATEGY_ORDER[s], names[r], float(x)) for r, s, x in zip(rows, strats, scores)],
+        None if regime == 5 else regime)
+    oracle_s = time.perf_counter() - t0
+    slot_of = {sub.user_id: reg.slot_of(sub.user_id) for sub in sample}
+    hits = 0
+    for k in range(len(rows)):
+        row = words[k]
+        got = {u for u, s in slot_of.items() if int(row[s >> 5]) >> (s & 31) & 1}
+        if got != oracle[k]:
+            fail(f"fanout 1M: K=2048 entry {k} differs from match_oracle")
+        hits += len(got)
+    out.update(oracle_s=oracle_s, sampled_hits=hits)
+    print(f"[slice fanout] 1M: {FAN_MILLION} subscriptions built in {build_s:.1f} s, "
+          f"bulk-loaded in {bulk_s:.1f} s, full push {push_ms:.1f} ms; match ms (peak MiB "
+          "above the planes) per K: " + ", ".join(
+              f"K={k} {v['ms']:.4f} ({v['peak_mib']:.1f})" for k, v in out["k"].items())
+          + f"; K=8 equal to the cpu path, K=2048 equal to match_oracle on 1000 sampled users "
+          f"({hits} hits, oracle {oracle_s:.1f} s)")
+    del dev
+    torch_empty_cache()
+    return out
+
+
 def torch_empty_cache() -> None:
     import gc
 
@@ -3113,6 +3957,10 @@ def main() -> int:
     # phase 8: the tick's default observability, on phase 5's market
     observability = check_observability(cm5, cm15)
     lap("observability")
+    torch_empty_cache()
+    # phase 9: the subscription fan-out plane, on phase 5's market
+    fanout = check_fanout(cm5, cm15)
+    lap("fanout")
     slices = {
         "classic": {k: v for k, v in classic.items()
                     if k not in ("fired", "indicators", "tick_times")},
@@ -3122,6 +3970,7 @@ def main() -> int:
         "service": service,
         "delivery": delivery,
         "observability": {k: v for k, v in observability.items() if k != "paths"},
+        "fanout": {k: v for k, v in fanout.items() if k != "paths"},
     }
     if "--profile" in sys.argv[1:]:
         slices["profile"] = profile_slice(m5, m15, cm5, cm15)
@@ -3130,7 +3979,7 @@ def main() -> int:
     by_site: dict[str, int] = {}
     drives = {"classic": classic, "incremental": incremental, "dormant": dormant,
               "pipelined": pipelined, "service": service, "delivery": delivery,
-              "observability": observability}
+              "observability": observability, "fanout": fanout}
     for run in drives.values():
         for k, v in run["launches_by_site"].items():
             by_site[k] = by_site.get(k, 0) + v

@@ -169,7 +169,8 @@ def test_stub_breadth_schedule_feeds_both_engines():
         {"timestamp": [2, 3], "market_breadth": [0.35, 0.2], "market_breadth_ma": [0.31, 0.29]},
     ]}
     j = jreplay.make_stub_engine(capacity=8, window=130, breadth=schedule)
-    t = treplay.make_stub_engine(capacity=8, window=130, breadth=schedule, device="cpu")
+    t = treplay.make_stub_engine(capacity=8, window=130, breadth=schedule, device="cpu",
+                                 fanout=False)
     seen = []
 
     async def go():

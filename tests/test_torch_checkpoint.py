@@ -65,7 +65,7 @@ def seq(tmp_path_factory):
 
 def _port(**kw):
     return treplay.make_stub_engine(capacity=CAP, window=WIN, device="cpu",
-                                    carry_audit_every=48, **kw)
+                                    carry_audit_every=48, fanout=False, **kw)
 
 
 def _drive(engine, ticks, flush: bool = True) -> list:

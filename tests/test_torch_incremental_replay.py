@@ -122,7 +122,7 @@ def test_incremental_replay_routing_counts_equal_reference(runs, counter):
 @pytest.fixture(scope="module")
 def pipelined(replay_path):
     engine = treplay.make_stub_engine(capacity=CAPACITY, window=WINDOW, device="cpu",
-                                      incremental=True, carry_audit_every=16)
+                                      incremental=True, carry_audit_every=16, fanout=False)
     assert engine.pipeline_depth == 1 and engine._donation_mode() == "single"
     assert engine.numeric_digest and engine.ingest_digest and engine.drift_meter_enabled
     sig, numeric = _drive_recorded(engine, replay_path)
@@ -229,7 +229,7 @@ def test_routing_reasons_match_reference_tick_by_tick(replay_path, runs):
                                         carry_audit_every=7)
         jout = _drive_counted(jeng, script)
     teng = treplay.make_stub_engine(capacity=CAPACITY, window=WINDOW, incremental=True,
-                                    carry_audit_every=7, device="cpu", **SERIAL)
+                                    carry_audit_every=7, device="cpu", fanout=False, **SERIAL)
     tout = _drive_counted(teng, script)
     for i, (j, t) in enumerate(zip(jout, tout, strict=True)):
         assert t == j, f"tick {i}: port {t[:3]} vs reference {j[:3]}"

@@ -38,6 +38,7 @@ def test_import_pulls_in_no_jax_and_no_reference_module():
         "import binquant_tpu_torch.obs.delivery_health, binquant_tpu_torch.obs.exposition\n"
         "import binquant_tpu_torch.obs.ledger, binquant_tpu_torch.io.metrics\n"
         "import binquant_tpu_torch.io.websocket\n"
+        "import binquant_tpu_torch.fanout, binquant_tpu_torch.fanout.snapshot\n"
         "import asyncio\n"
         "import torch.profiler\n"
         "made = []\n"
@@ -50,7 +51,8 @@ def test_import_pulls_in_no_jax_and_no_reference_module():
         "from binquant_tpu_torch.io.replay import StubSession, make_stub_engine\n"
         "from binquant_tpu_torch.schemas import BotBase, SignalsConsumer\n"
         "eng = make_stub_engine(capacity=8, window=96, device='cpu')\n"
-        "assert eng.delivery is not None\n"
+        "assert eng.delivery is not None and eng.fanout is not None\n"
+        "assert eng.fanout._device.device.type == 'cpu'\n"
         "value = SignalsConsumer(autotrade=True, symbol='XUSDT', algorithm_name='mrf',\n"
         "                        bot_params=BotBase(pair='XUSDT', name='mrf'))\n"
         "sig = FiredSignal('mrf', 'XUSDT', 0, value, '- Action: LONG ENTRY\\n#XUSDT', {})\n"
@@ -202,3 +204,23 @@ def test_state_constructors_take_no_default_device(ctor):
     built = calls[ctor](device="cpu")
     leaves = [t for t in torch.utils._pytree.tree_leaves(built) if isinstance(t, torch.Tensor)]
     assert leaves and all(t.device.type == "cpu" for t in leaves)
+
+
+@pytest.mark.parametrize("ctor", ["DevicePlanes", "FanoutPlane"])
+def test_fanout_planes_take_no_default_device(ctor):
+    """The fan-out plane's device copy names its device, as the state
+    constructors do: the engine hands it its own."""
+    from binquant_tpu_torch.engine.buffer import SymbolRegistry
+    from binquant_tpu_torch.fanout import kernel, plane, registry
+
+    def make(**kw):
+        if ctor == "DevicePlanes":
+            return kernel.DevicePlanes(registry.SubscriptionRegistry(4, capacity=32), **kw)
+        return plane.FanoutPlane(SymbolRegistry(4), **kw)._device
+
+    with pytest.raises(TypeError, match="device"):
+        make()
+    planes = make(device="cpu")
+    planes.registry.add(registry.Subscription("amy"))
+    assert planes.sync() == "full"
+    assert all(t.device.type == "cpu" for t in planes._arrays)

@@ -149,7 +149,7 @@ def replayed(tmp_path_factory):
     assert seq == jreplay.tick_seq(path)
     j = jreplay.make_stub_engine(capacity=CAPACITY, window=WINDOW, incremental=False)
     t = treplay.make_stub_engine(capacity=CAPACITY, window=WINDOW, device="cpu",
-                                 incremental=False, **SERIAL)
+                                 incremental=False, fanout=False, **SERIAL)
     out = {"j": {"calib": []}, "t": {"calib": []}}
     for key, eng in (("j", j), ("t", t)):
         eng._run_leverage_calibration = (

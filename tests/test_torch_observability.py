@@ -635,7 +635,7 @@ def production_drives(tmp_path_factory):
         )
         t = treplay.make_stub_engine(
             capacity=S, window=W, device="cpu", delivery_wal=str(tmp / "t.wal.jsonl"),
-            session=FuturesFakeSession(),
+            session=FuturesFakeSession(), fanout=False,
         )
         j.telegram_consumer._min_send_interval_seconds = 0.0
         for eng, api, ev in ((j, JBinbotApi, jevents), (t, TBinbotApi, tevents)):

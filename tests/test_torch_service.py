@@ -98,7 +98,7 @@ def test_backfill_matches_reference(stream):
     jeng = jreplay.make_stub_engine(capacity=CAP, window=WIN, incremental=True,
                                     carry_audit_every=48)
     teng = treplay.make_stub_engine(capacity=CAP, window=WIN, device="cpu", incremental=True,
-                                    carry_audit_every=48, **SERIAL)
+                                    carry_audit_every=48, fanout=False, **SERIAL)
     jfetch, _ = _fetcher(history)
     tfetch, calls = _fetcher(history)
     jn = jeng.backfill(symbols, jfetch, now_ms=now_ms, chunk=3, concurrency=4)

@@ -53,10 +53,12 @@ from tests.test_autotrade_gates import FuturesFakeSession
 torch.set_num_threads(1)
 
 # the observability knobs the reference engine runs with here (its
-# trace_sample/freshness arguments and the test lane's pins): the port's
-# engine takes the same, so both hand the sinks the same payloads
+# trace_sample/freshness arguments and the test lane's pins) and its
+# pinned-off fan-out plane: the port's engine takes the same, so both hand
+# the same sinks the same payloads
 REFERENCE_PINS = dict(
-    trace_sample=0.0, freshness=False, host_phase=False, slo=False, delivery_health=False
+    trace_sample=0.0, freshness=False, host_phase=False, slo=False, delivery_health=False,
+    fanout=False,
 )
 
 JSON_UTC = re.compile(r"^\d{4}-\d{2}-\d{2}T\d{2}:\d{2}:\d{2}(\.\d{6})?Z$")
