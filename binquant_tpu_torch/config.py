@@ -82,7 +82,20 @@ pipelined production loop:
   checkpoint (empty: none); ``fanout_compact_frac`` the freed/claimed slot
   fraction past which an unsubscribe compacts the planes (0: never);
   ``fanout_resume_tail`` the hub's in-memory ring of recent frames that
-  serves a reconnect's cursor without an outbox scan (0: no ring).
+  serves a reconnect's cursor without an outbox scan (0: no ring);
+* the multi-tick drives, read from the reference's environment variables
+  when the Config is built (not at import): ``scan_chunk``
+  (``BQT_SCAN_CHUNK``, 64) bounds the ticks of one chunk of the scanned
+  drive (``SignalEngine.process_ticks_scanned``) and the sub-batch slots of
+  one deep update-only fold; ``backtest_chunk`` (``BQT_BACKTEST_CHUNK``, 16)
+  the ticks of one time-batched backtest chunk (``backtest/``), whose
+  ``(T, S, W, F)`` window views make it the backend's memory knob;
+  ``ext_invariant`` (``BQT_EXT_INVARIANT``, on) runs the backtest chunk's
+  feature packs, symbol features and BTC block once over the ``(S, W+N)``
+  extension instead of per tick over the views, held to the gate-margin
+  contract instead of bit equality; ``sweep_mem_budget_mb``
+  (``BQT_SWEEP_MEM_BUDGET_MB``, 1024) the device-memory budget from which
+  ``run_param_sweep`` derives its chunk when none is given.
 """
 
 from __future__ import annotations
@@ -90,6 +103,11 @@ from __future__ import annotations
 import os
 import tempfile
 from dataclasses import dataclass, field
+
+
+def _env_int(name: str, default: int) -> int:
+    """An integer knob from the environment; unset or empty is ``default``."""
+    return int(os.environ.get(name, "") or default)
 
 
 @dataclass
@@ -161,6 +179,14 @@ class Config:
     fanout_snapshot_shards: int = 0
     fanout_compact_frac: float = 0.5
     fanout_resume_tail: int = 1024
+    scan_chunk: int = field(default_factory=lambda: _env_int("BQT_SCAN_CHUNK", 64))
+    backtest_chunk: int = field(default_factory=lambda: _env_int("BQT_BACKTEST_CHUNK", 16))
+    ext_invariant: bool = field(
+        default_factory=lambda: os.environ.get("BQT_EXT_INVARIANT", "1") == "1"
+    )
+    sweep_mem_budget_mb: int = field(
+        default_factory=lambda: _env_int("BQT_SWEEP_MEM_BUDGET_MB", 1024)
+    )
     telegram_bot_token: str = ""
     telegram_user_id: str = ""
     env: str = field(default_factory=lambda: os.environ.get("ENV", ""))

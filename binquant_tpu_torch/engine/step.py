@@ -19,6 +19,13 @@ reference donates its state at ``pipeline_depth <= 1``. A caller of the
 in-place form must not read the input state's rings as pre-tick data
 afterwards.
 
+The multi-tick drives' device side: :func:`tick_step_scan` runs a chunk of
+replayed ticks (each :func:`_fold_and_step_wire`: the folds, then the wire
+step) as one device-side loop with the grid-only policy's feedback on the
+card, and :func:`apply_updates_scan` (:func:`apply_updates_scan_counted`)
+folds a deep update-only drain; :func:`unpack_wire_block` decodes a chunk's
+stacked wires in one pass.
+
 Off the step, :func:`measure_carry_drift` is the audit tick's carry-drift
 meter: the carried indicator state advanced by the tick's updates against a
 fresh init from the post-update windows, per family.
@@ -71,6 +78,7 @@ from binquant_tpu_torch.engine.buffer import (
     ring_latest_times,
     route_updates,
 )
+from binquant_tpu_torch.enums import MarketRegimeCode
 from binquant_tpu_torch.ops.incremental import (
     BetaCorrCarry,
     SupertrendCarry,
@@ -609,6 +617,21 @@ def _diag_kind(arr: torch.Tensor) -> str:
     return "f"
 
 
+_ENABLED_MASKS: dict[tuple, torch.Tensor] = {}
+
+
+def enabled_strategy_mask(wire_enabled, device) -> torch.Tensor:
+    """(N,) bool over ``STRATEGY_ORDER``: the strategies on the wire. Built
+    once per (set, device) and kept there, so a tick makes no upload (a
+    blocking copy would synchronize the host with the card)."""
+    key = (tuple(wire_enabled), str(device))
+    mask = _ENABLED_MASKS.get(key)
+    if mask is None:
+        mask = torch.tensor([s in wire_enabled for s in STRATEGY_ORDER]).to(device)
+        _ENABLED_MASKS[key] = mask
+    return mask
+
+
 def _compact_fired(flat_trig: torch.Tensor, K: int) -> torch.Tensor:
     """(K,) int64 flat indices of the first K True entries, ascending, -1
     padded — ``jnp.nonzero(size=K, fill_value=-1)`` without a data-dependent
@@ -1036,9 +1059,7 @@ def pack_wire(
 
     # fired (strategy, row) compaction, strategy-major, enabled set only
     K = WIRE_MAX_FIRED
-    enabled_mask = torch.tensor(
-        [s in wire_enabled for s in STRATEGY_ORDER], dtype=torch.bool, device=dev
-    )
+    enabled_mask = enabled_strategy_mask(wire_enabled, dev)
     flat_trig = (summary.trigger & enabled_mask[:, None]).reshape(-1)
     n_fired = flat_trig.sum().to(F32)
     idx = _compact_fired(flat_trig, K)
@@ -1596,6 +1617,151 @@ def apply_updates_carry_step_counted(
     return _advance_folded(state, buf5, buf15, btc_row), counts
 
 
+# --- the multi-tick drives' device side ---------------------------------------
+# The scanned drive (``SignalEngine.process_ticks_scanned``) runs T replayed
+# ticks as one device-side loop: the stacked inputs are uploaded once, and
+# nothing inside the loop reads the card from the host, so the host issues
+# the whole chunk before the one copy of the stacked wires. Nothing here
+# writes its input state: the caller keeps it as the overflow re-drive's
+# anchor.
+
+
+def apply_updates_scan(
+    state: EngineState, upd5_seq, upd15_seq, inplace: bool = False
+) -> EngineState:
+    """Update-only fold of T stacked sub-batch pairs, ``(rows (T, U), ts
+    (T, U), vals (T, U, F))`` per interval, in order: the loop form of T
+    :func:`apply_updates_step` folds (backfill and restore catch-up). Padding
+    slots (rows -1) are exact no-ops. The indicator carry is left untouched
+    (the caller marks it desynced)."""
+    for t in range(upd5_seq[0].shape[0]):
+        state = apply_updates_step(
+            state, tuple(x[t] for x in upd5_seq), tuple(x[t] for x in upd15_seq),
+            inplace=inplace,
+        )
+    return state
+
+
+def apply_updates_scan_counted(
+    state: EngineState, upd5_seq, upd15_seq, counts: torch.Tensor, inplace: bool = False
+) -> tuple[EngineState, torch.Tensor]:
+    """Counted twin of :func:`apply_updates_scan`: the (8,) ingest counts of
+    every folded slot accumulate into ``counts``."""
+    for t in range(upd5_seq[0].shape[0]):
+        state, counts = apply_updates_step_counted(
+            state, tuple(x[t] for x in upd5_seq), tuple(x[t] for x in upd15_seq),
+            counts, inplace=inplace,
+        )
+    return state, counts
+
+
+def _fold_and_step_wire(
+    state: EngineState,
+    upd5_slots,
+    upd15_slots,
+    inputs: HostInputs,
+    cfg: ContextConfig,
+    wire_enabled: tuple[str, ...],
+    incremental: bool,
+    maintain_carry: bool,
+    params=None,
+    numeric_digest: bool = False,
+    ingest_digest: bool = False,
+) -> tuple[EngineState, torch.Tensor]:
+    """One replayed tick of the scan: fold every sub-batch slot but the
+    last (the serial ``_fold_updates``; on the incremental path each fold
+    advances every carried family), then the wire step on the last slot.
+    ``upd*_slots`` are ``(rows (N, U), ts (N, U), vals (N, U, F))``; empty
+    slots (all rows -1) are exact no-ops on the rings and the carries. With
+    the ingest digest on, each fold slot's counts accumulate so the wire's
+    ingest block covers the tick's whole drain."""
+    n = upd5_slots[0].shape[0]
+    fold_counts = (
+        torch.zeros((8,), dtype=F32, device=state.buf15.times.device)
+        if ingest_digest else None
+    )
+    for d in range(n - 1):
+        u5 = tuple(x[d] for x in upd5_slots)
+        u15 = tuple(x[d] for x in upd15_slots)
+        if ingest_digest:
+            buf5, buf15, fold_counts = _counted_fold_bufs(state, u5, u15, fold_counts)
+        else:
+            buf5 = apply_updates(state.buf5, *u5)
+            buf15 = apply_updates(state.buf15, *u15)
+        carry = state.indicator_carry
+        if incremental:
+            fold_tw = _advance_tail_floor(params)
+            carry, _, _ = advance_indicator_carry(
+                materialize_tail(buf5, min(buf5.window, fold_tw)),
+                materialize_tail(buf15, min(buf15.window, fold_tw)),
+                carry, inputs.btc_row, params,
+            )
+        state = state._replace(buf5=buf5, buf15=buf15, indicator_carry=carry)
+    return tick_step_wire(
+        state,
+        tuple(x[n - 1] for x in upd5_slots),
+        tuple(x[n - 1] for x in upd15_slots),
+        inputs, cfg, wire_enabled, incremental, maintain_carry, params,
+        numeric_digest, ingest_digest, fold_counts,
+    )
+
+
+def tick_step_scan(
+    state: EngineState,
+    upd5_seq,
+    upd15_seq,
+    inputs_seq: HostInputs,
+    momentum_ok: torch.Tensor,
+    policy_prev: tuple[torch.Tensor, torch.Tensor],
+    cfg: ContextConfig = ContextConfig(),
+    wire_enabled: tuple[str, ...] = tuple(sorted(LIVE_STRATEGIES)),
+    incremental: bool = True,
+    maintain_carry: bool = True,
+    params=None,
+    numeric_digest: bool = False,
+    ingest_digest: bool = False,
+) -> tuple[EngineState, torch.Tensor, torch.Tensor]:
+    """T replayed ticks as one device-side loop (the reference's
+    ``lax.scan`` of ``_fold_and_step_wire``).
+
+    * ``upd5_seq``/``upd15_seq`` — ``(rows (T, N, U), ts (T, N, U), vals
+      (T, N, U, F))`` stacked per-tick sub-batch slots, each tick's own
+      slots at the tail (front-padded with empty ones), so its last slot is
+      the evaluated one;
+    * ``inputs_seq`` — ``HostInputs`` with every leaf stacked to (T, ...);
+    * ``momentum_ok``/``policy_prev`` — the grid-only policy's recursion on
+      the card: ``allow = momentum_ok[t] & prev_valid & prev_regime in
+      {RANGE, TRANSITIONAL}``, ``GridOnlyPolicy.resolve``'s ladder, with
+      (valid, regime) taken from each tick's wire and seeded by the host's
+      last finalized tick.
+
+    Returns ``(final_state, wires (T, wire_length), fired_count (T,))``; the
+    input state is left untouched (copying steps), so a caller can drop the
+    result and re-drive serially when a tick's fired count exceeds
+    ``WIRE_MAX_FIRED``."""
+    range_code = int(MarketRegimeCode.RANGE)
+    trans_code = int(MarketRegimeCode.TRANSITIONAL)
+    prev_valid, prev_regime = policy_prev
+    wires = []
+    for t in range(len(momentum_ok)):
+        allow = momentum_ok[t] & prev_valid & (
+            (prev_regime == range_code) | (prev_regime == trans_code)
+        )
+        inp = HostInputs(*(leaf[t] for leaf in inputs_seq))._replace(grid_policy_allows=allow)
+        state, wire = _fold_and_step_wire(
+            state,
+            tuple(x[t] for x in upd5_seq),
+            tuple(x[t] for x in upd15_seq),
+            inp, cfg, wire_enabled, incremental, maintain_carry, params,
+            numeric_digest, ingest_digest,
+        )
+        prev_valid = wire[0] > 0.5
+        prev_regime = wire[1].to(I32)
+        wires.append(wire)
+    stacked = torch.stack(wires)
+    return state, stacked, stacked[:, WIRE_FIRED_COUNT_OFF]
+
+
 # --- the carry-drift meter ---------------------------------------------------
 # On an audit tick: the carried indicator state advanced by the tick's
 # updates (what the incremental path would read) against a fresh init from
@@ -1852,3 +2018,85 @@ def unpack_wire(
         payload=payload,
     )
     return fired, ctx
+
+
+def unpack_wire_block(
+    wires, numeric_digest: bool = False, ingest_digest: bool = False
+) -> list[tuple[WireFired, dict]]:
+    """Vectorized twin of :func:`unpack_wire` over a stacked ``(T, L)`` wire
+    block: one numpy pass for the digest, scalar, fired-block and payload
+    slicing instead of T per-tick re-slices. Returns exactly the tuples
+    ``[unpack_wire(w, ...) for w in wires]`` would (one bulk float32 →
+    float64 widen is bit-identical to per-element ``float()``)."""
+    w = np.asarray(wires)
+    if w.ndim != 2:
+        raise ValueError(f"unpack_wire_block expects (T, L), got {w.shape}")
+    T = w.shape[0]
+    ingest = digest = None
+    if ingest_digest:
+        ingest = w[:, -INGEST_DIGEST_WIDTH:]
+        w = w[:, :-INGEST_DIGEST_WIDTH]
+    if numeric_digest:
+        digest = w[:, -NUMERIC_DIGEST_WIDTH:]
+        w = w[:, :-NUMERIC_DIGEST_WIDTH]
+    na, nb = len(WIRE_SCALARS_A), len(WIRE_SCALARS_B)
+    off = WIRE_FIRED_COUNT_OFF
+    scal = w[:, :off].astype(np.float64).tolist()
+    K = WIRE_MAX_FIRED
+    ns = w[:, off]
+    blocks = w[:, off + 1 : off + 1 + 6 * K].reshape(T, 6, K)
+    strat_all = blocks[:, 0, :].astype(np.int32)
+    row_all = blocks[:, 1, :].astype(np.int32)
+    auto_all = blocks[:, 2, :] > 0.5
+    dir_all = blocks[:, 3, :].astype(np.int32)
+    payload_off = off + 1 + 6 * K
+    L = w.shape[1]
+    payload_all = calib_all = None
+    if L >= payload_off + K * EMISSION_SLOT_WIDTH:
+        payload_all = w[:, payload_off : payload_off + K * EMISSION_SLOT_WIDTH].reshape(
+            T, K, EMISSION_SLOT_WIDTH
+        )
+        calib_off = payload_off + K * EMISSION_SLOT_WIDTH
+        rest = L - calib_off
+        if rest > 0 and rest % 3 == 0:
+            calib_all = w[:, calib_off:].reshape(T, 3, rest // 3)
+    out: list[tuple[WireFired, dict]] = []
+    for t in range(T):
+        vals = scal[t]
+        ctx = dict(zip(WIRE_SCALARS_A, vals))
+        ctx.update(zip(WIRE_SCALARS_B, vals[na:]))
+        ctx["timestamp"] = int(vals[na + nb]) * _WIRE_TS_BASE + int(vals[na + nb + 1])
+        ctx["regime_stable_since"] = (
+            int(vals[na + nb + 2]) * _WIRE_TS_BASE + int(vals[na + nb + 3])
+        )
+        for k in ("market_regime", "previous_market_regime", "market_regime_transition",
+                  "fresh_count"):
+            ctx[k] = int(ctx[k])
+        ctx["valid"] = ctx["valid"] > 0.5
+        ctx["regime_is_transitioning"] = ctx["regime_is_transitioning"] > 0.5
+        n = int(ns[t])
+        kept = min(n, K)
+        payload = None
+        if payload_all is not None:
+            payload = payload_all[t, :kept]
+            if calib_all is not None:
+                ctx["calib_valid"] = calib_all[t, 0] > 0.5
+                ctx["calib_close"] = calib_all[t, 1]
+                ctx["calib_atr_pct"] = calib_all[t, 2]
+        if digest is not None:
+            ctx["numeric_digest"] = digest[t]
+        if ingest is not None:
+            ctx["ingest_digest"] = ingest[t]
+        fired = WireFired(
+            n=n,
+            overflow=n > K,
+            strategy_idx=strat_all[t, :kept],
+            row=row_all[t, :kept],
+            autotrade=auto_all[t, :kept],
+            direction=dir_all[t, :kept],
+            score=blocks[t, 4, :kept],
+            stop_loss_pct=blocks[t, 5, :kept],
+            payload=payload,
+        )
+        out.append((fired, ctx))
+    return out

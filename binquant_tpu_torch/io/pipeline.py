@@ -116,6 +116,24 @@ hub handoff runs on that lane's worker; without it the plane offers each
 frame to the hub's connections on the tick's thread.
 :meth:`aclose_fanout` retires it; checkpoints save its snapshot sidecar.
 
+The multi-tick drives (replay, catch-up, backtesting): with a stream known
+up front, :meth:`process_ticks_scanned` plans runs of clean-append ticks
+(each tick's drain and host inputs captured in the serial order by
+:meth:`_plan_scan_tick`) and runs each run of at most ``scan_chunk`` ticks
+as one :func:`tick_step_scan` chunk: the stacked inputs uploaded once, the
+device loop on a COPY of the state (the in-place rings are never written),
+the ``(T, L)`` wires read back in one copy, the new state committed only
+when no tick's fired count overflowed the wire; an overflowed chunk is
+dropped and re-driven serially from the plan's start (the host mirror and
+the ingest monitor rewound, each tick with its plan-time registry
+occupancy), so the emitted set is the serial drive's. A classic engine, a
+rewrite, churn, a desynced carry or a due audit breaks the chunk and runs
+serially. :meth:`process_ticks_backtest` is the classic engine's
+time-batched backend (``binquant_tpu_torch/backtest``), on the same
+planner; it replaces the rings with new tensors after each chunk. A deep
+update-only drain (a backfill flush, a restore catch-up) folds through
+:meth:`_scan_fold_prefix`.
+
 The service around the tick (``main.py``'s boot and
 ``SignalEngine.consume_loop`` in the reference): every finalize hands the
 regime notifier's digest to the Telegram consumer and, once per 15m
@@ -159,17 +177,23 @@ from binquant_tpu_torch.engine.step import (
     FIVE_MIN_STRATEGIES,
     LIVE_STRATEGIES,
     MIN_INCR_ENGINE_WINDOW,
+    WIRE_FIRED_COUNT_OFF,
+    WIRE_MAX_FIRED,
     HostInputs,
     apply_updates_carry_step,
     apply_updates_carry_step_counted,
+    apply_updates_scan,
+    apply_updates_scan_counted,
     apply_updates_step,
     apply_updates_step_counted,
     initial_engine_state,
     measure_carry_drift,
     tick_step,
+    tick_step_scan,
     tick_step_wire,
     tick_step_wire_inplace,
     unpack_wire,
+    unpack_wire_block,
 )
 from binquant_tpu_torch.fanout.plane import FanoutPlane, FanoutSink
 from binquant_tpu_torch.io.autotrade import AutotradeConsumer
@@ -193,6 +217,9 @@ from binquant_tpu_torch.obs.instruments import (
     HEARTBEAT_FAILURES,
     OVERFLOW_TICKS,
     QUEUE_DEPTH,
+    SCAN_CHUNKS,
+    SCAN_OVERFLOW_RERUNS,
+    SCANNED_TICKS,
     SIGNALS,
     TICKS,
 )
@@ -209,13 +236,16 @@ from binquant_tpu_torch.obs.tracing import (
     step_annotation,
 )
 from binquant_tpu_torch.regime.context import ContextConfig
-from binquant_tpu_torch.regime.grid_policy import GridOnlyPolicy
+from binquant_tpu_torch.regime.grid_policy import GridOnlyPolicy, read_breadth_momentum
 from binquant_tpu_torch.regime.time_filter import is_quiet_hours
 from binquant_tpu_torch.schemas import MarketBreadthSeries
 from binquant_tpu_torch.strategies.market_regime_notifier import MarketRegimeNotifier
 
 FIFTEEN_MIN_S = 900
 FIVE_MIN_S = 300
+# an empty sub-batch: pads a chunk tick's shorter interval to its slot count
+_EMPTY_BATCH = (np.zeros(0, np.int32), np.zeros(0, np.int32),
+                np.zeros((0, NUM_FIELDS), np.float32))
 
 
 def breadth_scalars(
@@ -259,6 +289,54 @@ class _PendingTick(NamedTuple):
     # the tick finalizes; its trace_id is every sink payload's provenance
     trace: Any = NULL_TRACE
     # perf_counter of the oldest candle this tick drained (None: unknown)
+    ingest_mono: float | None = None
+    # the drive that dispatched it ("serial", "scanned" or "backtest"):
+    # finalize books its decode/emit dwell to that drive's host phases
+    drive: str = "serial"
+    # (WireFired, ctx) already decoded by a chunk drive's one-pass block
+    # decode; None: finalize decodes the wire itself
+    unpacked: Any = None
+
+
+def _max_rows(batches) -> int:
+    """The row width every stacked update slot of a chunk is padded to: its
+    widest sub-batch's (at least 1)."""
+    return max([1] + [len(b[0]) for b in batches])
+
+
+def _scan_fallback_unavailable():
+    """The fallback of a chunk drive's tick. Never reachable: a chunk whose
+    fired count overflowed is re-driven serially before any decode."""
+    raise RuntimeError(
+        "a chunk drive's tick has no per-tick fallback — overflow chunks are "
+        "re-driven serially (SignalEngine._flush_scan_plan)"
+    )
+
+
+class _ScanTickPlan(NamedTuple):
+    """One replayed tick staged for a chunk drive: its drained sub-batches
+    and every host input the serial dispatch would have built, captured at
+    plan time in the serial drive's order (the breadth momentum BEFORE this
+    tick's bucket refresh, the breadth scalars after)."""
+
+    now_ms: int
+    ts5: int
+    ts15: int
+    bucket15: int
+    batches5: list
+    batches15: list
+    momentum_ok: bool  # the grid policy's breadth verdict as of finalize(t-1)
+    breadth: Any  # MarketBreadthSeries as of this tick's dispatch
+    # (S,) bool registry occupancy AS OF this tick: a later tick's claim
+    # must not leak backwards into the context's coverage gate
+    tracked: Any
+    adp: tuple  # breadth_scalars() at dispatch
+    quiet: bool
+    btc_row: int
+    rows: Any  # FrozenRows at plan time (no churn inside a chunk)
+    is_futures: bool
+    dominance_is_losers: bool
+    market_domination_reversal: bool
     ingest_mono: float | None = None
 
 
@@ -366,6 +444,25 @@ class SignalEngine:
         self.incremental_ticks = 0
         self.full_recompute_ticks = 0
         self.full_recompute_reasons: dict[str, int] = {}
+        # -- the multi-tick drives (see the module docstring): runs of
+        # clean-append ticks fused into chunks of at most ``scan_chunk``
+        # (scanned) or ``backtest_chunk`` (backtest, never under the
+        # too-short floor) ticks; counters for tests and /healthz
+        self.scan_chunk = max(int(self.config.scan_chunk or 64), 2)
+        self.scanned_ticks = 0
+        self.scan_chunks = 0
+        self.scan_overflow_reruns = 0
+        self.backtest_chunk = max(int(self.config.backtest_chunk or 16), self._SCAN_MIN_TICKS)
+        self.backtest_ticks = 0
+        self.backtest_chunks = 0
+        self.backtest_overflow_reruns = 0
+        self.ext_invariant = bool(self.config.ext_invariant)
+        # an explicit StrategyParams (None: the kernels' defaults): a
+        # backtest drive installs its params for the drive, so its serial
+        # re-entries evaluate with the chunks' thresholds
+        self.strategy_params = None
+        # a serial re-drive's per-tick registry occupancy (None: the live one)
+        self._tracked_override: np.ndarray | None = None
         # the last dispatched tick's path: "incremental", the full
         # recompute's reason, or "classic" on a classic engine
         self.last_path: str | None = None
@@ -532,10 +629,12 @@ class SignalEngine:
 
     def _fold_updates(
         self,
-        pairs: list[tuple],
+        batches5: list,
+        batches15: list,
         advance_carry: bool = False,
         btc_row: int = -1,
         inplace: bool = False,
+        pairs: list[tuple] | None = None,
     ):
         """Apply all but the FINAL sub-batch pair without evaluating
         (ordered replay — evaluating each would advance the dedupe carries
@@ -544,7 +643,21 @@ class SignalEngine:
         caller found every sub-batch a clean append); ``btc_row`` keeps the
         beta/corr pairing advancing through those folds. With the ingest
         digest on, the counted folds add each pair's ingest counts to the
-        accumulator the evaluated tick's digest drains."""
+        accumulator the evaluated tick's digest drains. A deep update-only
+        drain (``_SCAN_FOLD_MIN`` folds or more: a backfill flush, a restore
+        catch-up) folds through :meth:`_scan_fold_prefix` instead, a few
+        stacked uploads instead of one per sub-batch. ``pairs`` passes the
+        drain's device pairs when the caller already built them."""
+        n = max(len(batches5), len(batches15), 1)
+        if not advance_carry and n - 1 >= self._SCAN_FOLD_MIN:
+            self._scan_fold_prefix(batches5, batches15, n, inplace)
+            empty = self._empty_updates()
+            return (
+                self._to_device(batches5[n - 1]) if n - 1 < len(batches5) else empty,
+                self._to_device(batches15[n - 1]) if n - 1 < len(batches15) else empty,
+            )
+        if pairs is None:
+            pairs = self._slot_pairs(batches5, batches15)
         for a, b in pairs[:-1]:
             if self.ingest_digest:
                 if advance_carry:
@@ -564,6 +677,51 @@ class SignalEngine:
                 self.state = apply_updates_step(self.state, a, b, inplace=inplace)
         return pairs[-1]
 
+    # update-only folds shorter than this keep the per-sub-batch loop
+    _SCAN_FOLD_MIN = 8
+
+    def _scan_fold_prefix(self, batches5: list, batches15: list, n: int,
+                          inplace: bool = False) -> None:
+        """Fold sub-batch pairs [0, n-2] through :func:`apply_updates_scan`
+        in ``scan_chunk``-bounded stacks: each stack is one upload per
+        array, its slots padded to the stack's widest sub-batch per interval
+        with rows -1 (exact no-ops)."""
+        prefix5 = batches5[: n - 1]
+        prefix15 = batches15[: n - 1]
+        total = n - 1
+        chunk = max(self.scan_chunk, self._SCAN_FOLD_MIN)
+        for start in range(0, total, chunk):
+            stop = min(start + chunk, total)
+            part5, part15 = prefix5[start:stop], prefix15[start:stop]
+            upd5 = self._stack_slots([[b] for b in part5], stop - start, 1, _max_rows(part5))
+            upd15 = self._stack_slots([[b] for b in part15], stop - start, 1, _max_rows(part15))
+            upd5 = tuple(x[:, 0] for x in upd5)
+            upd15 = tuple(x[:, 0] for x in upd15)
+            if self.ingest_digest:
+                self.state, self._ingest_fold_counts = apply_updates_scan_counted(
+                    self.state, upd5, upd15, self._ingest_fold_acc(), inplace=inplace
+                )
+            else:
+                self.state = apply_updates_scan(self.state, upd5, upd15, inplace=inplace)
+
+    def _stack_slots(self, per_tick: list[list], T: int, depth: int, rows: int):
+        """Per-tick sub-batch lists as one ``(rows (T, depth, U), ts, vals
+        (T, depth, U, F))`` upload: each tick's own batches at the TAIL of
+        its ``depth`` slots (front-padded with empty ones, so its last slot
+        is the evaluated one), each batch padded to ``rows`` with rows -1.
+        Ticks past ``len(per_tick)`` are all padding."""
+        r = np.full((T, depth, rows), -1, np.int32)
+        ts = np.full((T, depth, rows), -1, np.int32)
+        v = np.zeros((T, depth, rows, NUM_FIELDS), np.float32)
+        for i, batches in enumerate(per_tick):
+            off = depth - len(batches)
+            for d, (br, bt, bv) in enumerate(batches):
+                k = len(br)
+                r[i, off + d, :k] = br
+                ts[i, off + d, :k] = bt
+                v[i, off + d, :k] = bv
+        return self._to_device((r, ts, v))
+
     def _ingest_fold_acc(self) -> torch.Tensor:
         """The running (8,) fold-count accumulator (zeros before this
         tick's first counted fold)."""
@@ -580,15 +738,20 @@ class SignalEngine:
         self._ingest_fold_counts = None
         return counts
 
-    def _note_applied(self, batches5: list, batches15: list) -> bool:
+    def _note_applied(self, batches5: list, batches15: list, commit: bool = True) -> bool:
         """Move the host's per-row latest-open-time mirror over the
         sub-batches about to be applied; True when EVERY update is a clean
         strictly-newer append (safe for the carry advance). Called once per
-        drained batch set, in apply order."""
+        drained batch set, in apply order. ``commit=False`` judges on a
+        scratch copy and moves nothing: the chunk drives peek before
+        deciding whether a tick joins a chunk (committed then) or goes to
+        the serial path (which judges and commits itself)."""
         clean = True
-        feed_monitor = self.ingest_watermarks
+        feed_monitor = commit and self.ingest_watermarks
         for key, batches in (("5m", batches5), ("15m", batches15)):
             latest = self._host_latest[key]
+            if not commit:
+                latest = latest.copy()
             for rows, ts, _ in batches:
                 if len(rows) == 0:
                     continue
@@ -671,7 +834,7 @@ class SignalEngine:
             return
         self._note_applied(batches5, batches15)
         self._mark_carry_desynced("backfill")
-        u5, u15 = self._fold_updates(self._slot_pairs(batches5, batches15), inplace=True)
+        u5, u15 = self._fold_updates(batches5, batches15, inplace=True)
         if self.ingest_digest:
             # the last slot is update-only too: counted into the accumulator
             # the next evaluated tick drains
@@ -800,6 +963,9 @@ class SignalEngine:
             self._calibration_task = loop.create_task(asyncio.to_thread(work))
 
     def _tracked_mask(self) -> torch.Tensor:
+        if self._tracked_override is not None:
+            # a serial re-drive dispatches with the occupancy its plan saw
+            return torch.from_numpy(self._tracked_override).to(self.device)
         cached = self._tracked_cache
         if cached is not None and cached[0] == self.registry.version:
             return cached[1]
@@ -914,6 +1080,370 @@ class SignalEngine:
             self._pending.popleft()
             return await self._finalize_tick(head)
         return []
+
+    # -- the multi-tick drives ------------------------------------------------------
+
+    # runs shorter than this re-enter the serial path (a chunk is not worth a
+    # handful of ticks)
+    _SCAN_MIN_TICKS = 4
+
+    def _drain_for_plan(self, feed) -> tuple[list, list, bool, float | None]:
+        """A chunk drive's per-tick ingest: feed the batchers (a list of
+        kline dicts, or a callable that loads them), drain both; returns
+        ``(batches5, batches15, churn, ingest_mono)``."""
+        if callable(feed):
+            feed()
+        else:
+            for k in feed:
+                self.ingest(k)
+        version0 = self.registry.version
+        ingest_mono = self._oldest_pending_mono()
+        batches5 = self.batcher5.drain()
+        batches15 = self.batcher15.drain()
+        return batches5, batches15, self.registry.version != version0, ingest_mono
+
+    async def _plan_tick(self, plan: dict | None, now_ms: int, batches5: list,
+                         batches15: list, ingest_mono: float | None, t_plan0: float) -> dict:
+        """Commit an eligible tick into the open plan (opening one): the
+        mirror moves, the grid policy's momentum is judged on the breadth
+        the PREVIOUS finalize saw, then this tick's bucket refreshes it."""
+        if plan is None:
+            plan = self._begin_scan_plan()
+        self._note_applied(batches5, batches15)
+        momentum_ok = self._grid_momentum_ok()
+        await self._refresh_market_breadth((now_ms // 1000) // FIFTEEN_MIN_S)
+        plan["ticks"].append(
+            self._plan_scan_tick(now_ms, batches5, batches15, momentum_ok, ingest_mono)
+        )
+        # per-tick planning dwell, booked as the chunk's "plan" phase
+        plan["plan_ms"] += (time.perf_counter() - t_plan0) * 1000.0
+        return plan
+
+    async def process_ticks_scanned(self, ticks) -> list:
+        """Drive a sequence of replayed ticks, fusing eligible runs into
+        scanned chunks (:func:`tick_step_scan`).
+
+        ``ticks`` iterates ``(now_ms, feed)`` pairs, ``feed`` a list of
+        kline dicts or a zero-argument callable that loads the batchers.
+        Returns every emitted signal in tick order, each stamped with its
+        tick's ``tick_ms``: the serial ``process_tick`` loop's contract and,
+        by the chunk-break rules and the overflow re-drive, its signal set.
+        A tick breaks the chunk and runs serially on a classic engine, after
+        a dirty drain (a rewrite), churn (a claimed row), a desynced carry,
+        or when its audit is due; runs shorter than ``_SCAN_MIN_TICKS`` run
+        serially too."""
+        # ticks in flight from before this drive still belong to the caller
+        fired_all: list = await self.flush_pending()
+        plan: dict | None = None
+        for now_ms, feed in ticks:
+            t_plan0 = time.perf_counter()
+            batches5, batches15, churn, ingest_mono = self._drain_for_plan(feed)
+            if churn:
+                # the new row's carry needs a full recompute, and the
+                # requeued serial dispatch below won't see the version move
+                self._mark_carry_desynced("churn")
+            clean = self._note_applied(batches5, batches15, commit=False)
+            seq = self.ticks_processed + (0 if plan is None else len(plan["ticks"]))
+            audit_due = (
+                self.carry_audit_every > 0 and seq > 0 and seq % self.carry_audit_every == 0
+            )
+            scannable = (
+                self.incremental
+                and clean
+                and not churn
+                and self._carry_desync_reason is None
+                and not audit_due
+            )
+            if not scannable:
+                if plan is not None:
+                    fired_all.extend(await self._flush_scan_plan(plan))
+                    plan = None
+                # the serial path judges the drain itself: hand it back
+                self._requeue_batches(batches5, batches15)
+                fired_all.extend(await self.process_tick(now_ms=now_ms))
+                continue
+            plan = await self._plan_tick(plan, now_ms, batches5, batches15, ingest_mono,
+                                         t_plan0)
+            if len(plan["ticks"]) >= self.scan_chunk:
+                fired_all.extend(await self._flush_scan_plan(plan))
+                plan = None
+        if plan is not None:
+            fired_all.extend(await self._flush_scan_plan(plan))
+        return fired_all
+
+    async def process_ticks_backtest(self, ticks, params=None, chunk=None) -> list:
+        """Drive replayed ticks through the time-batched backtest backend
+        (full-recompute semantics over ``(S, W+T)`` extended buffers; see
+        ``binquant_tpu_torch/backtest``). Same contract as
+        :meth:`process_ticks_scanned`."""
+        from binquant_tpu_torch.backtest.driver import drive_ticks_backtest
+
+        return await drive_ticks_backtest(self, ticks, params=params, chunk=chunk)
+
+    def _begin_scan_plan(self) -> dict:
+        """Plan-start snapshots: enough host state to re-judge the run's
+        ticks serially (an overflow re-drive, a too-short run). The device
+        anchor needs none: nothing dispatches while a plan accumulates and
+        the chunk never writes ``self.state``."""
+        # counts of update-only drains ride the next SERIAL tick's digest; a
+        # chunk counts its own drains, so a stale accumulator is dropped
+        self._ingest_fold_counts = None
+        return {
+            "ticks": [],
+            "host_latest": {key: arr.copy() for key, arr in self._host_latest.items()},
+            # an overflow re-drive replays the plan's ticks through
+            # _note_applied again: the per-row counters must stay exactly-once
+            "ingest_monitor": self.ingest_monitor.snapshot_state(),
+            "plan_ms": 0.0,
+        }
+
+    def _requeue_batches(self, batches5: list, batches15: list) -> None:
+        for b in batches5:
+            self.batcher5.add_batch(*b)
+        for b in batches15:
+            self.batcher15.add_batch(*b)
+
+    def _grid_momentum_ok(self) -> bool:
+        """The host half of ``GridOnlyPolicy.resolve``: is a non-flat
+        breadth-momentum reading available? The regime half runs per tick
+        on the card."""
+        momentum = read_breadth_momentum(self.market_breadth)
+        return momentum is not None and momentum.leaning != "flat"
+
+    def _plan_scan_tick(
+        self, now_ms: int, batches5: list, batches15: list, momentum_ok: bool,
+        ingest_mono: float | None = None,
+    ) -> _ScanTickPlan:
+        ts_s = now_ms // 1000
+        bucket15 = ts_s // FIFTEEN_MIN_S
+        at = self.at_consumer
+        market_type = at.autotrade_settings.market_type
+        btc = self.registry.row_of(self.btc_symbol)
+        return _ScanTickPlan(
+            now_ms=now_ms,
+            ts5=(ts_s // FIVE_MIN_S) * FIVE_MIN_S - FIVE_MIN_S,
+            ts15=bucket15 * FIFTEEN_MIN_S - FIFTEEN_MIN_S,
+            bucket15=bucket15,
+            batches5=batches5,
+            batches15=batches15,
+            momentum_ok=momentum_ok,
+            breadth=self.market_breadth,
+            tracked=self.registry.active_rows,
+            adp=breadth_scalars(self.market_breadth),
+            quiet=bool(is_quiet_hours(now=datetime.fromtimestamp(now_ms / 1000, tz=timezone.utc))),
+            btc_row=-1 if btc is None else int(btc),
+            rows=self.registry.frozen_rows(),
+            is_futures=str(getattr(market_type, "value", market_type)).lower().endswith("futures"),
+            dominance_is_losers=bool(getattr(at, "current_market_dominance_is_losers", False)),
+            market_domination_reversal=bool(at.market_domination_reversal),
+            ingest_mono=ingest_mono,
+        )
+
+    async def _redrive_serial(self, plan: dict) -> list:
+        """Run a plan's ticks through the serial path (a too-short run, an
+        overflow re-drive): the mirror and the ingest monitor rewind to the
+        plan's start first, so each tick is judged as the stream first was;
+        each dispatches with its own plan-time registry occupancy."""
+        self._host_latest = {key: arr.copy() for key, arr in plan["host_latest"].items()}
+        self.ingest_monitor.restore_state(plan["ingest_monitor"])
+        fired: list = []
+        for p in plan["ticks"]:
+            self._requeue_batches(p.batches5, p.batches15)
+            self._tracked_override = p.tracked
+            try:
+                fired.extend(await self.process_tick(now_ms=p.now_ms))
+            finally:
+                self._tracked_override = None
+        return fired
+
+    def _open_chunk(self, drive: str, plan: dict, T: int):
+        """Open a chunk's trace and host-phase accounting: the accumulated
+        planning dwell lands as its "plan" phase (a span laid just before
+        the chunk). Returns ``(trace, plan_ms, t_chunk0)``."""
+        self._tick_seq += 1
+        trace = self.tracer.begin_tick(self._tick_seq, tick_ms=plan["ticks"][-1].now_ms)
+        trace.set_attr(path=drive)
+        self.host_phase.begin_chunk(drive)
+        plan_ms = float(plan["plan_ms"])
+        self.host_phase.record(drive, "plan", plan_ms)
+        t_chunk0 = time.perf_counter()
+        if plan_ms:
+            trace.record_span("plan", t_chunk0 - plan_ms / 1000.0, t_chunk0,
+                              accumulated=True, ticks=T)
+        return trace, plan_ms, t_chunk0
+
+    async def _finalize_chunk(self, drive: str, plan: dict, wires: np.ndarray, trace,
+                              plan_ms: float, t_chunk0: float) -> list:
+        """Finalize a committed chunk's ticks in order from its landed
+        ``(T, L)`` wires (decoded in one pass), then close its trace and
+        accounting. Returns the emitted signals."""
+        ticks = plan["ticks"]
+        T = len(ticks)
+        t_dec0 = time.perf_counter()
+        seq = unpack_wire_block(
+            wires, numeric_digest=self.numeric_digest, ingest_digest=self.ingest_digest
+        )
+        self.host_phase.record(drive, "decode", (time.perf_counter() - t_dec0) * 1000.0)
+        per_tick_ms = (time.perf_counter() - t_chunk0) * 1000.0 / T
+        fired_all: list = []
+        t_fin0 = time.perf_counter()
+        try:
+            for i, p in enumerate(ticks):
+                # finalize reads the breadth this tick's dispatch saw
+                self.market_breadth = p.breadth
+                pending = _PendingTick(
+                    wire=None, host=wires[i], ready=None,
+                    fallback=_scan_fallback_unavailable,
+                    ts_ms=p.now_ms, ts5=p.ts5, ts15=p.ts15, bucket15=p.bucket15,
+                    rows=p.rows, dispatched_at=t_chunk0, trace=NULL_TRACE,
+                    ingest_mono=p.ingest_mono, drive=drive, unpacked=seq[i],
+                )
+                fired_all.extend(await self._finalize_tick(pending))
+                self.tick_wall_ms.append(per_tick_ms)
+                self.latency.record("tick_total", per_tick_ms)
+                self.ticks_processed += 1
+                self._last_tick_wall_s = time.time()
+                TICKS.inc()
+                get_event_log().tick = self.ticks_processed
+        finally:
+            # the chunk's trace closes after its finalizes (an errored
+            # finalize still flight-records)
+            trace.record_span("finalize", t_fin0, ticks=T)
+            self.tracer.complete(trace, snapshot_fn=self._flight_snapshot)
+            self.host_phase.note_chunk(
+                drive, plan_ms + (time.perf_counter() - t_chunk0) * 1000.0, T
+            )
+        self.touch_heartbeat()
+        return fired_all
+
+    def _close_overflowed_chunk(self, drive: str, trace, plan_ms: float, t_chunk0: float,
+                                T: int) -> None:
+        """A chunk whose fired count overflowed: its outputs are dropped;
+        close its trace and its accounting (the host spent that wall)."""
+        trace.set_attr(overflow_rerun=True)
+        self.tracer.complete(trace, snapshot_fn=self._flight_snapshot)
+        self.host_phase.note_chunk(drive, plan_ms + (time.perf_counter() - t_chunk0) * 1000.0, T)
+
+    async def _flush_scan_plan(self, plan: dict) -> list:
+        """Dispatch one planned chunk through :func:`tick_step_scan` on a
+        copy of the state, read its stacked wires in one copy, and commit
+        the new state only when no tick's fired count overflowed the wire's
+        compaction; otherwise drop the chunk and re-drive it serially (the
+        serial path runs the overflow fallback), so the emitted set stays
+        exact."""
+        ticks = plan["ticks"]
+        if not ticks:
+            return []
+        if len(ticks) < self._SCAN_MIN_TICKS:
+            return await self._redrive_serial(plan)
+        # a depth >= 1 engine's still-pending serial ticks come first
+        fired_all: list = await self.flush_pending()
+        self._refuse_while_held("a scan chunk")
+        T = len(ticks)
+        depth = max(max(len(p.batches5), len(p.batches15), 1) for p in ticks)
+        u5_rows = _max_rows([b for p in ticks for b in p.batches5])
+        u15_rows = _max_rows([b for p in ticks for b in p.batches15])
+        key = self._wire_enabled_key()
+        trace, plan_ms, t_chunk0 = self._open_chunk("scanned", plan, T)
+        try:
+            with self.latency.stage("scan_chunk"), trace.span(
+                "scan_chunk", ticks=T, depth=depth
+            ), trace.activate():
+                with trace.span("stack"), self.host_phase.phase("scanned", "stack"):
+                    # the serial pairing: each tick's 5m and 15m batches
+                    # start at the same slot, the shorter padded after
+                    n_slots = [max(len(p.batches5), len(p.batches15), 1) for p in ticks]
+                    upd5 = self._stack_slots(
+                        [p.batches5 + [_EMPTY_BATCH] * (n - len(p.batches5))
+                         for p, n in zip(ticks, n_slots)], T, depth, u5_rows,
+                    )
+                    upd15 = self._stack_slots(
+                        [p.batches15 + [_EMPTY_BATCH] * (n - len(p.batches15))
+                         for p, n in zip(ticks, n_slots)], T, depth, u15_rows,
+                    )
+                    inputs_seq, momentum_seq = self._stack_plan_inputs(ticks)
+                    inputs_dev, momentum_dev, policy_prev = self._chunk_inputs_to_device(
+                        inputs_seq, momentum_seq
+                    )
+                t_launch0 = time.perf_counter()
+                with trace.span("dispatch"), self.host_phase.phase("scanned", "dispatch"):
+                    # on a copy: self.state stays the pre-chunk anchor
+                    new_state, wires_dev, _ = tick_step_scan(
+                        self.state, upd5, upd15, inputs_dev, momentum_dev,
+                        policy_prev, self.context_config, wire_enabled=key,
+                        incremental=True, maintain_carry=True, params=self.strategy_params,
+                        numeric_digest=self.numeric_digest, ingest_digest=self.ingest_digest,
+                    )
+                with trace.span("device_wait"), self.host_phase.phase("scanned", "device_wait"):
+                    wires = wires_dev.cpu().numpy()
+        except BaseException as exc:
+            trace.mark_error(exc)
+            self.tracer.complete(trace, snapshot_fn=self._flight_snapshot)
+            raise
+        self.freshness.observe_stage(
+            "dispatch_to_fetch", (time.perf_counter() - t_launch0) * 1000.0
+        )
+        if np.any(wires[:, WIRE_FIRED_COUNT_OFF] > WIRE_MAX_FIRED):
+            self._close_overflowed_chunk("scanned", trace, plan_ms, t_chunk0, T)
+            self.scan_overflow_reruns += 1
+            SCAN_OVERFLOW_RERUNS.inc()
+            fired_all.extend(await self._redrive_serial(plan))
+            return fired_all
+        self.state = new_state
+        self.scan_chunks += 1
+        SCAN_CHUNKS.inc()
+        self.incremental_ticks += T
+        self.scanned_ticks += T
+        SCANNED_TICKS.inc(T)
+        self.last_path = "incremental"
+        fired_all.extend(
+            await self._finalize_chunk("scanned", plan, wires, trace, plan_ms, t_chunk0)
+        )
+        return fired_all
+
+    def _stack_plan_inputs(self, ticks: list):
+        """Stacked (T, ...) numpy HostInputs and the momentum vector of a
+        list of :class:`_ScanTickPlan`: the one stacking both chunk drives
+        share. ``grid_policy_allows`` is zeroed: both drives recompute it per tick
+        on the card from their policy carry."""
+        T = len(ticks)
+
+        def col(name: str, dtype) -> np.ndarray:
+            return np.asarray([getattr(p, name) for p in ticks], dtype=dtype)
+
+        adp = np.asarray([p.adp for p in ticks], dtype=np.float32).reshape(T, 5)
+        inputs_seq = HostInputs(
+            tracked=np.stack([p.tracked for p in ticks]),
+            btc_row=col("btc_row", np.int32),
+            timestamp_s=col("ts15", np.int32),
+            timestamp5_s=col("ts5", np.int32),
+            # the port keeps no open-interest cache: growth is unknown
+            oi_growth=np.full((T, self.capacity), np.nan, dtype=np.float32),
+            adp_latest=adp[:, 0],
+            adp_prev=adp[:, 1],
+            adp_diff=adp[:, 2],
+            adp_diff_prev=adp[:, 3],
+            breadth_momentum_points=adp[:, 4],
+            quiet_hours=col("quiet", np.bool_),
+            grid_policy_allows=np.zeros((T,), np.bool_),
+            is_futures=col("is_futures", np.bool_),
+            dominance_is_losers=col("dominance_is_losers", np.bool_),
+            market_domination_reversal=col("market_domination_reversal", np.bool_),
+        )
+        return inputs_seq, col("momentum_ok", np.bool_)
+
+    def _chunk_inputs_to_device(self, inputs_seq: HostInputs, momentum_seq: np.ndarray):
+        """One upload per leaf of a chunk's stacked inputs, plus the policy
+        recursion's seed (the host's last finalized regime)."""
+        dev = self.device
+        inputs_dev = HostInputs(*(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                                  for x in inputs_seq))
+        prev = torch.tensor(
+            [self._last_regime is not None,
+             -1 if self._last_regime is None else self._last_regime],
+            dtype=torch.int32,
+        ).to(dev)
+        return inputs_dev, torch.from_numpy(momentum_seq).to(dev), (prev[0] != 0, prev[1])
 
     def _donation_mode(self) -> str | None:
         """How this dispatch treats the rings: ``"single"`` writes them in
@@ -1062,8 +1592,11 @@ class SignalEngine:
         self.host_phase.record("serial", "plan", (time.perf_counter() - t_plan0) * 1000.0)
         t_stack0 = time.perf_counter()
 
-        pairs = self._slot_pairs(batches5, batches15)
+        # the drain's device pairs (built here only for the meter; the
+        # folds build them otherwise, or stack a deep drain themselves)
+        pairs = None
         if reason == "audit" and self.drift_meter_enabled:
+            pairs = self._slot_pairs(batches5, batches15)
             # before the folds: the meter measures what this tick's
             # updates do to the carry, then the full step resyncs it
             with self.latency.stage("carry_audit"), trace.span("carry_audit") as sp_audit:
@@ -1075,6 +1608,7 @@ class SignalEngine:
         # a classic engine never reads the carry: no rebuild on its ticks
         flags = dict(
             incremental=use_incremental, maintain_carry=self.incremental,
+            params=self.strategy_params,
             numeric_digest=self.numeric_digest, ingest_digest=self.ingest_digest,
         )
         planes = self._ring_planes()
@@ -1082,7 +1616,8 @@ class SignalEngine:
         try:
             with trace.span("buffer_fold", advance_carry=use_incremental):
                 u5, u15 = self._fold_updates(
-                    pairs, advance_carry=use_incremental, btc_row=btc_row, inplace=inplace
+                    batches5, batches15, advance_carry=use_incremental, btc_row=btc_row,
+                    inplace=inplace, pairs=pairs,
                 )
             t_inputs0 = time.perf_counter()
             inputs = self._host_inputs(btc_row, ts15, ts5, quiet)
@@ -1190,20 +1725,25 @@ class SignalEngine:
 
     async def _finalize_tick_inner(self, pending: _PendingTick) -> list:
         ts5, ts15 = pending.ts5, pending.ts15
-        # the host-phase drive: the port's one drive is the serial loop
-        trace, drive = pending.trace, "serial"
+        trace, drive = pending.trace, pending.drive
         # the tick's one device-to-host copy: wait for it to land (the
         # copy's CUDA event, nothing else), then read it; the pinned buffer
-        # goes back into the rotation
+        # goes back into the rotation. A chunk drive's tick arrives landed
+        # (a numpy row) and decoded.
         t_fetch0 = time.perf_counter()
         with self.latency.stage("wire_fetch"), trace.span("wire_fetch") as sp_wire:
             if pending.ready is not None:
                 pending.ready.synchronize()
-            self.last_wire = pending.host.numpy().copy()
-            unpacked = unpack_wire(
-                self.last_wire, numeric_digest=self.numeric_digest,
-                ingest_digest=self.ingest_digest,
-            )
+            host = pending.host
+            self.last_wire = (
+                host.numpy() if isinstance(host, torch.Tensor) else np.asarray(host)
+            ).copy()
+            unpacked = pending.unpacked
+            if unpacked is None:
+                unpacked = unpack_wire(
+                    self.last_wire, numeric_digest=self.numeric_digest,
+                    ingest_digest=self.ingest_digest,
+                )
         t_fetch_end = time.perf_counter()
         self.host_phase.record(drive, "device_wait", (t_fetch_end - t_fetch0) * 1000.0)
         if self.freshness.enabled:
@@ -1602,9 +2142,8 @@ class SignalEngine:
             "overflow_ticks": self.overflow_ticks,
             "incremental_ticks": self.incremental_ticks,
             "full_recompute_ticks": self.full_recompute_ticks,
-            # the scanned and backtest drives are not ported
-            "scanned_ticks": 0,
-            "backtest_ticks": 0,
+            "scanned_ticks": self.scanned_ticks,
+            "backtest_ticks": self.backtest_ticks,
             "carry_desync_reason": self._carry_desync_reason,
             "numeric_anomaly_ticks": self.numeric.anomaly_ticks,
             "drift_alarms": self.drift.alarms,
@@ -1646,8 +2185,8 @@ class SignalEngine:
         ``degraded`` — ticking, but heartbeat writes are failing, the
         websocket tracker is storming or ingest staleness is burning;
         ``stale`` — no successful heartbeat inside the window. Sections of
-        parts the port lacks (the mesh, the scanned and backtest drives)
-        answer what the reference answers with those parts off; the
+        parts the port lacks (the mesh) answer what the reference answers
+        with those parts off; the
         ``fanout`` section is the plane's :meth:`FanoutPlane.snapshot`, or
         ``{"enabled": False}`` with it off.
         Attribute reads only, safe inline on the event loop: no device
@@ -1689,12 +2228,12 @@ class SignalEngine:
             # after an in-place failure
             "donated_ticks": self.inplace_ticks,
             "donated_state_resets": self.state_resets,
-            "scanned_ticks": 0,
-            "scan_chunks": 0,
-            "scan_overflow_reruns": 0,
-            "backtest_ticks": 0,
-            "backtest_chunks": 0,
-            "backtest_overflow_reruns": 0,
+            "scanned_ticks": self.scanned_ticks,
+            "scan_chunks": self.scan_chunks,
+            "scan_overflow_reruns": self.scan_overflow_reruns,
+            "backtest_ticks": self.backtest_ticks,
+            "backtest_chunks": self.backtest_chunks,
+            "backtest_overflow_reruns": self.backtest_overflow_reruns,
             "numeric": {
                 "digest_enabled": self.numeric_digest,
                 "nan_budget": self.numeric.nan_budget,

@@ -130,6 +130,9 @@ def make_stub_engine(
     ingest_watermarks: bool | None = None,
     fanout: bool | None = None,
     fanout_overrides: dict | None = None,
+    scan_chunk: int | None = None,
+    backtest_chunk: int | None = None,
+    ext_invariant: bool | None = None,
 ) -> SignalEngine:
     """A SignalEngine wired to stubs (no network): a binbot client over
     ``session`` (a :class:`StubSession` serving ``breadth`` by default), a
@@ -170,7 +173,9 @@ def make_stub_engine(
     ``device="cpu"``. Every other argument left None keeps the config's
     production default: depth 1 with rings in place, both digests, the drift
     meter, the outcome tracker and the delivery plane on, the incremental
-    path with an audit every 256 ticks."""
+    path with an audit every 256 ticks. ``scan_chunk``, ``backtest_chunk``
+    and ``ext_invariant`` set the multi-tick drives' knobs (``Config``'s,
+    read from the environment by default)."""
     config = Config(
         max_symbols=capacity, window_bars=window, env=os.environ.get("ENV", "CI")
     )
@@ -191,6 +196,9 @@ def make_stub_engine(
         "slo_enabled": slo,
         "delivery_health_enabled": delivery_health,
         "ingest_watermarks_enabled": ingest_watermarks,
+        "scan_chunk": scan_chunk,
+        "backtest_chunk": backtest_chunk,
+        "ext_invariant": ext_invariant,
     }
     for name, value in overrides.items():
         if value is not None:
@@ -404,6 +412,8 @@ def run_replay(
     outcome_horizons: tuple[int, ...] | None = None,
     collect_outcomes: list | None = None,
     delivery: bool | None = None,
+    scanned: bool = False,
+    scan_chunk: int | None = None,
 ) -> dict:
     """Replay a JSONL kline file; returns run statistics, the routing
     counters among them. With ``collect`` a list, every fired signal is
@@ -414,7 +424,12 @@ def run_replay(
     ``market_domination_reversal`` script the host's market-dominance flags
     (the dominance-gated dormant strategies read them). With the outcome
     tracker on, the stats carry its scoreboard under ``outcomes`` and
-    ``collect_outcomes`` (a list) receives the sorted matured set."""
+    ``collect_outcomes`` (a list) receives the sorted matured set.
+    ``scanned=True`` drives the same stream through
+    :meth:`SignalEngine.process_ticks_scanned` (runs of clean-append
+    incremental ticks fused into chunks of at most ``scan_chunk``): the
+    serial drive's signal set by construction; the stats count its ticks,
+    chunks and overflow re-drives."""
     engine = make_stub_engine(
         capacity=capacity,
         window=window,
@@ -432,6 +447,7 @@ def run_replay(
         outcomes=outcomes,
         outcome_horizons=outcome_horizons,
         delivery=delivery,
+        scan_chunk=scan_chunk,
     )
     engine.at_consumer.current_market_dominance_is_losers = dominance_is_losers
     engine.at_consumer.market_domination_reversal = market_domination_reversal
@@ -446,10 +462,13 @@ def run_replay(
             collect.extend(signal_tuples(fired))
 
     async def drive() -> None:
-        for tick_ms, klines in seq:
-            for k in klines:
-                engine.ingest(k)
-            record(await engine.process_tick(now_ms=tick_ms))
+        if scanned:
+            record(await engine.process_ticks_scanned(seq))
+        else:
+            for tick_ms, klines in seq:
+                for k in klines:
+                    engine.ingest(k)
+                record(await engine.process_tick(now_ms=tick_ms))
         record(await engine.flush_pending())
         await engine.aclose_delivery()
         await engine.aclose_fanout()
@@ -477,6 +496,10 @@ def run_replay(
         "overflow_ticks": engine.overflow_ticks,
         "inplace_ticks": engine.inplace_ticks,
         "state_resets": engine.state_resets,
+        # the scanned drive's accounting (0 on the serial drive)
+        "scanned_ticks": engine.scanned_ticks,
+        "scan_chunks": engine.scan_chunks,
+        "scan_overflow_reruns": engine.scan_overflow_reruns,
     }
 
 

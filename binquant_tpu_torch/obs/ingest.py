@@ -24,8 +24,10 @@ exceeds ``stale_budget`` is an anomaly tick (``ingest_anomaly``
 force-emitted on burn entry and every ``event_every`` burning ticks;
 ``ingest_recovered`` on the first clean tick after a burn); healthy digests
 are sampled as ``ingest_digest`` events every ``event_every`` ticks.
-``record_history`` keeps every raw block for equality drills. The
-scanned drive's snapshot/restore of the per-row state is not ported.
+``record_history`` keeps every raw block for equality drills.
+:meth:`IngestHealthMonitor.snapshot_state` / :meth:`restore_state` rewind
+the per-row counters and watermarks to a chunk plan's start, so an
+overflow re-drive of the scanned or backtest drive counts each candle once.
 """
 
 from __future__ import annotations
@@ -218,6 +220,34 @@ class IngestHealthMonitor:
             self.names[row] = name
 
     # -- digest decode + SLO --------------------------------------------------
+
+    # -- chunk-plan rewind ------------------------------------------------------
+
+    # churn deliberately EXCLUDED: it fires on registry-version moves, which
+    # a serial re-drive never replays (the rows stay claimed), so rewinding
+    # it would erase it
+    _SNAP_ARRAYS = (
+        "appends", "gaps", "rewrites", "out_of_order",
+        "last_event_ms", "last_arrival_wall_ms", "last_apply_wall_ms",
+    )
+
+    def snapshot_state(self) -> dict | None:
+        """Copy of the rewindable per-row state (a chunk plan's anchor)."""
+        if not self.enabled:
+            return None
+        snap = {k: getattr(self, k).copy() for k in self._SNAP_ARRAYS}
+        snap["latest_s"] = {k: v.copy() for k, v in self.latest_s.items()}
+        return snap
+
+    def restore_state(self, snap: dict | None) -> None:
+        """Rewind to a plan-start snapshot before a serial re-drive replays
+        the plan's ticks; churn is not rewound (see ``_SNAP_ARRAYS``)."""
+        if not self.enabled or snap is None:
+            return
+        for k in self._SNAP_ARRAYS:
+            getattr(self, k)[:] = snap[k]
+        for k, v in snap["latest_s"].items():
+            self.latest_s[k][:] = v
 
     def observe_digest(
         self,

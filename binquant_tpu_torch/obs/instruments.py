@@ -288,6 +288,37 @@ FANOUT_WRITE_LATENCY = REGISTRY.histogram(
              1000.0, 5000.0),
 )
 
+# -- the multi-tick drives (io/pipeline.py, backtest/) ---------------------------
+
+SCANNED_TICKS = REGISTRY.counter(
+    "bqt_scanned_ticks_total",
+    "Replayed ticks evaluated inside scanned chunks (replay, catch-up, "
+    "backtesting lanes) instead of one serial tick each.",
+)
+SCAN_CHUNKS = REGISTRY.counter(
+    "bqt_scan_chunks_total",
+    "Scanned chunks committed (each replaces chunk-length serial ticks).",
+)
+SCAN_OVERFLOW_RERUNS = REGISTRY.counter(
+    "bqt_scan_overflow_reruns_total",
+    "Scan chunks re-driven through the serial per-tick path because a "
+    "tick's fired set overflowed the wire's compaction slots.",
+)
+BACKTEST_TICKS = REGISTRY.counter(
+    "bqt_backtest_ticks_total",
+    "Replayed ticks evaluated inside time-batched backtest chunks "
+    "(full-recompute (S, W+T) kernel) instead of one serial tick each.",
+)
+BACKTEST_CHUNKS = REGISTRY.counter(
+    "bqt_backtest_chunks_total",
+    "Time-batched backtest chunks committed.",
+)
+BACKTEST_OVERFLOW_RERUNS = REGISTRY.counter(
+    "bqt_backtest_overflow_reruns_total",
+    "Backtest chunks re-driven through the serial per-tick path because "
+    "a tick's fired set overflowed the wire's compaction slots.",
+)
+
 # -- the tick loop (io/pipeline.py) and the heartbeat ---------------------------
 
 TICKS = REGISTRY.counter(

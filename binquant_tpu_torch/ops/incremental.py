@@ -295,9 +295,9 @@ def supertrend_advance(
     """One bar through the shared step body → (carry', line, direction)."""
     from binquant_tpu_torch.ops.indicators import _supertrend_step
 
-    active = torch.broadcast_to(
-        torch.as_tensor(active, device=close.device), close.shape
-    )
+    if not isinstance(active, torch.Tensor):
+        active = torch.full((), bool(active), device=close.device)
+    active = torch.broadcast_to(active, close.shape)
     new_carry, line, dirn = _supertrend_step(
         tuple(carry), high, low, close, active, window, multiplier
     )

@@ -190,13 +190,27 @@ _DECAY_CACHE: dict[tuple, torch.Tensor] = {}
 
 
 def _decay_matrix(alpha: float, length: int, device: torch.device) -> torch.Tensor:
-    """The decay matrix, transposed for ``x @ A.T`` and kept on ``device``."""
+    """The decay matrix, transposed for ``x @ A.T`` and kept on ``device``
+    (built once: an upload per call would synchronize with the card)."""
     key = (alpha, length, str(device))
     mat = _DECAY_CACHE.get(key)
     if mat is None:
         mat = torch.from_numpy(_decay_matrix_np(alpha, length).T.copy()).to(device)
         _DECAY_CACHE[key] = mat
     return mat
+
+
+def _ewm_weights(alpha: float, length: int, device: torch.device) -> torch.Tensor:
+    """The last row of the decay matrix (oldest first), kept on ``device``."""
+    key = ("w", alpha, length, str(device))
+    w = _DECAY_CACHE.get(key)
+    if w is None:
+        w = torch.from_numpy(
+            (alpha * np.power(1.0 - alpha, np.arange(length - 1, -1, -1), dtype=np.float64)
+             ).astype(np.float32)
+        ).to(device)
+        _DECAY_CACHE[key] = w
+    return w
 
 
 def _first_valid(m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -229,7 +243,7 @@ def ewm_mean(
     t_idx = torch.arange(W, dtype=torch.int32, device=x.device)
     rel = t_idx - s0[..., None]
     corr = torch.pow(
-        torch.tensor(d, dtype=torch.float32, device=x.device),
+        torch.full((), d, dtype=torch.float32, device=x.device),
         (rel + 1).to(torch.float32),
     ) * x0[..., None]
     y = base + torch.where(rel >= 0, corr, 0.0)
@@ -265,11 +279,7 @@ def ewm_last_state(
     bit alike."""
     W = x.shape[-1]
     d = 1.0 - alpha
-    w = torch.from_numpy(
-        (alpha * np.power(d, np.arange(W - 1, -1, -1), dtype=np.float64)).astype(
-            np.float32
-        )
-    ).to(x.device)
+    w = _ewm_weights(float(alpha), W, x.device)
     m = torch.isfinite(x)
     xf = torch.where(m, x, 0.0).to(torch.float32)
     base = fixed_order_sum(xf * w) if fixed_order else torch.matmul(xf, w)
@@ -277,7 +287,7 @@ def ewm_last_state(
     x0 = torch.gather(x, -1, s0.long()[..., None])[..., 0]
     rel = (W - 1) - s0
     corr = torch.pow(
-        torch.tensor(d, dtype=torch.float32, device=x.device),
+        torch.full((), d, dtype=torch.float32, device=x.device),
         (rel + 1).to(torch.float32),
     ) * x0
     return base + corr, rel, any_valid

@@ -2,7 +2,9 @@
 
 Port of ``binquant_tpu/regime/context.py``: per-symbol features (EMA20/50,
 ATR-14, BB-20 width, trend score, last-bar return) from the window or, on
-the incremental tick, from the carried 15m feature state,
+the incremental tick, from the carried 15m feature state (and, for the
+backtest's extension-invariant chunk, T ticks of them from one pass over an
+extended series, :func:`compute_symbol_features_ext`),
 coverage gates, the RS-vs-BTC rewrite, masked market aggregates, the derived
 scores, and the macro/micro regime ladders with transitions against a
 carried previous state (:class:`RegimeCarry`). Scalars are 0-d tensors on
@@ -212,6 +214,45 @@ def compute_symbol_features(
     )
 
 
+def compute_symbol_features_ext(
+    ext_times: torch.Tensor,  # (S, L) int32
+    ext_vals: torch.Tensor,  # (S, L, F)
+    counts: torch.Tensor,  # (T, S)
+    filled0: torch.Tensor,  # (S,)
+    window: int,
+    eligible: torch.Tensor,  # (T, S) fresh & tracked per tick
+) -> SymbolFeatureArrays:
+    """T ticks of :func:`compute_symbol_features` from ONE pass over the
+    backtest's (S, L = W + N) extended buffers (leaves (T, S)-leading).
+    The contract of ``compute_feature_pack_ext``: the assembly is
+    elementwise-identical, the indicator readouts anchor at the series
+    start (float32 ulps for the rolling moments, ``(1-alpha)^W`` for the
+    EMAs). The view path's 15-bar TR tail drops its first element from the
+    trailing-14 mean, so the consumed TR positions match the full series'."""
+    from binquant_tpu_torch.ops.rolling import ewm_mean, rolling_mean, rolling_std
+    from binquant_tpu_torch.strategies.features import ext_gather
+
+    close = ext_vals[:, :, Field.CLOSE]
+    high = ext_vals[:, :, Field.HIGH]
+    low = ext_vals[:, :, Field.LOW]
+    last = counts.to(I32) + (window - 1)
+
+    def g(s):
+        return ext_gather(s, last)
+
+    ema20 = g(ewm_mean(close, span=20, min_periods=1))
+    ema50 = g(ewm_mean(close, span=50, min_periods=1))
+    atr = g(rolling_mean(true_range(high, low, close), 14, min_periods=1))
+    mid = g(rolling_mean(close, 20, min_periods=1))
+    std = g(rolling_std(close, 20, min_periods=1, ddof=0))
+    std = torch.where(torch.isfinite(std), std, 0.0)
+    filled = torch.clamp(filled0[None, :] + counts, max=window).to(I32)
+    return _assemble_symbol_feature_values(
+        g(close), ext_gather(close, last - 1), ext_gather(ext_times, last),
+        filled, eligible, ema20, ema50, atr, mid, std,
+    )
+
+
 def symbol_features_from_carry(
     buf: MarketBuffer, carry, eligible: torch.Tensor, stale: torch.Tensor
 ) -> SymbolFeatureArrays:
@@ -338,7 +379,7 @@ def _annotate_market_regime(ctx: dict, carry: RegimeCarry, timestamp) -> dict:
             ((short_score >= 0.42) & (short_score >= long_score + 0.08), int(R.TREND_DOWN)),
             (range_score >= 0.5, int(R.RANGE)),
         ],
-        torch.tensor(int(R.TRANSITIONAL), dtype=I32, device=long_score.device),
+        torch.full((), int(R.TRANSITIONAL), dtype=I32, device=long_score.device),
     ).to(I32)
 
     prev_regime = torch.where(carry.has_prev, carry.market_regime, -1).to(I32)
@@ -466,9 +507,14 @@ def compute_market_context(
     # BTC features come from its row even when BTC itself is not fresh
     btc_ok = (btc_row >= 0) & (btc_row < S)
     safe_btc = torch.clamp(btc_row, 0, S - 1).long()
-    btc_present = btc_ok & (buf.filled[safe_btc] >= 2)
-    btc_return = torch.where(btc_present, feats.return_pct[safe_btc], 0.0)
-    btc_trend = torch.where(btc_present, feats.trend_score[safe_btc], 0.0)
+
+    def at_btc(x: torch.Tensor) -> torch.Tensor:
+        # a gather, not an index by a 0-d tensor (which reads it on the host)
+        return x.index_select(0, safe_btc.reshape(1))[0]
+
+    btc_present = btc_ok & (at_btc(buf.filled) >= 2)
+    btc_return = torch.where(btc_present, at_btc(feats.return_pct), 0.0)
+    btc_trend = torch.where(btc_present, at_btc(feats.trend_score), 0.0)
 
     # RS-vs-BTC rewrite: every symbol except BTC itself
     is_btc_row = torch.arange(S, device=dev) == safe_btc

@@ -10,9 +10,11 @@ autotrade off.
 
 The 92nd-percentile threshold is the repository's one hand-written kernel:
 ``ops.quantile_tail.rolling_quantile_tail`` launches ``csrc/qtail.cu`` on
-the card at both of its call sites here, :func:`abp_core` (every full tick)
-and :func:`abp_init_from_window` (every carry resync, and the drift meter's
-fresh init on every audit tick, counted as the ``carry_drift`` site).
+the card at every call site here: :func:`abp_core` (every full tick),
+:func:`abp_init_from_window` (every carry resync, and the drift meter's
+fresh init on every audit tick, counted as the ``carry_drift`` site) and
+:func:`abp_core_batch` (the backtest chunk's T ticks from one pass over the
+extended series, twice per chunk).
 
 The incremental tick reads the strategy from a carry instead
 (:class:`ABPCarry`): sorted windows of the shifted volume series and of the
@@ -353,6 +355,164 @@ def activity_burst_pump(
 ) -> StrategyOutputs:
     qualified, score_last, diag = abp_core(buf5, params)
     return _abp_outputs(buf5.filled, context, qualified, score_last, diag, params)
+
+
+# The extended-series twin needs every consumed rolling window to fit inside
+# the ring without touching its left edge (where the per-tick view and the
+# extension differ — the view truncates, the extension holds older real
+# bars): the threshold at the earliest cooldown position reads scores
+# score_lookback back, each score the shifted baseline window another bw+2.
+def _abp_ext_min_window(p: ABPParams) -> int:
+    return p.score_lookback + _baseline_window(p) + 2 + p.cooldown_bars + 1
+
+
+ABP_EXT_MIN_WINDOW = _abp_ext_min_window(ABPParams())
+
+
+def abp_core_batch(
+    ext_vals: torch.Tensor,  # (S, L, F) extended series (ring + appends)
+    counts: torch.Tensor,  # (T, S) int32 — bars applied through tick t
+    window: int,  # ring width W (tick t's view = columns [counts_t, +W))
+    params: ABPParams = ABPParams(),
+) -> tuple[torch.Tensor, torch.Tensor, dict[str, torch.Tensor]]:
+    """T ticks of :func:`abp_core` from ONE pass over the extended series.
+
+    Every rolling input of the kernel is position-local and sort/shift
+    based, so a value at extended position ``p`` is bit-identical to the
+    per-tick view's value at the matching position whenever the consumed
+    windows stay inside the ring (the window guard below): the T
+    overlapping per-tick tails collapse into one series pass + (T, S)
+    gathers. The one per-tick whole-window input, ``has_qav``, becomes a
+    rolling any; the score, threshold and raw series are computed for both
+    of its variants and selected per (tick, row) at readout.
+
+    Both threshold series are the qtail kernel's (site ``abp_core_batch``)
+    at shape ``(S, min(L, TAIL + n_ext))`` with ``num_out = n_ext +
+    cooldown_bars + 1``: two launches per call. Returns ``(qualified (T,
+    S), score_last (T, S), diag of (T, S))``."""
+    from binquant_tpu_torch.ops.rolling import rolling_max
+
+    p = params
+    if window < _abp_ext_min_window(p):
+        raise ValueError(
+            f"window {window} too short for the extended-series ABP core "
+            f"(need >= {_abp_ext_min_window(p)})"
+        )
+    S, L, _ = ext_vals.shape
+    n_ext = L - window
+    # trailing working slice: the union of every tick's consumed tail
+    K = min(L, TAIL + n_ext)
+    off = L - K
+
+    def col(f):
+        return ext_vals[:, off:, int(f)]
+
+    volume = col(Field.VOLUME)
+    quote_volume = col(Field.QUOTE_VOLUME)
+    close = col(Field.CLOSE)
+    open_ = col(Field.OPEN)
+    high = col(Field.HIGH)
+    low = col(Field.LOW)
+
+    bw = _baseline_window(p)
+    minb = p.min_baseline_volume
+    baseline_safe = torch.clamp(rolling_median(shift(volume, 2), bw, min_periods=bw), min=minb)
+    volume_ratio = volume / baseline_safe
+    q_baseline_safe = torch.clamp(
+        rolling_median(shift(quote_volume, 2), bw, min_periods=bw), min=minb
+    )
+    quote_ratio_q = quote_volume / q_baseline_safe
+
+    prev_close = torch.clamp(shift(close, 1), min=minb)
+    candle_range = torch.clamp(high - low, min=minb)
+    body = torch.abs(close - open_)
+    price_jump = (close - shift(close, 1)) / prev_close
+    range_frac = candle_range / torch.clamp(close, min=minb)
+    body_frac = body / candle_range
+    close_to_high = (high - close) / candle_range
+    is_bullish = close > open_
+    up_close = (close > shift(close, 1)).to(torch.float32)
+    recent_up = up_close + shift(up_close, 1, 0.0) + shift(up_close, 2, 0.0)
+
+    score_q = (
+        volume_ratio * quote_ratio_q * torch.clamp(price_jump, min=0.0) * (1.0 + body_frac)
+    )
+    score_n = volume_ratio * torch.clamp(price_jump, min=0.0)
+
+    vol_spike = volume > p.volume_multiplier * baseline_safe
+    quote_spike_q = quote_volume > p.quote_volume_multiplier * q_baseline_safe
+    jump_flag = price_jump > p.price_threshold
+    range_flag = range_frac > p.min_range_frac
+    body_flag = (
+        is_bullish & (body_frac > p.min_body_frac) & (close_to_high < p.max_close_to_high)
+    )
+    trend_q = recent_up >= p.min_recent_up_closes
+    trend_n = recent_up >= 1
+
+    # thresholds at the union of every tick's cooldown positions, by the
+    # hand-written kernel on the card
+    n_out = min(n_ext + p.cooldown_bars + 1, K)
+    thr_q, thr_n = (
+        rolling_quantile_tail(
+            shift(score, 1).contiguous(), p.score_lookback, p.score_quantile,
+            num_out=n_out, min_periods=p.lookback_window, site="abp_core_batch",
+        )
+        for score in (score_q, score_n)
+    )
+    thr_q_f = torch.where(torch.isfinite(thr_q), thr_q, 0.0)
+    thr_n_f = torch.where(torch.isfinite(thr_n), thr_n, 0.0)
+
+    def tail_n(a):
+        return a[:, -n_out:]
+
+    base_flags = tail_n(vol_spike) & tail_n(jump_flag) & tail_n(range_flag) & tail_n(body_flag)
+    raw_q = (
+        base_flags & tail_n(quote_spike_q) & tail_n(trend_q)
+        & torch.isfinite(tail_n(score_q)) & (tail_n(score_q) >= thr_q_f)
+    )
+    raw_n = (
+        base_flags & tail_n(trend_n)
+        & torch.isfinite(tail_n(score_n)) & (tail_n(score_n) >= thr_n_f)
+    )
+
+    # per-tick has_qav: the kernel's whole-view any over the last
+    # min(W, TAIL) columns, as a rolling any over the full extension
+    TW = min(window, TAIL)
+    qpos = (ext_vals[:, :, int(Field.QUOTE_VOLUME)] > 0).to(torch.float32)
+    any_q = rolling_max(qpos, TW, min_periods=1) > 0  # (S, L)
+
+    T = counts.shape[0]
+    last_idx = counts.to(torch.int64) + (window - 1)  # absolute extended position
+
+    def g_abs(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """arr (S, N) at per-(tick, row) absolute positions -> (T, S)."""
+        rel = idx - (L - arr.shape[1])
+        return torch.gather(arr[None].expand((T,) + tuple(arr.shape)), 2, rel[:, :, None])[..., 0]
+
+    has_qav = g_abs(any_q, last_idx)
+
+    def sel(a_q, a_n):
+        return torch.where(has_qav, g_abs(a_q, last_idx), g_abs(a_n, last_idx))
+
+    raws = [
+        torch.where(has_qav, g_abs(raw_q, last_idx - k), g_abs(raw_n, last_idx - k))
+        for k in range(p.cooldown_bars + 1)
+    ]
+    qualified = raws[0]
+    for r in raws[1:]:
+        qualified = qualified & ~r
+
+    diag = {
+        "baseline_volume": g_abs(baseline_safe, last_idx),
+        "volume_ratio": g_abs(volume_ratio, last_idx),
+        "quote_volume_ratio": torch.where(has_qav, g_abs(quote_ratio_q, last_idx), 1.0),
+        "price_jump": g_abs(price_jump, last_idx),
+        "range_frac": g_abs(range_frac, last_idx),
+        "body_frac": g_abs(body_frac, last_idx),
+        "score_threshold": sel(thr_q_f, thr_n_f),
+        "volume": g_abs(volume, last_idx),
+    }
+    return qualified, sel(score_q, score_n), diag
 
 
 # ---------------------------------------------------------------------------

@@ -57,7 +57,8 @@ def _zeros(S: int, dev, dtype=F32) -> torch.Tensor:
 
 
 def _code(c: int, dev) -> torch.Tensor:
-    return torch.tensor(int(c), dtype=I32, device=dev)
+    # a fill, not an upload: a blocking copy would synchronize with the card
+    return torch.full((), int(c), dtype=I32, device=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -536,7 +537,7 @@ def inverse_price_tracker(
     )
     ev = score_signal_candidate(
         context,
-        is_short=torch.tensor(False, device=dev),
+        is_short=torch.zeros((), dtype=torch.bool, device=dev),
         local_score=local_score,
         symbol_rs=feats.relative_strength_vs_btc,
         symbol_trend=trend_score,

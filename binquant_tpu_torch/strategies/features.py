@@ -8,7 +8,10 @@ Port of ``binquant_tpu/strategies/features.py``: the full-window pack
 (:func:`advance_feature_carry`) and read out as the same pack
 (:func:`feature_pack_from_carry`). Variant pins match the reference:
 ``rsi`` is the simple-rolling-mean RSI, ``rsi_wilder`` the Wilder/EWM RSI,
-``atr`` the SMA of true range, Bollinger 20/2σ with ddof=0.
+``atr`` the SMA of true range, Bollinger 20/2σ with ddof=0. For the
+backtest's extension-invariant chunk, :func:`compute_feature_pack_ext`
+computes T ticks' packs from one pass over an extended series
+(:func:`ext_gather` reads them out).
 """
 
 from __future__ import annotations
@@ -553,4 +556,126 @@ def feature_pack_from_carry(
         ema21=nanify(ewm_value(carry.ema21, 1)),
         filled=buf.filled,
         valid=buf.filled > 0,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The backtest's extension-invariant pack: T ticks from one series pass
+# ---------------------------------------------------------------------------
+
+
+def ext_gather(series: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-tick gather from an (S, L) extended series: ``out[t, s] =
+    series[s, idx[t, s]]``, the (T, S) batch of what each backtest tick's
+    right-aligned window view holds at the gathered column."""
+    T = idx.shape[0]
+    return torch.gather(series[None].expand((T,) + tuple(series.shape)), 2,
+                        idx.long()[:, :, None])[..., 0]
+
+
+def compute_feature_pack_ext(
+    ext_times: torch.Tensor,  # (S, L) int32, -1 pad
+    ext_vals: torch.Tensor,  # (S, L, F) f32, NaN pad
+    counts: torch.Tensor,  # (T, S) int32 bars applied through tick t
+    filled0: torch.Tensor,  # (S,) pre-chunk fill
+    window: int,
+) -> FeaturePack:
+    """The T per-tick FeaturePacks from ONE pass over the (S, L = W + N)
+    extended series; tick t's pack is the gather at ``counts[t] + window -
+    1``. Leaves are (T, S)-leading ((T, S, BB_WIDTH_HISTORY) for
+    ``bb_widths``).
+
+    Numeric contract (the reference's ``BQT_EXT_INVARIANT`` one): positional
+    fields (bar values, times, filled) are bit-identical to the per-tick
+    pack; windowed sums, means and stds anchor their cumsums at the series
+    start instead of each view's window start (float32 ulps apart); EWM
+    fields also see the prefix before the window, a ``(1-alpha)^W``-scale
+    divergence. Strategies gating on them declare a gate margin
+    (``strategies/params.py declared_gate_margins``)."""
+    from binquant_tpu_torch.ops.rolling import rolling_sum
+
+    close = ext_vals[:, :, Field.CLOSE]
+    high = ext_vals[:, :, Field.HIGH]
+    low = ext_vals[:, :, Field.LOW]
+    open_ = ext_vals[:, :, Field.OPEN]
+    volume = ext_vals[:, :, Field.VOLUME]
+
+    last = counts.to(I32) + (window - 1)  # (T, S)
+
+    def g(s):
+        return ext_gather(s, last)
+
+    delta = close - shift(close, 1)
+    gain = torch.clamp(delta, min=0.0)
+    loss = torch.clamp(-delta, min=0.0)
+    rsi_wilder = _rsi(
+        g(ewm_mean(gain, alpha=1.0 / RSI_WINDOW, min_periods=RSI_WINDOW)),
+        g(ewm_mean(loss, alpha=1.0 / RSI_WINDOW, min_periods=RSI_WINDOW)),
+    )
+    rsi_sma = _rsi(g(rolling_mean(gain, RSI_WINDOW)), g(rolling_mean(loss, RSI_WINDOW)))
+
+    macd_line = ewm_mean(close, span=MACD_FAST, min_periods=1) - ewm_mean(
+        close, span=MACD_SLOW, min_periods=1
+    )
+    macd_last = g(macd_line)
+    macd_signal = g(ewm_mean(macd_line, span=MACD_SIGNAL, min_periods=1))
+
+    # MFI: NaN-marked flow series + NaN-aware rolling sums reproduce the
+    # view's >= 14 finite-delta gate exactly
+    tp = (high + low + close) / torch.full((), 3.0, device=close.device)
+    flow = tp * volume
+    tp_delta = tp - shift(tp, 1)
+    fin = torch.isfinite(tp_delta)
+    pos_series = torch.where(fin, torch.where(tp_delta > 0, flow, 0.0), NAN)
+    neg_series = torch.where(fin, torch.where(tp_delta < 0, flow, 0.0), NAN)
+    mfi = _rsi(g(rolling_sum(pos_series, MFI_WINDOW)), g(rolling_sum(neg_series, MFI_WINDOW)))
+
+    mids = rolling_mean(close, BB_WINDOW)
+    stds = rolling_std(close, BB_WINDOW, ddof=0)
+    uppers = mids + 2.0 * stds
+    lowers = mids - 2.0 * stds
+    width_series = jsafe_div(uppers - lowers, mids)
+    k = BB_WIDTH_HISTORY
+    T = last.shape[0]
+    hist_cols = last[:, :, None] + torch.arange(-(k - 1), 1, dtype=I32, device=last.device)
+    bb_widths = torch.gather(
+        width_series[None].expand((T,) + tuple(width_series.shape)), 2, hist_cols.long()
+    )
+
+    # the view path's dropped first TR is never among the positions atr and
+    # atr_ma consume (deepest reach: last - 32)
+    tr = true_range(high, low, close)
+    atr_series = rolling_mean(tr, ATR_WINDOW)
+
+    open_time = ext_gather(ext_times, last)
+    duration = g(ext_vals[:, :, Field.DURATION_S])
+    duration = torch.where(torch.isfinite(duration), duration, 0.0).to(I32)
+    filled = torch.clamp(filled0[None, :] + counts, max=window).to(I32)
+    return FeaturePack(
+        open_time=open_time,
+        close_time=open_time + duration,
+        open=g(open_),
+        high=g(high),
+        low=g(low),
+        close=g(close),
+        prev_close=ext_gather(close, last - 1),
+        volume=g(volume),
+        quote_volume=g(ext_vals[:, :, Field.QUOTE_VOLUME]),
+        num_trades=g(ext_vals[:, :, Field.NUM_TRADES]),
+        rsi=rsi_sma,
+        rsi_wilder=rsi_wilder,
+        macd=macd_last,
+        macd_signal=macd_signal,
+        mfi=mfi,
+        bb_upper=g(uppers),
+        bb_mid=g(mids),
+        bb_lower=g(lowers),
+        bb_widths=bb_widths,
+        atr=g(atr_series),
+        atr_ma=g(rolling_mean(atr_series, ATR_MA_WINDOW)),
+        volume_ma=g(rolling_mean(volume, VOLUME_MA_WINDOW)),
+        ema9=g(ewm_mean(close, span=9, min_periods=1)),
+        ema21=g(ewm_mean(close, span=21, min_periods=1)),
+        filled=filled,
+        valid=filled > 0,
     )

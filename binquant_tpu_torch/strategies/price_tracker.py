@@ -86,7 +86,7 @@ def price_tracker(
     feats = context.features
     evaluation = score_signal_candidate(
         context,
-        is_short=torch.tensor(False, device=dev),
+        is_short=torch.zeros((), dtype=torch.bool, device=dev),
         local_score=local_score,
         symbol_rs=feats.relative_strength_vs_btc,
         symbol_trend=trend_score,

@@ -242,7 +242,7 @@ def spike_hunter(
     direction = torch.broadcast_to(direction, (S,))
 
     def code(c: int) -> torch.Tensor:
-        return torch.tensor(c, dtype=I32, device=dev)
+        return torch.full((), int(c), dtype=I32, device=dev)
 
     route = torch.where(
         ~has_context,

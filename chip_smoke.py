@@ -13,8 +13,11 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    CPU, bit for bit, at the shapes the main path gives it
    (ActivityBurstPump's 2048x128 tail with NaN, tie and inf rows — the
    shape of both of its call sites, ``abp_core`` and
-   ``abp_init_from_window``), at SpikeHunter's 2048x400 shape, at a 96-tick
-   backtest chunk's 2048x224 (K=100) and at a short ``W < L+K-1`` input.
+   ``abp_init_from_window``), at SpikeHunter's 2048x400 shape, at the
+   backtest's ``abp_core_batch`` shapes — the default 16-tick chunk's
+   2048x176 (K=52), a 32-tick chunk's 2048x224 (K=100) and the sweep's
+   first chunk, which holds the warm tick's 400 bars, 2048x573 (K=449, the
+   block kernel) — and at a short ``W < L+K-1`` input.
    Time the kernel on the device (200 wrapper calls captured in one CUDA
    graph, replayed between two events), the host-issued call loop, the
    card's launch floor (the same graph at S=1, K=1, L=1), the twin and a
@@ -187,7 +190,34 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    alone: the full push, one match at K = 8, 128 and 2048 (CUDA events,
    warm) with its peak device memory, K=8 against the CPU torch path and
    K=2048 against ``match_oracle`` on 1,000 sampled users.
-10. Print the kernels line, the card's name and power limit, and the result.
+10. Drive the multi-tick drives. ``[slice scanned]``: phase 3's market
+   through ``process_ticks_scanned`` (1 warm + 16 live ticks, audits every
+   8: ticks 1-7 and 9-15 form two chunks), every wire, the fired tuples
+   and the final rings and carry bit for bit against phase 3's serial
+   incremental card drive, the chunk counters and wires (at the wire
+   contract) against the CPU's scanned drive, the scan loop run under
+   ``torch.cuda.set_sync_debug_mode("warn")`` (no synchronizing operation
+   may be issued from the port's code); then phase 5's crash market with
+   an audit every 12, so the crash tick lies inside the second chunk: one
+   overflow re-drive, the serial drive's fired set and wires. Ms per chunk
+   and per tick beside the serial incremental tick, peak device memory.
+   ``[slice backtest]``: phase 3's market recipe with 48 live ticks on a
+   classic engine, the warm tick through ``process_tick``, then
+   ``process_ticks_backtest`` over a 16-tick and a 32-tick chunk: with
+   ``ext_invariant`` off the fired set equals the serial classic card
+   drive's and, on the first chunk, the CPU backtest's; with it on, equal
+   but for flips inside the declared gate margins (printed); two qtail
+   launches at ``abp_core_batch`` a chunk (2048x176, K=52 and 2048x224,
+   K=100), none at ``abp_core`` on batched ticks, each equal to the twin;
+   ms, ticks/s, candles/s and peak device memory a chunk. Then
+   ``run_param_sweep`` on the same stream, 8 combos over
+   ``abp.score_quantile`` x ``pt.rsi_oversold``, scoring on: two combos'
+   counts against ``process_ticks_backtest`` runs at their params, one
+   ``abp_core_batch`` pair per score quantile per chunk, every launch (the
+   warm chunk's 2048x573 too) equal to the twin, the first chunk's counts
+   and rankings against the CPU sweep's; the sweep's launches join the
+   backtest drive's in the kernels line.
+11. Print the kernels line, the card's name and power limit, and the result.
 
 Phase 5 times three card configurations (depth 1 in place; depth 0
 copying; depth 0 copying without the digests and the meter) over two
@@ -200,6 +230,11 @@ loop once more each under ``torch.profiler`` and prints, per tick kind
 busy time and idle share, device activities per tick, the costliest
 kernels.
 
+With ``--fold-ab`` it builds the kernel and then only times the
+update-only folds of phase 6's service path (a restart's top-up flush, a
+cold backfill's flush, a restore catch-up) through the stacked fold and
+through the per-pair loop (:func:`fold_ab`), and prints no result.
+
 It exits nonzero without printing a result when CUDA is unavailable or when
 run outside a checkout that holds the ``binquant_tpu_torch`` package.
 """
@@ -207,6 +242,7 @@ run outside a checkout that holds the ``binquant_tpu_torch`` package.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import copy
 import json
 import os
@@ -337,7 +373,9 @@ def check_quantile_kernel() -> dict:
         # (label, rows, cols, L, K, q, min_periods)
         ("abp", S, 128, 80, 4, 0.92, 20),
         ("spike_hunter", S, 400, 60, 1, 0.85, 20),
+        ("abp_batch16", S, 176, 80, 52, 0.92, 20),
         ("abp_batch", S, 224, 80, 100, 0.92, 20),
+        ("abp_batch_warm", S, BT_WARM_QTAIL[0], 80, BT_WARM_QTAIL[1], 0.92, 20),
         ("short_input", 64, 60, 80, 4, 0.92, 20),
     ]
     # the card's launch floor: the same graph method on the least work
@@ -423,11 +461,12 @@ def symbols() -> list[str]:
     return ["BTCUSDT"] + [f"S{i:04d}USDT" for i in range(1, S)]
 
 
-def make_market(rng: np.random.Generator):
-    """Seeded 5m OHLCV for S symbols over the warm history plus the live
-    ticks, and the 15m bars aggregated from it. Some symbols get a volume
-    burst on the last 5m bar of a live tick (ActivityBurstPump's setup)."""
-    n15 = W + LIVE_TICKS
+def make_market(rng: np.random.Generator, live_ticks: int = LIVE_TICKS):
+    """Seeded 5m OHLCV for S symbols over the warm history plus
+    ``live_ticks`` live ticks, and the 15m bars aggregated from it. Some
+    symbols get a volume burst on the last 5m bar of a live tick
+    (ActivityBurstPump's setup)."""
+    n15 = W + live_ticks
     n5 = 3 * n15
     rets = rng.normal(0.0, 0.004, (S, n5)).astype(np.float64)
     rets[1::29] -= 0.0015  # a drifting-down cohort: oversold setups
@@ -438,7 +477,7 @@ def make_market(rng: np.random.Generator):
     low = np.minimum(open_, close) * 0.999
     # bursts: per live tick, 12 symbols' last 5m bar jumps +3% on 8x volume
     # after two up bars
-    for t in range(LIVE_TICKS):
+    for t in range(live_ticks):
         rows = rng.choice(np.arange(2, S), 12, replace=False)
         j = 3 * (W + t) + 2
         for r in rows:
@@ -554,6 +593,13 @@ def tick_plan(
     """Queue ``warm`` bars of 15m history (and up to W of their 5m bars) as
     ``add_batch`` sub-batches (folded by the first tick) and return the
     ticks: the warm tick, then the live ticks of :func:`live_ticks_of`."""
+    queue_warm(engine, m5, m15, warm)
+    return [(T_LIVE0 * 1000, [])] + live_ticks_of(m5, m15, live_ticks, warm)
+
+
+def queue_warm(engine, m5: dict, m15: dict, warm: int = W) -> None:
+    """Register the symbols and queue the warm history on ``engine``'s
+    batchers (:func:`tick_plan`'s first half)."""
     names = symbols()
     rows = np.array([engine.registry.add(n) for n in names], dtype=np.int32)
     n5 = min(3 * warm, W)
@@ -565,13 +611,12 @@ def tick_plan(
         engine.batcher15.add_batch(rows, np.full(S, t15 + 900 * k, np.int32), w15[:, k])
     for k in range(n5):
         engine.batcher5.add_batch(rows, np.full(S, t5 + 300 * k, np.int32), w5[:, k])
-    return [(T_LIVE0 * 1000, [])] + live_ticks_of(m5, m15, live_ticks, warm)
 
 
 def drive(
     device: str, m5: dict, m15: dict, incremental: bool, live_ticks: int, profiler=None,
     enabled: set | None = None, breadth: dict | None = None, host_flags: dict | None = None,
-    warm: int = W,
+    warm: int = W, audit_every: int = AUDIT_EVERY,
 ) -> dict:
     """Warm tick plus ``live_ticks`` live ticks through one engine on
     ``device``. Per tick it records the path the engine took, the qtail
@@ -582,9 +627,8 @@ def drive(
     strategies on the wire (the live set by default), ``breadth`` the
     stub's breadth series, ``host_flags`` the autotrade consumer's scripted
     host flags (the market-dominance flags), ``warm`` the 15m bars of
-    history before the live ticks."""
-    import contextlib
-
+    history before the live ticks, ``audit_every`` the incremental path's
+    audit cadence."""
     import torch
 
     from binquant_tpu_torch.io.replay import make_stub_engine, signal_tuples
@@ -593,7 +637,7 @@ def drive(
 
     engine = make_stub_engine(
         capacity=S, window=W, context_config=ContextConfig(), device=device,
-        incremental=incremental, carry_audit_every=AUDIT_EVERY, enabled_strategies=enabled,
+        incremental=incremental, carry_audit_every=audit_every, enabled_strategies=enabled,
         breadth=breadth, **SERIAL,
     )
     for name, value in (host_flags or {}).items():
@@ -821,11 +865,12 @@ def _by_strategy(fired) -> dict[str, int]:
     return out
 
 
-def check_incremental(m5, m15, classic: dict) -> dict:
+def check_incremental(m5, m15, classic: dict, keep: dict | None = None) -> dict:
     """The incremental live path (the production default), card against
     CPU: the routing schedule, two qtail launches on every full tick and
     none on an incremental one, the carry's order-free leaves bit for bit,
-    and the fired set against the classic drive's."""
+    and the fired set against the classic drive's. ``keep`` receives the
+    card's drive (phase 10 holds the scanned drive against it)."""
     import torch
 
     from binquant_tpu_torch.engine.buffer import Field, materialize
@@ -851,6 +896,8 @@ def check_incremental(m5, m15, classic: dict) -> dict:
         if sites != want:
             fail(f"qtail call sites per tick {gpu['sites']}")
     max_wire_err = compare_drives(gpu, cpu, "incremental")
+    if keep is not None:
+        keep.update(gpu)
     exact_leaves, float_leaves, float_equal = compare_exact_carry(gpu, cpu)
     flips, bad = gate_flips(gpu, classic)
     if bad:
@@ -1270,8 +1317,6 @@ def drive_pipelined(configs: dict, m5: dict, m15: dict, profiler=None) -> dict:
     ``torch.profiler.profile`` passed as ``profiler`` records the live
     ticks, each call and the wait for the idle device inside one
     ``chip_smoke_tick`` range."""
-    import contextlib
-
     import torch
 
     from binquant_tpu_torch.io.replay import signal_tuples
@@ -1959,6 +2004,103 @@ class FuturesBackend:
         if "/mark-price/" in url:
             return _Reply({"data": {"value": 50.0}})
         return _Reply({"data": {"multiplier": 0.001, "lotSize": 1, "takerFeeRate": 0.0006}})
+
+
+FOLD_AB_RUNS = 4  # runs of each fold arm, in pairs whose first arm alternates
+FOLD_AB_FLUSH = 50  # the top-up's flush cadence in symbols (the production default)
+
+
+def fold_ab(m5: dict, m15: dict, card: str = "cuda") -> dict:
+    """The update-only folds of phase 6's service path through both fold
+    paths of ``_fold_updates`` (``--fold-ab``): the stacked fold
+    (``_scan_fold_prefix``, taken by a drain of more than
+    ``_SCAN_FOLD_MIN`` sub-batch pairs) and the per-pair loop
+    (``_SCAN_FOLD_MIN`` raised past the drain), on one card engine at
+    phase 6's settings whose rings phase 5's market warmed. Three drains,
+    each through ``_flush_batchers`` as ``backfill`` flushes it: a top-up
+    flush (FOLD_AB_FLUSH symbols, W sub-batches of that many rows per
+    interval; a restart's top-up at S symbols is S / FOLD_AB_FLUSH of
+    them), a cold backfill's one flush (W sub-batches of S rows per
+    interval) and a restore catch-up (8 ticks' bars: 24 5m and 8 15m
+    sub-batches of S rows). Every drain writes again bars the rings hold,
+    as a top-up does, so each run starts from the same rings. Host ms per
+    drain from the flush call to the card's idle, FOLD_AB_RUNS runs per
+    arm in pairs whose first arm alternates. ``card="cpu"`` rehearses it
+    without a card."""
+    import torch
+
+    from binquant_tpu_torch.io.replay import make_stub_engine
+    from binquant_tpu_torch.regime.context import ContextConfig
+
+    engine = make_stub_engine(
+        capacity=S, window=W, context_config=ContextConfig(), device=card, incremental=True,
+        carry_audit_every=SERVICE_EVERY, **OBS_OFF, **FANOUT_OFF,
+    )
+    sync = torch.cuda.synchronize if card == "cuda" else (lambda: None)
+    queue_warm(engine, m5, m15)
+    asyncio.run(engine.process_tick(now_ms=T_LIVE0 * 1000))
+    asyncio.run(engine.flush_pending())
+    rows = np.array([engine.registry.add(n) for n in symbols()], dtype=np.int32)
+    w5 = bar_values(m5, slice(3 * W - W, 3 * W), 300)
+    w15 = bar_values(m15, slice(0, W), 900)
+    t5 = T_LIVE0 - 300 * W
+    t15 = T_LIVE0 - 900 * W
+    drains = {
+        "topup_flush": (slice(0, FOLD_AB_FLUSH), range(W), range(W)),
+        "cold_flush": (slice(0, S), range(W), range(W)),
+        "catchup": (slice(0, S), range(W - 24, W), range(W - 8, W)),
+    }
+
+    def run(name: str, loop: bool) -> float:
+        sel, k5, k15 = drains[name]
+        for k in k5:
+            engine.batcher5.add_batch(rows[sel], np.full(len(rows[sel]), t5 + 300 * k, np.int32),
+                                      w5[sel, k])
+        for k in k15:
+            engine.batcher15.add_batch(rows[sel],
+                                       np.full(len(rows[sel]), t15 + 900 * k, np.int32),
+                                       w15[sel, k])
+        if loop:
+            engine._SCAN_FOLD_MIN = 1 << 30
+        sync()
+        t0 = time.perf_counter()
+        try:
+            engine._flush_batchers()
+            sync()
+        finally:
+            engine.__dict__.pop("_SCAN_FOLD_MIN", None)
+        return (time.perf_counter() - t0) * 1000.0
+
+    rings0 = _canonical_rings(engine.state)
+    result: dict = {}
+    for name in drains:
+        run(name, False)  # warm both arms once
+        run(name, True)
+        ms: dict = {"stacked": [], "loop": []}
+        for i in range(FOLD_AB_RUNS):
+            order = ("stacked", "loop") if i % 2 == 0 else ("loop", "stacked")
+            for arm in order:
+                ms[arm].append(run(name, arm == "loop"))
+        result[name] = {arm: {"ms": v, "p50_ms": float(np.median(v))} for arm, v in ms.items()}
+        result[name]["stacked_over_loop"] = (result[name]["stacked"]["p50_ms"]
+                                             / result[name]["loop"]["p50_ms"])
+    for k, v in _canonical_rings(engine.state).items():
+        if not torch.equal(torch.nan_to_num(v.float(), nan=-1.0),
+                           torch.nan_to_num(rings0[k].float(), nan=-1.0)):
+            fail(f"fold A/B: ring {k} changed by rewriting the bars it holds")
+    flushes = -(-S // FOLD_AB_FLUSH)
+    result["topup_fold_s"] = {arm: result["topup_flush"][arm]["p50_ms"] * flushes / 1e3
+                              for arm in ("stacked", "loop")}
+    for name in drains:
+        r = result[name]
+        print(f"[fold-ab] {name}: stacked p50 {r['stacked']['p50_ms']:.1f} ms "
+              f"{[round(x, 1) for x in r['stacked']['ms']]}, loop p50 {r['loop']['p50_ms']:.1f} "
+              f"ms {[round(x, 1) for x in r['loop']['ms']]}, stacked/loop "
+              f"{r['stacked_over_loop']:.3f}")
+    print(f"[fold-ab] a top-up's {flushes} flushes of {FOLD_AB_FLUSH} symbols: folds "
+          f"{result['topup_fold_s']['stacked']:.2f} s stacked, "
+          f"{result['topup_fold_s']['loop']:.2f} s by the loop")
+    return result
 
 
 def autotrade_backend(faults: bool):
@@ -3792,6 +3934,564 @@ def fan_million(card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 10: the scanned multi-tick drive and the time-batched backtest
+# --------------------------------------------------------------------------
+
+SCAN_CRASH_AUDIT = 12  # the crash drive's audit cadence: chunk 1-11, audit, chunk 13-17
+BT_CHUNKS = (16, 32)  # the backtest's live ticks: the default chunk, then a 32-tick one
+BT_CPU_TICKS = 16  # the CPU backtest and the CPU sweep run the first chunk only
+# the sweep's first chunk holds the warm tick, whose 400 history bars join
+# the 5m extension with its 15 live ticks' 45: n_ext = 445, so
+# abp_core_batch's qtail runs at (S, TAIL + 445) with num_out = 445 +
+# cooldown_bars + 1, a span of 528 past the register kernel's 256 (the block
+# kernel)
+BT_WARM_QTAIL = (128 + 445, 445 + 4)  # (columns, num_out)
+SWEEP_AXES = {"abp.score_quantile": [0.9, 0.92], "pt.rsi_oversold": [20.0, 25.0, 30.0, 35.0]}
+SWEEP_CHECKED = (0, 7)  # combos also driven through process_ticks_backtest
+
+
+def _record_wires(engine) -> list:
+    """Every finalized tick's wire, in finalize order (a chunk's ticks
+    finalize in tick order after its one wire copy)."""
+    wires: list = []
+    finalize = engine._finalize_tick
+
+    async def recorded(pending):
+        out = await finalize(pending)
+        wires.append(engine.last_wire.copy())
+        return out
+
+    engine._finalize_tick = recorded
+    return wires
+
+
+def _qtail_sites(cuda: bool) -> dict:
+    """The qtail calls by site so far: kernel launches on the card, twin
+    calls in a CPU rehearsal."""
+    from binquant_tpu_torch.ops import quantile_tail as qt
+
+    return dict(qt.launches_by_site if cuda else qt.twin_calls_by_site)
+
+
+def _sites_since(before: dict, cuda: bool) -> dict:
+    return {k: v - before.get(k, 0) for k, v in _qtail_sites(cuda).items()
+            if v != before.get(k, 0)}
+
+
+def _timed_flush(fn, sink: list, cuda: bool, plan_arg: int):
+    """Wrap a chunk flush (its plan the ``plan_arg``-th argument): host ms
+    (the flush ends in the chunk's wire copy and its finalizes), peak
+    device memory above the pre-flush allocation, qtail calls by site,
+    ticks."""
+    import torch
+
+    async def timed(*args):
+        plan = args[plan_arg]
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if cuda else 0
+        before = _qtail_sites(cuda)
+        t0 = time.perf_counter()
+        out = await fn(*args)
+        if cuda:
+            torch.cuda.synchronize()
+        sink.append({
+            "ticks": len(plan["ticks"]),
+            "ms": (time.perf_counter() - t0) * 1000.0,
+            "peak_above_base_bytes": (torch.cuda.max_memory_allocated() - base) if cuda else None,
+            "sites": _sites_since(before, cuda),
+        })
+        return out
+
+    return timed
+
+
+def _mib(n: int | None) -> float | None:
+    return None if n is None else round(n / 2**20, 1)
+
+
+def _state_bits_equal(a, b) -> tuple[int, list]:
+    """Every leaf of two engine states, bit for bit: (leaves, differing)."""
+    import torch
+
+    la, lb = dict(_leaves(a)), dict(_leaves(b))
+    bad = []
+    for path, x in la.items():
+        y = lb[path]
+        x, y = x.cpu(), y.cpu()
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            bad.append(path)
+    return len(la), bad
+
+
+def _wires_bit_equal(a: list, b: list) -> list[int]:
+    """Ticks whose wires differ in any bit (lengths must match)."""
+    if len(a) != len(b):
+        fail(f"wire counts differ: {len(a)} vs {len(b)}")
+    return [i for i, (x, y) in enumerate(zip(a, b))
+            if x.shape != y.shape or not np.array_equal(x.view(np.int32), y.view(np.int32))]
+
+
+def drive_scanned(device: str, m5: dict, m15: dict, live_ticks: int,
+                  audit_every: int = AUDIT_EVERY, sync_check: bool = False) -> dict:
+    """The warm tick and ``live_ticks`` live ticks through one incremental
+    engine's ``process_ticks_scanned`` (the serial drive's settings):
+    fired tuples, every tick's wire, the chunks' times, peaks and launches,
+    the drive's wall time. ``sync_check`` runs the scan loop under
+    ``torch.cuda.set_sync_debug_mode("warn")`` and returns where in the
+    port each synchronizing operation it reported was issued."""
+    import traceback
+    import warnings
+
+    import torch
+
+    from binquant_tpu_torch.io import pipeline as pl
+    from binquant_tpu_torch.io.replay import make_stub_engine, signal_tuples
+    from binquant_tpu_torch.regime.context import ContextConfig
+
+    engine = make_stub_engine(
+        capacity=S, window=W, context_config=ContextConfig(), device=device,
+        incremental=True, carry_audit_every=audit_every, **SERIAL,
+    )
+    ticks = tick_plan(engine, m5, m15, live_ticks)
+    wires = _record_wires(engine)
+    chunks: list = []
+    engine._flush_scan_plan = _timed_flush(engine._flush_scan_plan, chunks, device == "cuda", 0)
+    syncs: list = []
+    scan = pl.tick_step_scan
+    if sync_check:
+        def note(message, category, filename, lineno, file=None, line=None):
+            # the frame that issued the synchronizing operation: the deepest
+            # one outside torch and the warnings machinery. Counted when it
+            # is the port's (the debug switch itself reports one, issued
+            # from this script)
+            if "synchronizing" in str(message):
+                frames = [f for f in traceback.extract_stack()[:-1]
+                          if "/torch/" not in f.filename
+                          and not f.filename.endswith("warnings.py")]
+                where = frames[-1] if frames else None
+                if where is not None and "binquant_tpu_torch" in where.filename:
+                    syncs.append(f"{Path(where.filename).name}:{where.lineno} {where.line}")
+
+        def checked(*args, **kwargs):
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = note
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return scan(*args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+        pl.tick_step_scan = checked
+    fired: list = []
+
+    async def run():
+        fired.extend(await engine.process_ticks_scanned(ticks))
+        fired.extend(await engine.flush_pending())
+
+    t0 = time.perf_counter()
+    try:
+        asyncio.run(run())
+    finally:
+        pl.tick_step_scan = scan
+    return {"engine": engine, "wires": wires, "fired": signal_tuples(fired), "chunks": chunks,
+            "wall_ms": (time.perf_counter() - t0) * 1000.0, "syncs": syncs, "paths": [],
+            "ticks": len(ticks)}
+
+
+def check_scanned(m5, m15, serial: dict, cm5, cm15, card: str = "cuda") -> dict:
+    """The scanned drive (``[slice scanned]``) on phase 3's market: wires,
+    fired tuples, rings and carry bit for bit against phase 3's serial
+    incremental card drive (``serial``), the CPU's scanned drive at the wire
+    contract, the chunk counters; then phase 5's crash market with the
+    crash tick inside a chunk: one overflow re-drive, the serial drive's
+    fired set and wires. ``card="cpu"`` rehearses it without a card."""
+    from binquant_tpu_torch.ops import quantile_tail as qt
+
+    cuda = card == "cuda"
+    qt.reset_launches()  # launches made by the comparisons above do not count
+    gpu = drive_scanned(card, m5, m15, LIVE_TICKS, sync_check=cuda)
+    counts = {"launches": qt.launches, "launches_by_site": _qtail_sites(cuda)}
+    eng = gpu["engine"]
+    want = {"scanned_ticks": 2 * (AUDIT_EVERY - 1), "scan_chunks": 2, "scan_overflow_reruns": 0}
+    got = {k: getattr(eng, k) for k in want}
+    if got != want:
+        fail(f"scanned drive counters {got}, expected {want}")
+    if sorted(gpu["fired"]) != sorted(serial["fired"]):
+        fail("scanned drive: fired tuples differ from the serial incremental card drive")
+    if gpu["syncs"]:
+        fail(f"scanned drive: synchronizing operations inside the scan loop: "
+             f"{sorted(set(gpu['syncs']))[:5]}")
+    diff = _wires_bit_equal(gpu["wires"], serial["wires"])
+    if diff:
+        fail(f"scanned drive: wires differ in bits from the serial card drive on ticks {diff}")
+    n_leaves, bad = _state_bits_equal(eng.state, serial["engine"].state)
+    if bad:
+        fail(f"scanned drive: state leaves differ from the serial card drive: {bad[:5]}")
+    cpu = drive_scanned("cpu", m5, m15, LIVE_TICKS)
+    if {k: getattr(cpu["engine"], k) for k in want} != got:
+        fail("scanned drive: chunk counters differ between the card and the CPU")
+    max_wire_err = compare_drives(gpu, cpu, "scanned")
+
+    # the crash market: the crash tick (the 17th live tick) overflows the
+    # wire inside the second chunk, which re-drives serially
+    crash_ticks = LIVE_TICKS + 1
+    before = _qtail_sites(cuda)
+    crash = drive_scanned(card, cm5, cm15, crash_ticks, audit_every=SCAN_CRASH_AUDIT)
+    crash_sites = _sites_since(before, cuda)
+    counts["launches"] = qt.launches
+    counts["launches_by_site"] = _qtail_sites(cuda)
+    ce = crash["engine"]
+    want_c = {"scanned_ticks": SCAN_CRASH_AUDIT - 1, "scan_chunks": 1, "scan_overflow_reruns": 1}
+    got_c = {k: getattr(ce, k) for k in want_c}
+    if got_c != want_c or ce.overflow_ticks != 1:
+        fail(f"crash scanned drive counters {got_c} overflow {ce.overflow_ticks}, "
+             f"expected {want_c} and one overflow tick")
+    crash_serial = drive(card, cm5, cm15, incremental=True, live_ticks=crash_ticks,
+                         audit_every=SCAN_CRASH_AUDIT)
+    if sorted(crash["fired"]) != sorted(crash_serial["fired"]):
+        fail("crash scanned drive: fired set differs from the serial drive's")
+    crash_diff = _wires_bit_equal(crash["wires"], crash_serial["wires"])
+    if crash_diff:
+        fail(f"crash scanned drive: wires differ in bits on ticks {crash_diff}")
+
+    # phase 3's serial incremental card drive of the same ticks
+    serial_incr = [t for t, p in zip(serial["tick_ms"], serial["paths"]) if p == "incremental"]
+    chunk_ms = [c["ms"] for c in gpu["chunks"]]
+    per_tick = [c["ms"] / c["ticks"] for c in gpu["chunks"]]
+    peaks = [c["peak_above_base_bytes"] for c in gpu["chunks"]]
+    result = {
+        **counts,
+        **got,
+        "ticks": gpu["ticks"],
+        "signals": len(gpu["fired"]),
+        "wires_bit_equal_to_serial": len(gpu["wires"]),
+        "state_leaves_bit_equal": n_leaves,
+        "max_wire_abs_err_vs_cpu": max_wire_err,
+        "chunk_ticks": [c["ticks"] for c in gpu["chunks"]],
+        "chunk_ms": chunk_ms,
+        "chunk_ms_per_tick": per_tick,
+        "chunk_peak_above_base_bytes": peaks,
+        "serial_incremental_tick_ms": serial_incr,
+        "serial_incremental_p50_ms": float(np.percentile(serial_incr, 50)),
+        "cpu_chunk_ms": [c["ms"] for c in cpu["chunks"]],
+        "syncs_in_scan_loop": len(gpu["syncs"]),
+        "sync_sites": sorted(set(gpu["syncs"])),
+        "crash": {**got_c, "signals": len(crash["fired"]), "sites": crash_sites,
+                  "chunks": [{k: c[k] for k in ("ticks", "ms", "sites")}
+                             for c in crash["chunks"]]},
+    }
+    print(
+        f"[slice scanned] S={S} W={W}: 1 warm + {LIVE_TICKS} live ticks, audit every "
+        f"{AUDIT_EVERY}: {got['scanned_ticks']} ticks in {got['scan_chunks']} chunks "
+        f"{result['chunk_ticks']}, {result['signals']} signals; fired tuples, all "
+        f"{len(gpu['wires'])} wires and {n_leaves} state leaves bit-equal to the serial "
+        f"incremental card drive; counters equal to the cpu's, wires within the contract "
+        f"(max err {max_wire_err:.3g}); chunk ms {[round(x, 2) for x in chunk_ms]} = "
+        f"{[round(x, 2) for x in per_tick]} ms a tick vs serial incremental p50 "
+        f"{result['serial_incremental_p50_ms']:.2f} ms (phase 3's drive); peak above base "
+        f"{[_mib(p) for p in peaks]} MiB; syncs in the scan loop "
+        f"{len(gpu['syncs'])} {result['sync_sites']}; qtail {counts['launches_by_site']}"
+    )
+    print(
+        f"[slice scanned] crash market, audit every {SCAN_CRASH_AUDIT}: {got_c}, the crash "
+        f"tick's chunk re-driven serially (overflow ticks {ce.overflow_ticks}); "
+        f"{len(crash['fired'])} signals and every wire equal to the serial drive's; chunk ms "
+        f"{[round(c['ms'], 1) for c in crash['chunks']]} (qtail {crash_sites})"
+    )
+    return result
+
+
+@contextlib.contextmanager
+def _twin_checked(checks: list):
+    """Hold every qtail call ActivityBurstPump makes inside the block
+    against the twin on the same input, bit for bit, once the block has
+    ended: each call's input and output are cloned on the device as it is
+    made (so a timed drive carries two copies a call and no twin), and
+    ``checks`` gets one ``(site, shape, num_out, equal)`` entry a call."""
+    import torch
+
+    from binquant_tpu_torch.ops import quantile_tail as qt
+    from binquant_tpu_torch.strategies import activity_burst_pump as abp_mod
+
+    real = abp_mod.rolling_quantile_tail
+    saved: list = []
+
+    def checked(x, window, q, num_out=1, min_periods=None, site="direct"):
+        out = real(x, window, q, num_out=num_out, min_periods=min_periods, site=site)
+        saved.append((site, x.clone(), window, q, num_out, min_periods, out.clone()))
+        return out
+
+    abp_mod.rolling_quantile_tail = checked
+    try:
+        yield checks
+    finally:
+        abp_mod.rolling_quantile_tail = real
+    for site, x, window, q, num_out, mp, out in saved:
+        twin = qt.rolling_quantile_tail_reference(x, window, q, num_out, mp)
+        a = torch.nan_to_num(out, nan=-9e9).view(torch.int32)
+        b = torch.nan_to_num(twin, nan=-9e9).view(torch.int32)
+        checks.append((site, tuple(x.shape), num_out, bool(torch.equal(a, b))))
+
+
+def drive_backtest(device: str, m5: dict, m15: dict, chunks: tuple, ext_invariant: bool,
+                   params=None, twin_check: bool = False, live: list | None = None) -> dict:
+    """The warm tick through ``process_tick`` on a classic engine (the
+    serial drive's settings), then ``process_ticks_backtest`` over one call
+    per entry of ``chunks`` (that many live ticks, one chunk each). Fired
+    tuples with their indicator payloads, every tick's wire, per chunk ms,
+    peak, launches by site. ``twin_check`` holds every qtail launch at
+    ``abp_core_batch`` against the twin on the same input
+    (:func:`_twin_checked`). ``live`` passes
+    the market's live ticks (:func:`live_ticks_of`) when already built."""
+    from binquant_tpu_torch.backtest import driver
+    from binquant_tpu_torch.io.replay import make_stub_engine, signal_tuples
+    from binquant_tpu_torch.regime.context import ContextConfig
+
+    engine = make_stub_engine(
+        capacity=S, window=W, context_config=ContextConfig(), device=device,
+        incremental=False, ext_invariant=ext_invariant, **SERIAL,
+    )
+    queue_warm(engine, m5, m15)
+    if live is None:
+        live = live_ticks_of(m5, m15, sum(chunks))
+    ticks = [(T_LIVE0 * 1000, [])] + live[: sum(chunks)]
+    wires = _record_wires(engine)
+    recs: list = []
+    flush = driver._flush_backtest_plan
+    driver._flush_backtest_plan = _timed_flush(flush, recs, device == "cuda", 1)
+    checks: list = []
+    out = {"fired": [], "indicators": {}}
+
+    def take(fired):
+        for sig, tup in zip(fired, signal_tuples(fired)):
+            out["fired"].append(tup)
+            out["indicators"][tup] = sig.analytics["indicators"]
+
+    async def run():
+        # the warm tick evaluates with the drive's params too
+        engine.strategy_params = params
+        take(await engine.process_tick(now_ms=ticks[0][0]))
+        start = 1
+        for T in chunks:
+            take(await engine.process_ticks_backtest(ticks[start:start + T], params=params,
+                                                     chunk=T))
+            start += T
+        take(await engine.flush_pending())
+
+    try:
+        with _twin_checked(checks) if twin_check else contextlib.nullcontext():
+            asyncio.run(run())
+    finally:
+        driver._flush_backtest_plan = flush
+    out.update(engine=engine, wires=wires, chunks=recs, checks=checks, paths=[],
+               ticks=len(ticks), tick_times=[t for t, _ in ticks])
+    return out
+
+
+def _counts_by_strategy(fired: list) -> tuple[dict, dict]:
+    trig: dict = {}
+    auto: dict = {}
+    for _, strat, _, _, at in fired:
+        trig[strat] = trig.get(strat, 0) + 1
+        auto[strat] = auto.get(strat, 0) + int(at)
+    return trig, auto
+
+
+def check_backtest(card: str = "cuda") -> dict:
+    """The time-batched backtest (``[slice backtest]``): phase 3's market
+    recipe with 48 live ticks on a classic engine, the warm tick serial,
+    then a 16-tick and a 32-tick chunk. With ``ext_invariant`` off the fired
+    set is the serial classic card drive's exactly (and the CPU backtest's
+    on the first chunk); with it on, equal but for flips inside the
+    declared gate margins. Two qtail launches at ``abp_core_batch`` per
+    chunk, none at ``abp_core`` on batched ticks, each equal to the twin.
+    Then ``run_param_sweep`` over 8 combos on the same stream, scoring on:
+    per-combo counts against ``process_ticks_backtest`` runs at two combos'
+    params, and against the CPU sweep on the first chunk. ``card="cpu"``
+    rehearses it without a card."""
+    from binquant_tpu_torch.backtest import run_param_sweep
+    from binquant_tpu_torch.engine.step import STRATEGY_ORDER, WIRE_FIRED_COUNT_OFF, WIRE_MAX_FIRED
+    from binquant_tpu_torch.ops import quantile_tail as qt
+    from binquant_tpu_torch.regime.context import ContextConfig
+    from binquant_tpu_torch.strategies.params import (
+        declared_gate_margins,
+        grid_combo,
+        make_param_grid,
+    )
+
+    cuda = card == "cuda"
+    live = sum(BT_CHUNKS)
+    bm5, bm15 = make_market(np.random.default_rng(SEED + 2), live_ticks=live)
+    serial = drive(card, bm5, bm15, incremental=False, live_ticks=live)
+    # the live ticks' klines, built once for every drive below
+    klines = live_ticks_of(bm5, bm15, live)
+    qt.reset_launches()  # the serial drive's launches are phase 3's kind
+    bt = drive_backtest(card, bm5, bm15, BT_CHUNKS, ext_invariant=False, twin_check=True,
+                        live=klines)
+    counts = {"launches": qt.launches, "launches_by_site": _qtail_sites(cuda)}
+    eng = bt["engine"]
+    got = {k: getattr(eng, k) for k in ("backtest_ticks", "backtest_chunks",
+                                         "backtest_overflow_reruns")}
+    if got != {"backtest_ticks": live, "backtest_chunks": len(BT_CHUNKS),
+               "backtest_overflow_reruns": 0}:
+        fail(f"backtest counters {got}")
+    if sorted(bt["fired"]) != sorted(serial["fired"]):
+        only_bt = sorted(set(bt["fired"]) - set(serial["fired"]))[:5]
+        only_serial = sorted(set(serial["fired"]) - set(bt["fired"]))[:5]
+        fail(f"backtest fired set != serial classic card drive: {only_bt} / {only_serial}")
+    wires_equal = len(bt["wires"]) - len(_wires_bit_equal(bt["wires"], serial["wires"]))
+    for c in bt["chunks"]:
+        if c["sites"] != {"abp_core_batch": 2}:
+            fail(f"backtest chunk qtail launches by site {c['sites']}, expected 2 at abp_core_batch")
+    batched = [c for c in bt["checks"] if c[0] == "abp_core_batch"]
+    if len(batched) != 2 * len(BT_CHUNKS) or not all(c[3] for c in bt["checks"]):
+        fail(f"backtest qtail launches vs twin: {bt['checks']}")
+    shapes = sorted({(c[1], c[2]) for c in batched})
+
+    # the CPU backtest on the first chunk
+    cpu = drive_backtest("cpu", bm5, bm15, (BT_CPU_TICKS,), ext_invariant=False, live=klines)
+    first = set(bt["tick_times"][: BT_CPU_TICKS + 1])
+    if sorted(f for f in bt["fired"] if f[0] in first) != sorted(cpu["fired"]):
+        fail("backtest fired set on the first chunk differs between the card and the CPU")
+    off, K = WIRE_FIRED_COUNT_OFF, WIRE_MAX_FIRED
+    for i, (wg, wc) in enumerate(zip(bt["wires"], cpu["wires"], strict=False)):
+        if wg[off] != wc[off] or not np.array_equal(
+            wg[off + 1: off + 1 + 4 * K], wc[off + 1: off + 1 + 4 * K]
+        ):
+            fail(f"backtest tick {i}: fired block differs between the card and the CPU")
+        if not np.isclose(wg, wc, rtol=1e-4, atol=1e-5, equal_nan=True).all():
+            fail(f"backtest tick {i}: wire floats differ between the card and the CPU")
+
+    # ext_invariant on: the gate-margin contract against the serial drive
+    ext = drive_backtest(card, bm5, bm15, BT_CHUNKS, ext_invariant=True, live=klines)
+    if ext["engine"].backtest_chunks != len(BT_CHUNKS):
+        fail("ext_invariant backtest did not batch")
+    margins = declared_gate_margins()
+    flips = sorted(set(ext["fired"]) ^ set(serial["fired"]))
+    for f in flips:
+        ind = ext["indicators"].get(f) or serial["indicators"].get(f) or {}
+        side = "ext_invariant" if f in ext["indicators"] else "serial"
+        print(f"[slice backtest] ext_invariant flip {f} fired on the {side} drive only, "
+              f"gated indicators {{rsi: {ind.get('rsi')}, mfi: {ind.get('mfi')}}}")
+        if not _gated_flip_ok(f, ind, margins):
+            fail(f"ext_invariant backtest: flip outside the declared gate margins: {f}")
+
+    # the sweep: 8 combos on the same stream, scoring on
+    grid, combos = make_param_grid(SWEEP_AXES)
+
+    def seq_of(n_live: int) -> list:
+        return [(T_LIVE0 * 1000, lambda e: queue_warm(e, bm5, bm15))] + klines[:n_live]
+
+    sweep_kw = dict(capacity=S, window=W, chunk=BT_CHUNKS[0], context_config=ContextConfig())
+    before = _qtail_sites(cuda)
+    sweep_checks: list = []
+    with _twin_checked(sweep_checks):
+        sweep = run_param_sweep(None, SWEEP_AXES, device=card, seq=seq_of(live), **sweep_kw)
+    sweep_sites = _sites_since(before, cuda)
+    n_abp = len(SWEEP_AXES["abp.score_quantile"])
+    if sweep_sites != {"abp_core_batch": 2 * n_abp * sweep["dispatches"]}:
+        fail(f"sweep qtail launches {sweep_sites}: expected one abp_core_batch pair per "
+             f"score_quantile per chunk ({sweep['dispatches']} chunks)")
+    # every launch of the sweep against the twin, the warm chunk's too
+    sweep_shapes = sorted({(c[1], c[2]) for c in sweep_checks})
+    if (len(sweep_checks) != sweep_sites["abp_core_batch"]
+            or not all(c[0] == "abp_core_batch" and c[3] for c in sweep_checks)):
+        fail(f"sweep qtail launches vs twin: {sweep_checks}")
+    if ((S, BT_WARM_QTAIL[0]), BT_WARM_QTAIL[1]) not in sweep_shapes:
+        fail(f"sweep qtail shapes {sweep_shapes}: the warm chunk's {BT_WARM_QTAIL} missing")
+    # the sweep is the backend's other main path: its launches join the
+    # drive's (its counts read just before and just after it)
+    counts["launches"] += sum(sweep_sites.values())
+    for k, v in sweep_sites.items():
+        counts["launches_by_site"][k] = counts["launches_by_site"].get(k, 0) + v
+    for p in SWEEP_CHECKED:
+        run = drive_backtest(card, bm5, bm15, BT_CHUNKS, ext_invariant=False,
+                             params=grid_combo(grid, p), live=klines)
+        trig, auto = _counts_by_strategy(run["fired"])
+        want_t = {s: n for s, n in zip(STRATEGY_ORDER, sweep["trig_counts"][p]) if n}
+        want_a = {s: n for s, n in zip(STRATEGY_ORDER, sweep["autotrade_counts"][p]) if n}
+        if trig != want_t or {k: v for k, v in auto.items() if v} != want_a:
+            fail(f"sweep combo {p} {combos[p]}: counts {want_t}/{want_a} != backtest's "
+                 f"{trig}/{auto}")
+    first_checks: list = []
+    with _twin_checked(first_checks):
+        sweep_first = run_param_sweep(None, SWEEP_AXES, device=card, seq=seq_of(BT_CPU_TICKS),
+                                      **sweep_kw)
+    if not first_checks or not all(c[3] for c in first_checks):
+        fail(f"first-chunk sweep qtail launches vs twin: {first_checks}")
+    sweep_cpu = run_param_sweep(None, SWEEP_AXES, device="cpu", seq=seq_of(BT_CPU_TICKS),
+                                **sweep_kw)
+    for key in ("trig_counts", "autotrade_counts", "ranking"):
+        if sweep_first[key] != sweep_cpu[key]:
+            fail(f"sweep {key} differ between the card and the CPU on the first chunk")
+    if (sweep_first["outcomes"]["ranking_by_return"]
+            != sweep_cpu["outcomes"]["ranking_by_return"]):
+        fail("sweep outcome ranking differs between the card and the CPU")
+
+    candles_tick = S * 4
+    chunk_rows = [
+        {"ticks": c["ticks"], "ms": c["ms"], "ticks_per_s": c["ticks"] / c["ms"] * 1e3,
+         "candles_per_s": c["ticks"] * candles_tick / c["ms"] * 1e3,
+         "peak_above_base_bytes": c["peak_above_base_bytes"], "sites": c["sites"]}
+        for c in bt["chunks"]
+    ]
+    ext_rows = [{"ticks": c["ticks"], "ms": c["ms"],
+                 "peak_above_base_bytes": c["peak_above_base_bytes"]} for c in ext["chunks"]]
+    serial_live = serial["tick_ms"][1:]
+    result = {
+        **counts,
+        **got,
+        "signals": len(bt["fired"]),
+        "wires_bit_equal_to_serial": [wires_equal, len(bt["wires"])],
+        "qtail_shapes": [list(s) for s in shapes],
+        "chunks": chunk_rows,
+        "ext_invariant_chunks": ext_rows,
+        "ext_invariant_flips": len(flips),
+        "serial_classic_tick_p50_ms": float(np.percentile(serial_live, 50)),
+        "cpu_chunk_ms": [c["ms"] for c in cpu["chunks"]],
+        "sweep": {
+            "P": sweep["P"], "combos": combos, "dispatches": sweep["dispatches"],
+            "chunk_ms": sweep["chunk_ms"], "wall_s": sweep["wall_s"],
+            "combos_per_s": sweep["P"] * sweep["evaluated_ticks"] / sweep["wall_s"]
+            if sweep["wall_s"] else None,
+            "total_fired": sweep["total_fired"], "ranking": sweep["ranking"],
+            "ranking_by_return": sweep["outcomes"]["ranking_by_return"],
+            "launches_by_site": sweep_sites, "cpu_first_chunk_equal": True,
+            "qtail_shapes": [list(sh) for sh in sweep_shapes],
+            "qtail_equal_to_twin": len(sweep_checks),
+        },
+    }
+    print(
+        f"[slice backtest] S={S} W={W}: warm tick + chunks {list(BT_CHUNKS)} on a classic "
+        f"engine, {result['signals']} signals equal to the serial classic card drive "
+        f"(wires bit-equal {wires_equal}/{len(bt['wires'])}) and, on the first chunk, to the "
+        f"cpu's; qtail 2 launches a chunk at abp_core_batch {shapes}, each equal to the twin; "
+        + "; ".join(
+            f"chunk {c['ticks']}: {c['ms']:.1f} ms, {c['ticks_per_s']:.1f} ticks/s, "
+            f"{c['candles_per_s']:.0f} candles/s, peak +{_mib(c['peak_above_base_bytes'])} MiB"
+            for c in chunk_rows)
+        + f"; serial classic tick p50 {result['serial_classic_tick_p50_ms']:.2f} ms; "
+        f"ext_invariant chunks {[round(c['ms'], 1) for c in ext_rows]} ms, {len(flips)} "
+        f"flips, all inside the gate margins"
+    )
+    print(
+        f"[slice backtest] sweep: {sweep['P']} combos over {list(SWEEP_AXES)}, "
+        f"{sweep['dispatches']} chunks of {BT_CHUNKS[0]}, chunk ms "
+        f"{[round(x, 1) for x in sweep['chunk_ms']]}, {result['sweep']['combos_per_s']:.1f} "
+        f"combo-ticks/s; fired {sweep['total_fired']}; combos {list(SWEEP_CHECKED)} equal to "
+        f"their process_ticks_backtest runs; the first chunk's counts and rankings equal to "
+        f"the cpu sweep's; qtail {sweep_sites} at {sweep_shapes} (the warm chunk's "
+        f"{BT_WARM_QTAIL} through the block kernel), all {len(sweep_checks)} launches equal "
+        f"to the twin"
+    )
+    return result
+
+
 def torch_empty_cache() -> None:
     import gc
 
@@ -3931,6 +4631,11 @@ def main() -> int:
         t_phase = now
 
     t_phase = t0
+    if "--fold-ab" in sys.argv[1:]:
+        cm5, cm15 = make_crash_market(np.random.default_rng(SEED + 1))
+        print(json.dumps({"fold_ab": fold_ab(cm5, cm15)}))
+        lap("fold A/B")
+        return 0
     # phase 2: kernel vs twin
     qreport = check_quantile_kernel()
     lap("build and kernel")
@@ -3939,7 +4644,8 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     m5, m15 = make_market(rng)
     classic = check_classic(m5, m15)
-    incremental = check_incremental(m5, m15, classic)
+    serial_ref: dict = {}  # the serial incremental card drive, for phase 10
+    incremental = check_incremental(m5, m15, classic, keep=serial_ref)
     lap("classic and incremental")
     # phase 4: the dormant strategy set with the spike detector
     dormant = check_dormant()
@@ -3961,6 +4667,14 @@ def main() -> int:
     # phase 9: the subscription fan-out plane, on phase 5's market
     fanout = check_fanout(cm5, cm15)
     lap("fanout")
+    torch_empty_cache()
+    # phase 10: the scanned drive (phase 3's market, then phase 5's crash)
+    # and the time-batched backtest with the sweep
+    scanned = check_scanned(m5, m15, serial_ref, cm5, cm15)
+    serial_ref.clear()
+    lap("scanned")
+    backtest = check_backtest()
+    lap("backtest")
     slices = {
         "classic": {k: v for k, v in classic.items()
                     if k not in ("fired", "indicators", "tick_times")},
@@ -3971,6 +4685,8 @@ def main() -> int:
         "delivery": delivery,
         "observability": {k: v for k, v in observability.items() if k != "paths"},
         "fanout": {k: v for k, v in fanout.items() if k != "paths"},
+        "scanned": scanned,
+        "backtest": backtest,
     }
     if "--profile" in sys.argv[1:]:
         slices["profile"] = profile_slice(m5, m15, cm5, cm15)
@@ -3979,7 +4695,8 @@ def main() -> int:
     by_site: dict[str, int] = {}
     drives = {"classic": classic, "incremental": incremental, "dormant": dormant,
               "pipelined": pipelined, "service": service, "delivery": delivery,
-              "observability": observability, "fanout": fanout}
+              "observability": observability, "fanout": fanout, "scanned": scanned,
+              "backtest": backtest}
     for run in drives.values():
         for k, v in run["launches_by_site"].items():
             by_site[k] = by_site.get(k, 0) + v

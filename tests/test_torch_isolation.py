@@ -39,6 +39,8 @@ def test_import_pulls_in_no_jax_and_no_reference_module():
         "import binquant_tpu_torch.obs.ledger, binquant_tpu_torch.io.metrics\n"
         "import binquant_tpu_torch.io.websocket\n"
         "import binquant_tpu_torch.fanout, binquant_tpu_torch.fanout.snapshot\n"
+        "import binquant_tpu_torch.backtest, binquant_tpu_torch.backtest.kernel\n"
+        "import binquant_tpu_torch.backtest.driver\n"
         "import asyncio\n"
         "import torch.profiler\n"
         "made = []\n"
@@ -100,6 +102,7 @@ def _imported_roots(path: Path) -> set[str]:
 def test_sources_import_no_jax_and_no_reference_package():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    assert {PKG / "backtest" / f for f in ("__init__.py", "kernel.py", "driver.py")} <= set(files)
     for path in files:
         roots = _imported_roots(path)
         assert not roots & {"jax", "jaxlib", "binquant_tpu", "pydantic"}, (path, roots)
@@ -142,10 +145,13 @@ def test_httpx_is_imported_only_where_no_session_is_given():
         assert found[0] in list(ast.walk(holder)), path
 
 
-@pytest.mark.parametrize("entry", ["make_stub_engine", "SignalEngine", "run_replay"])
+@pytest.mark.parametrize(
+    "entry", ["make_stub_engine", "SignalEngine", "run_replay", "run_backtest", "run_param_sweep"]
+)
 def test_entry_points_raise_without_cuda_unless_cpu_requested(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible; the no-CUDA refusal cannot be shown")
+    from binquant_tpu_torch.backtest import run_backtest, run_param_sweep
     from binquant_tpu_torch.config import Config
     from binquant_tpu_torch.io import pipeline, replay
     from binquant_tpu_torch.io.autotrade import AutotradeConsumer
@@ -169,6 +175,10 @@ def test_entry_points_raise_without_cuda_unless_cpu_requested(entry, tmp_path):
         "make_stub_engine": lambda **kw: replay.make_stub_engine(capacity=8, window=96, **kw),
         "SignalEngine": engine,
         "run_replay": lambda **kw: replay.run_replay(tmp_path / "empty.jsonl", **kw),
+        "run_backtest": lambda **kw: run_backtest(tmp_path / "empty.jsonl", **kw),
+        "run_param_sweep": lambda **kw: run_param_sweep(
+            tmp_path / "empty.jsonl", {"pt.rsi_oversold": [25.0, 30.0]}, **kw
+        ),
     }
     (tmp_path / "empty.jsonl").write_text("")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
