@@ -1,19 +1,24 @@
 """binquant_tpu_torch — the PyTorch/CUDA port of the binquant signal engine.
 
 A second package beside ``binquant_tpu`` (the JAX reference). It runs the
-live tick — ring-buffer ingest, feature packs, market context, the five
-live strategies, the packed wire and host emission — on one NVIDIA Hopper
-card, on the incremental path (indicator state carried from tick to tick,
-resynced by full recomputes; the production default) or the classic one
-(every tick recomputed from the windows), with the repository's one
-hand-written kernel (the trailing rolling quantile,
-``ops/quantile_tail.py`` + ``csrc/qtail.cu``) as the card's implementation
-of ``rolling_quantile_tail``.
+signal engine on one NVIDIA Hopper card: the live tick (ring-buffer ingest,
+feature packs, market context, every strategy, the packed wire and its
+digests, host emission) on the incremental path (indicator state carried
+from tick to tick, resynced by full recomputes; the production default) or
+the classic one, the pipelined production loop, the service around it
+(backfill, checkpoints, the delivery plane and its sinks, observability,
+the subscription fan-out), the multi-tick drives (scanned replay, the
+time-batched backtest and parameter sweeps), and, as a service of its own
+(``python -m binquant_tpu_torch``, :mod:`binquant_tpu_torch.__main__`),
+the exchange websocket connectors, the REST history backfill and the
+open-interest feed. The repository's one hand-written kernel (the trailing
+rolling quantile, ``ops/quantile_tail.py`` + ``csrc/qtail.cu``) is the
+card's implementation of ``rolling_quantile_tail``.
 
 Device policy: entry points (``SignalEngine``, ``make_stub_engine``,
-``run_replay``) default to ``device="cuda"`` and raise when CUDA is absent
-unless the caller passes ``device="cpu"`` explicitly — a run never drops to
-the CPU on its own. Float32 matrix products stay in full float32 (the EWM
+``run_replay``, ``run_backtest``, ``run_live``, the command) default to
+``device="cuda"`` and raise when CUDA is absent unless the caller passes
+``device="cpu"`` explicitly — a run never drops to the CPU on its own. Float32 matrix products stay in full float32 (the EWM
 decay matmul ran at ``Precision.HIGHEST`` in the reference; TF32 would break
 parity), so the TF32 switches are turned off here at import.
 """

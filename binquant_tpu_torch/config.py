@@ -45,7 +45,21 @@ pipelined production loop:
   ``wal_compact_every`` the acks between WAL compactions (0: none). The
   WAL is fsynced on every record;
 * ``telegram_bot_token``, ``telegram_user_id`` — the Telegram bot and the
-  chat the alerts go to;
+  chat the alerts go to (``TELEGRAM_BOT_TOKEN``, ``TELEGRAM_USER_ID``);
+* the service's own settings, read from the reference's environment
+  variables when the Config is built: ``log_level`` (``LOG_LEVEL``,
+  ``INFO``), ``event_log`` (``BQT_EVENT_LOG``: empty disables the
+  structured event log, ``stderr``/``-`` writes to stderr, anything else is
+  a rotating file), ``binbot_api_url`` (``BINBOT_API_URL``),
+  ``profile_dir`` (``BQT_PROFILE_DIR``, where an on-demand profiler window
+  writes its trace; by default in the temporary directory, as the
+  reference keeps it in ``/tmp``) and ``profile_remote_ok``
+  (``BQT_PROFILE_REMOTE=1`` lets a non-loopback peer open one); the ports
+  the service serves, ``metrics_port`` (``BQT_METRICS_PORT``) and
+  ``fanout_port``/``fanout_host`` (``BQT_FANOUT_PORT``,
+  ``BQT_FANOUT_HOST``), and its checkpoint ``checkpoint_path``
+  (``BQT_CHECKPOINT_PATH``) every ``checkpoint_every_ticks``
+  (``BQT_CHECKPOINT_EVERY_TICKS``) ticks;
 * the tick's observability, all on by default as in the reference:
   ``trace_sample`` (1 traces every tick, 0.25 every 4th, 0 none),
   ``trace_slow_ms`` (the flight recorder's busy-time budget) and
@@ -128,8 +142,10 @@ class Config:
     outcomes_enabled: bool = True
     outcome_horizons: tuple[int, ...] = (1, 4, 16, 96)
     outcome_cap: int = 1024
-    checkpoint_path: str = ""
-    checkpoint_every_ticks: int = 60
+    checkpoint_path: str = field(default_factory=lambda: os.environ.get("BQT_CHECKPOINT_PATH", ""))
+    checkpoint_every_ticks: int = field(
+        default_factory=lambda: _env_int("BQT_CHECKPOINT_EVERY_TICKS", 60)
+    )
     ckpt_shards: int = 0
     binbot_timeout_s: float = 10.0
     binbot_retry_max: int = 2
@@ -157,7 +173,7 @@ class Config:
     slo_event_every: int = 256
     delivery_health_enabled: bool = True
     delivery_slo_ms: float = 0.0
-    metrics_port: int = 0
+    metrics_port: int = field(default_factory=lambda: _env_int("BQT_METRICS_PORT", 0))
     heartbeat_path: str = field(
         default_factory=lambda: os.path.join(tempfile.gettempdir(), "binquant_tpu.heartbeat")
     )
@@ -165,8 +181,10 @@ class Config:
     ingest_watermarks_enabled: bool = True
     fanout_enabled: bool = True
     fanout_capacity: int = 1024
-    fanout_port: int = 0
-    fanout_host: str = "0.0.0.0"
+    fanout_port: int = field(default_factory=lambda: _env_int("BQT_FANOUT_PORT", 0))
+    fanout_host: str = field(
+        default_factory=lambda: os.environ.get("BQT_FANOUT_HOST", "") or "0.0.0.0"
+    )
     fanout_conn_queue: int = 256
     fanout_outbox_path: str = field(
         default_factory=lambda: os.path.join(
@@ -187,8 +205,20 @@ class Config:
     sweep_mem_budget_mb: int = field(
         default_factory=lambda: _env_int("BQT_SWEEP_MEM_BUDGET_MB", 1024)
     )
-    telegram_bot_token: str = ""
-    telegram_user_id: str = ""
+    telegram_bot_token: str = field(default_factory=lambda: os.environ.get("TELEGRAM_BOT_TOKEN", ""))
+    telegram_user_id: str = field(default_factory=lambda: os.environ.get("TELEGRAM_USER_ID", ""))
+    log_level: str = field(default_factory=lambda: os.environ.get("LOG_LEVEL", "INFO"))
+    event_log: str = field(default_factory=lambda: os.environ.get("BQT_EVENT_LOG", ""))
+    binbot_api_url: str = field(
+        default_factory=lambda: os.environ.get("BINBOT_API_URL", "http://localhost:8008")
+    )
+    profile_dir: str = field(
+        default_factory=lambda: os.environ.get("BQT_PROFILE_DIR")
+        or os.path.join(tempfile.gettempdir(), "bqt_profile")
+    )
+    profile_remote_ok: bool = field(
+        default_factory=lambda: os.environ.get("BQT_PROFILE_REMOTE", "0") == "1"
+    )
     env: str = field(default_factory=lambda: os.environ.get("ENV", ""))
 
     @property

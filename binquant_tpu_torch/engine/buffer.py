@@ -37,7 +37,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from binquant_tpu_torch.obs.instruments import INGEST_DEDUP_OVERWRITES
+from binquant_tpu_torch.exceptions import BufferCapacityError
+from binquant_tpu_torch.obs.instruments import (
+    INGEST_DEDUP_OVERWRITES,
+    REGISTRY_CAPACITY_ERRORS,
+    REGISTRY_SYMBOLS,
+)
 
 
 class Field(IntEnum):
@@ -298,6 +303,12 @@ class SymbolRegistry:
     def name_of(self, row: int) -> str | None:
         return self._row_to_name.get(row)
 
+    @property
+    def names(self) -> list[str]:
+        """The registered symbols, sorted (the open-interest refresh walks
+        them)."""
+        return sorted(self._name_to_row)
+
     def to_mapping(self) -> dict[str, int]:
         """A copy of the symbol → row mapping."""
         return dict(self._name_to_row)
@@ -312,13 +323,15 @@ class SymbolRegistry:
         if row is not None:
             return row
         if not self._free:
-            raise RuntimeError(
+            REGISTRY_CAPACITY_ERRORS.inc()
+            raise BufferCapacityError(
                 f"SymbolRegistry full ({self.capacity}); grow the buffer capacity"
             )
         row = self._free.pop()
         self._name_to_row[key] = row
         self._row_to_name[row] = key
         self.version += 1
+        REGISTRY_SYMBOLS.set(len(self._name_to_row))
         return row
 
     def remove(self, symbol: str) -> int | None:
@@ -328,6 +341,7 @@ class SymbolRegistry:
             del self._row_to_name[row]
             self._free.append(row)
             self.version += 1
+            REGISTRY_SYMBOLS.set(len(self._name_to_row))
         return row
 
     def restore(self, mapping: dict[str, int]) -> None:
@@ -338,13 +352,16 @@ class SymbolRegistry:
         for symbol, row in mapping.items():
             row = int(row)
             if not 0 <= row < self.capacity:
-                raise ValueError(f"checkpoint row {row} outside capacity {self.capacity}")
+                raise BufferCapacityError(
+                    f"checkpoint row {row} outside capacity {self.capacity}"
+                )
             key = self._norm(symbol)
             self._name_to_row[key] = row
             self._row_to_name[row] = key
         used = set(self._row_to_name)
         self._free = [r for r in range(self.capacity - 1, -1, -1) if r not in used]
         self.version += 1
+        REGISTRY_SYMBOLS.set(len(self._name_to_row))
 
     @property
     def active_rows(self) -> np.ndarray:

@@ -90,7 +90,7 @@ class FanoutPlane:
             raise ValueError(
                 f"fanout outbox_shards={outbox_shards}, snapshot_shards="
                 f"{snapshot_shards}: the sharded outbox and sharded "
-                "snapshots are not ported yet (ROADMAP A8)"
+                "snapshots are not ported yet (ROADMAP A10)"
             )
         self.engine_registry = engine_registry
         self.subscriptions = SubscriptionRegistry(

@@ -63,7 +63,7 @@ def save_snapshot(
     if int(n_shards) > 1:
         raise ValueError(
             f"fanout snapshot n_shards={n_shards}: sharded archives are not "
-            "ported yet (ROADMAP A8)"
+            "ported yet (ROADMAP A10)"
         )
     sym_plane = np.ascontiguousarray(planes["sym_plane"], np.uint32)
     s = sym_plane.shape[0] - 1  # body rows; the tail bucket rides apart
@@ -111,7 +111,7 @@ def load_snapshot(
             raise ValueError(
                 f"fanout snapshot {path.name} is sharded "
                 f"(shard_count={meta['shard_count']}): not ported yet "
-                "(ROADMAP A8) — start cold"
+                "(ROADMAP A10) — start cold"
             )
         body = np.array(data["sym_body"])
         tail = np.array(data["sym_tail"])

@@ -157,7 +157,7 @@ def load_state(path: str | Path, template_state: EngineState, registry):
             raise ValueError(
                 f"{path.name} is a sharded archive ({meta['shard_count']} shards); the "
                 "port restores monolithic archives only until sharding is ported "
-                "(ROADMAP A8)"
+                "(ROADMAP A10)"
             )
         t_leaves = _archive_leaves(template_state)
         ic = template_state.indicator_carry
@@ -224,7 +224,7 @@ class CheckpointManager:
             n_shards = self.shard_count_for(engine)
             if n_shards > 1:
                 raise ValueError(
-                    f"ckpt_shards={n_shards}: sharded archives are not ported yet (ROADMAP A8)"
+                    f"ckpt_shards={n_shards}: sharded archives are not ported yet (ROADMAP A10)"
                 )
             with engine.hold_state("checkpoint save"):
                 save_state(self.path, engine.state, engine.registry,

@@ -64,10 +64,13 @@ previous tick's regime and the breadth series, and handed to the autotrade
 consumer), the London quiet window of the evaluated tick's clock, the
 breadth scalars of the market-breadth series (fetched through the binbot
 client once per 15m bucket; a failed fetch keeps the previous series), the
-market type of the autotrade settings, and the autotrade consumer's
+market type of the autotrade settings, the autotrade consumer's
 market-dominance flags ``current_market_dominance_is_losers`` and
 ``market_domination_reversal`` (False, the reference's NEUTRAL, unless a
-caller scripts them). Method names and call shapes follow the reference
+caller scripts them), and the open-interest growth of the rows with fresh
+15m candles, read from :class:`OpenInterestCache` (``futures_api``; its
+``refresh_forever`` runs beside the consume loop, so a tick makes no REST
+call; all NaN while the cache is empty). Method names and call shapes follow the reference
 engine, ``async def process_tick`` included.
 
 The sinks: with ``delivery_enabled`` (production on) finalize enqueues
@@ -221,6 +224,7 @@ from binquant_tpu_torch.obs.instruments import (
     SCAN_OVERFLOW_RERUNS,
     SCANNED_TICKS,
     SIGNALS,
+    SYMBOLS_PER_TICK,
     TICKS,
 )
 from binquant_tpu_torch.obs.latency import FreshnessTracker, PhaseAccountant
@@ -272,6 +276,118 @@ def breadth_scalars(
     return adp_latest, adp_prev, adp_diff, adp_diff_prev, momentum
 
 
+class OpenInterestCache:
+    """KuCoin futures open-interest growth per symbol, refreshed by a
+    background task; the tick path only reads it.
+
+    Port of the reference's ``OpenInterestCache``. :meth:`refresh_forever`
+    walks the tracked universe in batches of ``batch_size`` a
+    ``batch_interval_s``, ``max_concurrency`` requests at a time, off the
+    event loop; :meth:`growth` is a cache read. Growth is the new sample
+    over the newest sample at least ``growth_horizon_s`` old (the previous
+    15m candle's cadence: a sweep-to-sweep ratio would almost never clear
+    LiquidationSweepPump's 1.02 confirmation gate), and a value not
+    refreshed within ``stale_after_s`` reads NaN, so a failing endpoint
+    never keeps an old growth passing the gate. ``clock`` gives the
+    cache's seconds (``time.monotonic`` when None, read at each call).
+    """
+
+    def __init__(
+        self,
+        futures_api: Any | None,
+        max_concurrency: int = 8,
+        batch_size: int = 40,
+        batch_interval_s: float = 1.0,
+        growth_horizon_s: float = 900.0,
+        stale_after_s: float = 300.0,
+        clock: Callable[[], float] | None = None,
+    ) -> None:
+        self.futures_api = futures_api
+        self.max_concurrency = max_concurrency
+        self.batch_size = batch_size
+        self.batch_interval_s = batch_interval_s
+        self.growth_horizon_s = growth_horizon_s
+        self.stale_after_s = stale_after_s
+        self.clock = clock
+        self._growth: dict[str, tuple[float, float]] = {}  # sym -> (ts, ratio)
+        self._samples: dict[str, deque[tuple[float, float]]] = {}
+        self._cursor = 0
+        self.requests_made = 0
+
+    def _now(self) -> float:
+        return time.monotonic() if self.clock is None else float(self.clock())
+
+    @property
+    def has_data(self) -> bool:
+        return bool(self._growth)
+
+    def growth(self, symbol: str) -> float:
+        """Cache-only read (the tick path makes no REST call): the last
+        growth, NaN when unsampled or stale."""
+        entry = self._growth.get(symbol)
+        if entry is None or self._now() - entry[0] > self.stale_after_s:
+            return float("nan")
+        return entry[1]
+
+    async def refresh_batch(self, symbols: list[str]) -> None:
+        """Fetch ``symbols``' open interest with bounded concurrency; a
+        failed fetch is skipped. The baseline is chosen BEFORE the new
+        sample is appended."""
+        if self.futures_api is None or not symbols:
+            return
+        sem = asyncio.Semaphore(self.max_concurrency)
+
+        async def one(symbol: str) -> None:
+            async with sem:
+                try:
+                    oi = float(
+                        await asyncio.to_thread(self.futures_api.get_open_interest, symbol)
+                    )
+                except Exception:
+                    return
+                self.requests_made += 1
+                now = self._now()
+                dq = self._samples.setdefault(symbol, deque())
+                # the newest sample at least a horizon old (horizon 0: the
+                # previous sample)
+                cutoff = now - self.growth_horizon_s
+                while len(dq) > 1 and dq[1][0] <= cutoff:
+                    dq.popleft()
+                baseline = dq[0] if dq and dq[0][0] <= cutoff else None
+                dq.append((now, oi))
+                if baseline is not None and baseline[1] > 0:
+                    self._growth[symbol] = (now, oi / baseline[1])
+
+        await asyncio.gather(*(one(s) for s in symbols))
+
+    async def refresh_forever(self, symbols_fn) -> None:
+        """Background loop: one batch of ``symbols_fn()`` per interval (a
+        2,000-symbol sweep takes ~50 s at the defaults, inside a 15m
+        bucket). Returns at once without a client."""
+        if self.futures_api is None:
+            return
+        while True:
+            try:
+                names = symbols_fn()
+                if names:
+                    if self._cursor >= len(names):
+                        self._cursor = 0
+                        # a sweep wrapped: forget symbols that left the
+                        # universe, so churn cannot grow the caches
+                        keep = set(names)
+                        for stale in [s for s in self._samples if s not in keep]:
+                            self._samples.pop(stale, None)
+                            self._growth.pop(stale, None)
+                    batch = names[self._cursor: self._cursor + self.batch_size]
+                    self._cursor += self.batch_size
+                    await self.refresh_batch(batch)
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                logging.exception("OI refresh batch failed; continuing")
+            await asyncio.sleep(self.batch_interval_s)
+
+
 class _PendingTick(NamedTuple):
     """A dispatched tick whose wire has not been read yet."""
 
@@ -296,6 +412,16 @@ class _PendingTick(NamedTuple):
     # (WireFired, ctx) already decoded by a chunk drive's one-pass block
     # decode; None: finalize decodes the wire itself
     unpacked: Any = None
+
+
+def _note_symbols_per_tick(slots5: list, slots15: list) -> None:
+    """``bqt_symbols_per_tick``: the rows the dispatched step applies, per
+    interval, counted on the host batches (no device read). The serial step
+    applies its final slot; a chunk applies every slot of every tick."""
+    for interval, slots in (("5m", slots5), ("15m", slots15)):
+        SYMBOLS_PER_TICK.labels(interval=interval).set(
+            sum(int(np.count_nonzero(np.asarray(b[0]) >= 0)) for b in slots)
+        )
 
 
 def _max_rows(batches) -> int:
@@ -338,6 +464,9 @@ class _ScanTickPlan(NamedTuple):
     dominance_is_losers: bool
     market_domination_reversal: bool
     ingest_mono: float | None = None
+    # (S,) open-interest growth read from the cache at plan time (None:
+    # the cache was empty, every row NaN)
+    oi: Any = None
 
 
 class SignalEngine:
@@ -357,6 +486,7 @@ class SignalEngine:
         btc_symbol: str = "BTCUSDT",
         enabled_strategies: set[str] | None = None,
         pipeline_depth: int | None = None,
+        futures_api: Any | None = None,
     ) -> None:
         self.device = resolve_device(device)
         self.config = config or Config()
@@ -398,6 +528,12 @@ class SignalEngine:
         self.grid_only_policy = GridOnlyPolicy.disabled("not_evaluated")
         self.notifier = MarketRegimeNotifier(env=self.config.env)
         self.leverage_calibrator = LeverageCalibrator(binbot_api, at_consumer.exchange)
+        # open-interest growth for LiquidationSweepPump, refreshed off the
+        # tick path (refresh_forever beside the consume loop); no client:
+        # every row reads NaN, which the strategy's gate passes
+        self.oi_cache = OpenInterestCache(futures_api)
+        # the all-NaN (S,) growth a tick uploads once while the cache is empty
+        self._nan_oi: torch.Tensor | None = None
         self._last_calibration_bucket = -1
         self._calibration_task: asyncio.Task | None = None
         # host ms of each calibration run
@@ -492,7 +628,10 @@ class SignalEngine:
         # -- the wire digests and the carry-drift meter
         self.numeric_digest = bool(self.config.numeric_digest)
         self.ingest_digest = bool(self.config.ingest_digest)
-        self.numeric = NumericHealthMonitor(nan_budget=self.config.numeric_nan_budget)
+        self.numeric = NumericHealthMonitor(
+            nan_budget=self.config.numeric_nan_budget,
+            event_every=self.carry_audit_every or 256,
+        )
         self.ingest_monitor = IngestHealthMonitor(
             self.registry,
             enabled=self.ingest_digest,
@@ -973,8 +1112,26 @@ class SignalEngine:
         self._tracked_cache = (self.registry.version, mask)
         return mask
 
-    def _host_inputs(self, btc_row: int, ts15: int, ts5: int, quiet: bool) -> HostInputs:
-        """The tick's HostInputs: every scalar in three small H2D copies."""
+    def _oi_rows(self, batches15: list) -> np.ndarray | None:
+        """(S,) open-interest growth for the rows of this tick's fresh 15m
+        candles, read from the cache (no REST call), NaN elsewhere; None
+        while the cache is empty (a spot deployment, or before the first
+        sweep)."""
+        if not self.oi_cache.has_data:
+            return None
+        oi = np.full(self.capacity, np.nan, dtype=np.float32)
+        for rows, _, _ in batches15:
+            for row in rows:
+                symbol = self.registry.name_of(int(row))
+                if symbol:
+                    oi[int(row)] = self.oi_cache.growth(symbol)
+        return oi
+
+    def _host_inputs(self, btc_row: int, ts15: int, ts5: int, quiet: bool,
+                     oi: np.ndarray | None = None) -> HostInputs:
+        """The tick's HostInputs: every scalar in three small H2D copies,
+        and the open-interest growth (one reused all-NaN tensor while
+        ``oi`` is None)."""
         adp_latest, adp_prev, adp_diff, adp_diff_prev, momentum = breadth_scalars(
             self.market_breadth
         )
@@ -1000,9 +1157,7 @@ class SignalEngine:
             btc_row=i[0],
             timestamp_s=i[1],
             timestamp5_s=i[2],
-            oi_growth=torch.full(
-                (self.capacity,), float("nan"), dtype=torch.float32, device=self.device
-            ),
+            oi_growth=self._oi_device(oi),
             adp_latest=f[0],
             adp_prev=f[1],
             adp_diff=f[2],
@@ -1014,6 +1169,15 @@ class SignalEngine:
             dominance_is_losers=b[3],
             market_domination_reversal=b[4],
         )
+
+    def _oi_device(self, oi: np.ndarray | None) -> torch.Tensor:
+        if oi is not None:
+            return torch.from_numpy(oi).to(self.device)
+        if self._nan_oi is None:
+            self._nan_oi = torch.full(
+                (self.capacity,), float("nan"), dtype=torch.float32, device=self.device
+            )
+        return self._nan_oi
 
     def _wire_enabled_key(self) -> tuple[str, ...]:
         return tuple(
@@ -1237,6 +1401,7 @@ class SignalEngine:
             dominance_is_losers=bool(getattr(at, "current_market_dominance_is_losers", False)),
             market_domination_reversal=bool(at.market_domination_reversal),
             ingest_mono=ingest_mono,
+            oi=self._oi_rows(batches15),
         )
 
     async def _redrive_serial(self, plan: dict) -> list:
@@ -1367,6 +1532,8 @@ class SignalEngine:
                     )
                 t_launch0 = time.perf_counter()
                 with trace.span("dispatch"), self.host_phase.phase("scanned", "dispatch"):
+                    _note_symbols_per_tick([b for p in ticks for b in p.batches5],
+                                           [b for p in ticks for b in p.batches15])
                     # on a copy: self.state stays the pre-chunk anchor
                     new_state, wires_dev, _ = tick_step_scan(
                         self.state, upd5, upd15, inputs_dev, momentum_dev,
@@ -1412,13 +1579,13 @@ class SignalEngine:
             return np.asarray([getattr(p, name) for p in ticks], dtype=dtype)
 
         adp = np.asarray([p.adp for p in ticks], dtype=np.float32).reshape(T, 5)
+        nan_oi = np.full(self.capacity, np.nan, dtype=np.float32)
         inputs_seq = HostInputs(
             tracked=np.stack([p.tracked for p in ticks]),
             btc_row=col("btc_row", np.int32),
             timestamp_s=col("ts15", np.int32),
             timestamp5_s=col("ts5", np.int32),
-            # the port keeps no open-interest cache: growth is unknown
-            oi_growth=np.full((T, self.capacity), np.nan, dtype=np.float32),
+            oi_growth=np.stack([nan_oi if p.oi is None else p.oi for p in ticks]),
             adp_latest=adp[:, 0],
             adp_prev=adp[:, 1],
             adp_diff=adp[:, 2],
@@ -1480,7 +1647,8 @@ class SignalEngine:
         if any(p._version != v for p, v in zip(planes, versions)):
             self._reset_state_cold("an in-place tick failed after writing the rings")
 
-    def _measure_drift(self, pairs: list[tuple], btc_row: int, ts_ms: int, span) -> None:
+    def _measure_drift(self, pairs: list[tuple], btc_row: int, ts_ms: int, span,
+                       trace=NULL_TRACE) -> None:
         """The audit tick's carry-drift meter: replay this tick's
         carry-advancing folds on a FUNCTIONAL copy of ``self.state`` (the
         copying applies; the live rings are never written), then measure the
@@ -1495,7 +1663,9 @@ class SignalEngine:
             self.drift.note_skipped()
             logging.exception("carry-drift metering failed; the audit proceeds unmeasured")
             return
-        breached = self.drift.observe(drift, tick_ms=ts_ms)
+        breached = self.drift.observe(
+            drift, tick_ms=ts_ms, trace_id=trace.trace_id, snapshot_fn=self._flight_snapshot
+        )
         span.set(
             breached=len(breached),
             **{f"drift_{fam}": v["max_abs"] for fam, v in drift.items()},
@@ -1567,6 +1737,9 @@ class SignalEngine:
             )
             if not clean_appends:
                 self._mark_carry_desynced("rewrite")
+            # open-interest growth of the rows with fresh 15m candles: cache
+            # reads only, the background refresh owns the REST traffic
+            oi = self._oi_rows(batches15)
         # the window reads the EVALUATED tick time, so replays are deterministic
         quiet = is_quiet_hours(now=datetime.fromtimestamp(ts_ms / 1000, tz=timezone.utc))
         btc = self.registry.row_of(self.btc_symbol)
@@ -1600,7 +1773,7 @@ class SignalEngine:
             # before the folds: the meter measures what this tick's
             # updates do to the carry, then the full step resyncs it
             with self.latency.stage("carry_audit"), trace.span("carry_audit") as sp_audit:
-                self._measure_drift(pairs, btc_row, ts_ms, sp_audit)
+                self._measure_drift(pairs, btc_row, ts_ms, sp_audit, trace)
 
         mode = self._donation_mode()
         inplace = mode == "single"
@@ -1620,13 +1793,16 @@ class SignalEngine:
                     inplace=inplace, pairs=pairs,
                 )
             t_inputs0 = time.perf_counter()
-            inputs = self._host_inputs(btc_row, ts15, ts5, quiet)
+            inputs = self._host_inputs(btc_row, ts15, ts5, quiet, oi)
             self.latency.record("inputs_build", (time.perf_counter() - t_inputs0) * 1000.0)
             trace.record_span("inputs_build", t_inputs0)
             self.host_phase.record(
                 "serial", "stack", (time.perf_counter() - t_stack0) * 1000.0
             )
             t_dispatch0 = time.perf_counter()
+            # the step applies the drain's final slot pair
+            n_slots = max(len(batches5), len(batches15), 1)
+            _note_symbols_per_tick(batches5[n_slots - 1:], batches15[n_slots - 1:])
             pre = self.state
             step = tick_step_wire_inplace if inplace else tick_step_wire
             # a record_function range per tick while a profiler window is open
@@ -1765,7 +1941,12 @@ class SignalEngine:
         BC_DIRTY_ROWS.set(int(ctx.get("bc_dirty_rows", 0) or 0))
         if "numeric_digest" in ctx:
             with trace.span("numeric_digest") as sp_num:
-                digest = self.numeric.observe(ctx["numeric_digest"], tick_ms=pending.ts_ms)
+                digest = self.numeric.observe(
+                    ctx["numeric_digest"],
+                    tick_ms=pending.ts_ms,
+                    trace_id=trace.trace_id,
+                    snapshot_fn=self._flight_snapshot,
+                )
                 sp_num.set(nan_rows=digest["nan_total"], inf_rows=digest["inf_total"])
         if "ingest_digest" in ctx:
             with trace.span("ingest_digest") as sp_ing:

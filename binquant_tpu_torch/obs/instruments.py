@@ -3,8 +3,9 @@
 Port of the families of ``binquant_tpu/obs/instruments.py`` the port's
 modules export (the signal outcomes, the binbot client, checkpoints, the
 fan-out plane, the sinks, the delivery plane, the tick loop, traces, the
-latency and ingest observatories, kernel builds, delivery health and the SLO
-plane), under the
+latency and ingest observatories, the numeric-health digest and the drift
+meter, kernel builds, the symbol registry, the websocket connectors,
+delivery health and the SLO plane), under the
 reference's names and help texts, so a dashboard reads either package. Labels
 are bounded sets (strategy names, horizons); symbols go in events, never in
 labels.
@@ -352,6 +353,12 @@ FULL_RECOMPUTE = REGISTRY.counter(
     labels=("reason",),
 )
 
+SYMBOLS_PER_TICK = REGISTRY.gauge(
+    "bqt_symbols_per_tick",
+    "Symbols with fresh candles applied in the last dispatched tick.",
+    labels=("interval",),
+)
+
 BC_DIRTY_ROWS = REGISTRY.gauge(
     "bqt_bc_dirty_rows",
     "Beta/corr carry rows marked dirty on the last incremental tick "
@@ -429,6 +436,66 @@ CHUNK_OCCUPANCY = REGISTRY.gauge(
 )
 
 
+# -- numeric-health digest and carry-drift meter (obs/numeric.py) ---------------
+
+NUMERIC_NONFINITE = REGISTRY.gauge(
+    "bqt_numeric_nonfinite_rows",
+    "Rows with NaN/Inf leakage on the last digest-carrying tick, per "
+    "pipeline stage (features5 / features15 / indicators / strategies), "
+    "counted only among rows whose data-sufficiency gates promise finite "
+    "values — warm-up NaN is excluded by construction.",
+    labels=("stage", "kind"),
+)
+
+NUMERIC_ANOMALIES = REGISTRY.counter(
+    "bqt_numeric_anomaly_ticks_total",
+    "Ticks whose digest NaN/Inf leakage exceeded BQT_NUMERIC_NAN_BUDGET "
+    "(each force-emits a numeric_anomaly event with the decoded digest "
+    "and an engine snapshot).",
+)
+
+NUMERIC_ABSMAX = REGISTRY.gauge(
+    "bqt_numeric_absmax",
+    "Absolute-max of key device intermediates on the last digest-carrying "
+    "tick (close5 / close15 / volume5 / volume15 / score) — a runaway "
+    "series shows here before it NaNs.",
+    labels=("series",),
+)
+
+FIRED_PER_TICK = REGISTRY.histogram(
+    "bqt_fired_rows_per_tick",
+    "Device-side per-strategy trigger counts per digest-carrying tick "
+    "(pre-dedupe, pre-enablement-filter) — the fired-breadth histogram.",
+    labels=("strategy",),
+    buckets=(0.0, 1.0, 2.0, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0),
+)
+
+CARRY_DRIFT = REGISTRY.histogram(
+    "bqt_carry_drift",
+    "Max-abs drift between the carried indicator state and the fresh "
+    "full-recompute values, measured per family at every audit tick "
+    "BEFORE the resync overwrites the carry (BQT_CARRY_AUDIT_EVERY).",
+    labels=("family",),
+    buckets=(1e-7, 1e-6, 1e-5, 1e-4, 1e-3, 1e-2, 1e-1, 1.0, 10.0, 100.0),
+)
+
+CARRY_DRIFT_ULP = REGISTRY.gauge(
+    "bqt_carry_drift_ulp",
+    "Max f32-ULP distance of the last audit tick's carried-vs-fresh "
+    "comparison, per family.",
+    labels=("family",),
+)
+
+CARRY_DRIFT_ALARMS = REGISTRY.counter(
+    "bqt_carry_drift_alarms_total",
+    "Audit ticks where a family's scale-normalized drift (each leaf's "
+    "max-abs over that leaf's magnitude scale, maxed across the family's "
+    "leaves) exceeded BQT_DRIFT_TOL — each force-emits a "
+    "carry_drift_alarm event.",
+    labels=("family",),
+)
+
+
 # -- kernel builds (obs/ledger.py) ----------------------------------------------
 
 COMPILE_SECONDS = REGISTRY.counter(
@@ -446,6 +513,40 @@ INGEST_DEDUP_OVERWRITES = REGISTRY.counter(
     "bqt_ingest_dedup_overwrites_total",
     "Pending candles overwritten before drain by a re-sent (symbol, "
     "open_time) — the keep-last dedupe evicting the stale payload.",
+)
+
+REGISTRY_SYMBOLS = REGISTRY.gauge(
+    "bqt_registry_symbols",
+    "Occupied symbol rows in the device ring buffer registry.",
+)
+
+REGISTRY_CAPACITY_ERRORS = REGISTRY.counter(
+    "bqt_registry_capacity_errors_total",
+    "Symbol-add attempts refused because the registry overflowed "
+    "BQT_MAX_SYMBOLS.",
+)
+
+
+# -- websocket ingest (io/websocket.py) -----------------------------------------
+
+WS_FRAMES = REGISTRY.counter(
+    "bqt_ws_frames_total",
+    "Raw websocket frames received, per exchange (all message kinds).",
+    labels=("exchange",),
+)
+
+WS_RECONNECTS = REGISTRY.counter(
+    "bqt_ws_reconnects_total",
+    "Websocket client drops that entered the reconnect-backoff loop.",
+    labels=("exchange",),
+)
+
+WS_PARSE_ERRORS = REGISTRY.counter(
+    "bqt_ws_parse_errors_total",
+    "Websocket frames that failed JSON/shape parsing, per exchange — a "
+    "poisoned feed shows here (plus rate-limited ws_bad_frame events), "
+    "not just in the error log.",
+    labels=("exchange",),
 )
 
 INGEST_TRACKED = REGISTRY.gauge(

@@ -1,4 +1,5 @@
-"""Tensor math helpers and the host-edge formatting helpers emission uses.
+"""Tensor math helpers, the host-edge formatting helpers emission uses, and
+Binance's request-weight guard.
 
 ``jsafe_div``/``jclamp``/``jnon_negative``/``jsafe_pct`` keep the reference
 package's names (``binquant_tpu/utils.py``) so the ported formulas read the
@@ -76,3 +77,16 @@ def build_links_msg(
         else f"{terminal_host}/bots/new/{symbol}"
     )
     return exchange_link, terminal_link
+
+
+# Binance's request-weight guard: the REST client pauses near the 1200/min cap
+BINANCE_WEIGHT_LIMIT_PER_MIN = 1200
+BINANCE_WEIGHT_SOFT_CAP = 1000
+
+
+def binance_weight_backoff_seconds(used_weight: int) -> float:
+    """Seconds to sleep given the ``x-mbx-used-weight-1m`` header value: a
+    minute once the used weight passes the soft cap, else none."""
+    if used_weight <= BINANCE_WEIGHT_SOFT_CAP:
+        return 0.0
+    return 60.0

@@ -31,7 +31,7 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    agree. Kernel launch counters are zeroed just before each card drive
    and read just after it.
 
-   * classic (``incremental=False``), 8 live ticks: one qtail launch per
+   * classic (``incremental=False``), 4 live ticks: one qtail launch per
      tick (``abp_core``);
    * incremental (a full-recompute audit every 8 ticks), 16 live ticks: a
      cold start on the warm tick, audits on live ticks 8 and 16, every other
@@ -49,7 +49,7 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    ``dormant_extended_market_bars`` of the port's replay module, made at S
    symbols with their crafted setups on the last live tick; the second
    with its rising breadth series and its scripted dominance flags), W
-   bars of warm history and 8 live ticks, every strategy on the wire, the
+   bars of warm history and 2 live ticks, every strategy on the wire, the
    classic and the incremental drive (an audit on the last tick), each on
    the card and on the CPU: routing equal, fired sets equal but for flips
    inside ``declared_gate_margins()`` (each printed), wires within the
@@ -91,8 +91,8 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    has not closed is served and dropped), then ``consume_loop`` takes 16
    live ticks of the production drive's downtrend from an
    ``asyncio.Queue``, bucket by bucket, and is cancelled. Boot B restores
-   A's archive of tick 8, tops the rings up by ``backfill`` (at the
-   production flush cadence) and consumes ticks 9-16. A CPU engine (depth
+   A's archive of tick 8, tops the rings up by ``backfill`` (in one
+   flush, as A) and consumes ticks 9-16. A CPU engine (depth
    0, copied rings) takes boot A's stream. Routing, fired tuples, notifier
    digests, leverage PUTs, host carries and rings must equal the CPU's
    (wires within the contract) and B's ticks must equal A's bit for bit
@@ -217,7 +217,38 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    warm chunk's 2048x573 too) equal to the twin, the first chunk's counts
    and rankings against the CPU sweep's; the sweep's launches join the
    backtest drive's in the kernels line.
-11. Print the kernels line, the card's name and power limit, and the result.
+11. Boot the port as a service (``[slice live]``): ``run_live``, the
+   entry point ``python -m binquant_tpu_torch`` runs, as a KuCoin futures
+   deployment of S ``…USDTM`` contracts (XBTUSDTM as BTC), W bars, over
+   fakes of every network client — the binbot backend (phase 6's breadth
+   schedule, phase 7's autotrade backend, the settings and symbol list),
+   the Telegram transport, the KuCoin futures REST client (a young
+   listing's history, 110 15m bars and 330 5m bars a symbol, in the
+   ``/kline/query`` row shape, and
+   open interest growing 1.01, 1.02 or 1.05 every 15 minutes, one symbol
+   failing from live tick 3) and the websocket (frames of the recorded
+   session's shape: unclosed updates, one malformed frame, one connection
+   closed before tick 3) — on a market whose BTC stalls on live ticks 2-3,
+   where the hot and falling breadth opens LiquidationSweepPump's SHORT
+   route. The service clock is driven: a tick closes each bar, and one
+   open-interest sweep runs before it. Three cold boots, each backfill in
+   one flush: on the card with the feed (4 live ticks, an audit every 2),
+   on the card without it (``futures_api`` None, 3 ticks) and on the CPU
+   with it (3 ticks).
+   Checks: every closed candle frame put exactly one kline on the queue,
+   equal to its bar, unclosed ones none; one parse error and one reconnect
+   counted; the card's delivered signals equal the CPU's (fired set exact,
+   scores at the wire contract); the feed vetoes at least one LSP row that
+   fired without it (each growing under 1.02), scales the others by their
+   growth, fires none the other did not, on a few dozen rows; no tick
+   makes an open-interest request; ``/metrics`` carries every C3 and
+   websocket family and the card sets the families the CPU sets; qtail
+   launches by site per tick equal to the CPU's twin calls, each launch
+   equal to the twin. It prints the time to the first signal after the
+   cold boot in parts (backfill seconds, boot to ready, the first tick's
+   queue-to-emitted ms), frames parsed per second, the incremental tick's
+   p50 through the connector and the open-interest requests per sweep.
+12. Print the kernels line, the card's name and power limit, and the result.
 
 Phase 5 times three card configurations (depth 1 in place; depth 0
 copying; depth 0 copying without the digests and the meter) over two
@@ -229,6 +260,11 @@ loop once more each under ``torch.profiler`` and prints, per tick kind
 (incremental, full), where the tick's time goes: host wall time, device
 busy time and idle share, device activities per tick, the costliest
 kernels.
+
+With ``--cold-boot`` it builds the kernel and then only boots phase 11's
+service on the card with the backfill at the production flush of every 50
+symbols, to its first live tick (:func:`cold_boot`), prints the time to the
+first signal in parts, and prints no result.
 
 With ``--fold-ab`` it builds the kernel and then only times the
 update-only folds of phase 6's service path (a restart's top-up flush, a
@@ -258,9 +294,9 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 S, W = 2048, 400
 LIVE_TICKS = 16  # live ticks of the incremental drive (and before the crash)
-CLASSIC_TICKS = 8  # live ticks of the classic drive
+CLASSIC_TICKS = 4  # live ticks of the classic drive
 AUDIT_EVERY = 8  # the full-recompute audit cadence of the incremental drives
-DORMANT_TICKS = 8  # live ticks of each dormant-market drive
+DORMANT_TICKS = 2  # live ticks of each dormant-market drive (its audit on the last)
 TILED_BARS = 130  # the reference's dormant markets' own length, tiled over S rows
 TILED_TICKS = 2  # live ticks of each tiled drive (the setups are on the last two)
 # the classic, incremental and dormant-market drives: the serial loop, copied
@@ -1132,7 +1168,8 @@ def check_dormant() -> dict:
         for incremental in (False, True):
             path = "incremental" if incremental else "classic"
             label = f"{name} {path}"
-            kw = dict(enabled=every, breadth=breadth, host_flags=flags)
+            kw = dict(enabled=every, breadth=breadth, host_flags=flags,
+                      audit_every=DORMANT_TICKS)
             qt.reset_launches()  # launches made elsewhere do not count
             gpu = drive("cuda", m5, m15, incremental, DORMANT_TICKS, **kw)
             count(gpu, dormant=True)  # read just after the drive
@@ -1140,11 +1177,12 @@ def check_dormant() -> dict:
             if name == "dormant":
                 qt.reset_launches()
                 live_only = drive("cuda", m5, m15, incremental, DORMANT_TICKS,
-                                  breadth=breadth, host_flags=flags)
+                                  breadth=breadth, host_flags=flags,
+                                  audit_every=DORMANT_TICKS)
                 count(live_only, dormant=False)
             cpu = drive("cpu", m5, m15, incremental, DORMANT_TICKS, **kw)
             expect = ["classic"] * (DORMANT_TICKS + 1) if not incremental else (
-                ["cold_start"] + ["audit" if t % AUDIT_EVERY == 0 else "incremental"
+                ["cold_start"] + ["audit" if t % DORMANT_TICKS == 0 else "incremental"
                                   for t in range(1, DORMANT_TICKS + 1)]
             )
             if gpu["paths"] != expect:
@@ -1849,10 +1887,11 @@ def check_service(m5, m15) -> dict:
         a = service_drive("cuda", m5, m15, 0, tmp / "a.npz", sym_a, production=True,
                           restore=False, keep_at=SERVICE_EVERY)
         kept, sym_b = a["kept"]
-        # the restart's top-up flushes at the production default, every 50
-        # symbols (the rings it leaves are the same)
+        # the restart's top-up in one flush, as A's backfill (the rings it
+        # leaves are the same at any cadence; the production flush of every
+        # 50 symbols is timed by --cold-boot and its folds by --fold-ab)
         b = service_drive("cuda", m5, m15, SERVICE_EVERY, kept, sym_b, production=True,
-                          restore=True, chunk=50)
+                          restore=True)
         launches = dict(qt.launches_by_site)  # read just after the card drives
         n_launches = qt.launches
         cpu = service_drive("cpu", m5, m15, 0, tmp / "cpu.npz", sym_cpu, production=False,
@@ -1932,8 +1971,8 @@ def check_service(m5, m15) -> dict:
         f"fetches failed), then {SERVICE_TICKS} ticks through the consume loop, routing "
         f"{a['paths']} ({sum(a['overflowed'])} ticks overflowed the wire); boot B restored tick {SERVICE_EVERY}'s archive in "
         f"{b['restore_ms']:.1f} ms ({a['state_bytes'] / 2**20:.1f} MiB), topped up "
-        f"{b['backfill']['bars']} bars in {b['backfill']['seconds']:.2f} s (a flush every 50 "
-        f"symbols, the production default; A and the cpu engine flush once), ticks 9-16 "
+        f"{b['backfill']['bars']} bars in {b['backfill']['seconds']:.2f} s (one flush, as A "
+        f"and the cpu engine), ticks 9-16 "
         f"routing {b['paths']}, equal to boot A's bit for bit"
     )
     print(
@@ -4208,17 +4247,19 @@ def check_scanned(m5, m15, serial: dict, cm5, cm15, card: str = "cuda") -> dict:
 
 @contextlib.contextmanager
 def _twin_checked(checks: list):
-    """Hold every qtail call ActivityBurstPump makes inside the block
-    against the twin on the same input, bit for bit, once the block has
-    ended: each call's input and output are cloned on the device as it is
-    made (so a timed drive carries two copies a call and no twin), and
-    ``checks`` gets one ``(site, shape, num_out, equal)`` entry a call."""
+    """Hold every qtail call ActivityBurstPump and the spike detector make
+    inside the block against the twin on the same input, bit for bit, once
+    the block has ended: each call's input and output are cloned on the
+    device as it is made (so a timed drive carries two copies a call and no
+    twin), and ``checks`` gets one ``(site, shape, num_out, equal)`` entry a
+    call."""
     import torch
 
     from binquant_tpu_torch.ops import quantile_tail as qt
     from binquant_tpu_torch.strategies import activity_burst_pump as abp_mod
+    from binquant_tpu_torch.strategies import spike_hunter as spike_mod
 
-    real = abp_mod.rolling_quantile_tail
+    real = qt.rolling_quantile_tail
     saved: list = []
 
     def checked(x, window, q, num_out=1, min_periods=None, site="direct"):
@@ -4226,11 +4267,14 @@ def _twin_checked(checks: list):
         saved.append((site, x.clone(), window, q, num_out, min_periods, out.clone()))
         return out
 
-    abp_mod.rolling_quantile_tail = checked
+    mods = (abp_mod, spike_mod)
+    for mod in mods:
+        mod.rolling_quantile_tail = checked
     try:
         yield checks
     finally:
-        abp_mod.rolling_quantile_tail = real
+        for mod in mods:
+            mod.rolling_quantile_tail = real
     for site, x, window, q, num_out, mp, out in saved:
         twin = qt.rolling_quantile_tail_reference(x, window, q, num_out, mp)
         a = torch.nan_to_num(out, nan=-9e9).view(torch.int32)
@@ -4492,6 +4536,778 @@ def check_backtest(card: str = "cuda") -> dict:
     return result
 
 
+# --------------------------------------------------------------------------
+# phase 11: the port as a service (run_live over fake clients)
+# --------------------------------------------------------------------------
+
+LIVE11_TICKS = 4  # live ticks of the card's boot with the open-interest feed
+LIVE11_SHORT = 3  # live ticks of the other two boots: every tick LSP fires on
+LIVE11_AUDIT = 2  # the audit cadence: cold start, incremental, audit, incremental, ...
+# 15m bars of history the phase's REST source holds a symbol (a young
+# listing: the fetch asks for 400, the exchange has these; 5m: three times
+# as many); ``--cold-boot`` serves the full 400 of each interval
+LIVE11_HISTORY = 110
+LSP_TICKS = (2, 3)  # the live ticks on which BTC stalls, so LSP's SHORT route opens
+OI_GROWTH = (1.01, 1.02, 1.05)  # 900-s open-interest growth, by symbol index mod 3
+OI_STALE = 9  # the symbol index whose open-interest fetch fails from OI_STALE_FROM
+OI_STALE_FROM = 3  # the live tick from which it fails (its growth then reads stale)
+WS_BAD_AT = 2  # the live tick whose frames carry one malformed frame
+WS_CLOSE_AT = 3  # the live tick before whose frames one connection is closed
+OI_SWEEP_PAUSE_S = 0.05  # the open-interest refresh's pause between sweeps (drill scale)
+C3_FAMILIES = (
+    "bqt_numeric_nonfinite_rows", "bqt_numeric_absmax", "bqt_numeric_anomaly_ticks_total",
+    "bqt_fired_rows_per_tick", "bqt_carry_drift", "bqt_carry_drift_ulp",
+    "bqt_carry_drift_alarms_total", "bqt_registry_symbols", "bqt_registry_capacity_errors_total",
+    "bqt_symbols_per_tick",
+)
+WS_FAMILIES = ("bqt_ws_frames_total", "bqt_ws_reconnects_total", "bqt_ws_parse_errors_total")
+
+
+def live_symbols() -> list[str]:
+    """The KuCoin futures universe: XBTUSDTM (BTC) and S-1 ``…USDTM``
+    contracts."""
+    return ["XBTUSDTM"] + [f"S{i:04d}USDTM" for i in range(1, S)]
+
+
+def make_live_market(rng: np.random.Generator):
+    """W bars of 15m history and LIVE11_TICKS + 1 live bars (the last one
+    only opens, closing the one before it), 5m bars under them: a 5m random
+    walk as :func:`make_market` makes it, with its volume bursts. BTC (row 0)
+    walks quietly through the history and moves 0.6% a live 15m bar, but on
+    the bars the ticks of LSP_TICKS evaluate it stalls (0.05%), inside
+    LiquidationSweepPump's stalled band: with the hot and falling breadth of
+    phase 6's schedule, its SHORT route opens on those ticks only, where
+    every 16th symbol trades heavy and the rest thin."""
+    n_live = LIVE11_TICKS + 1
+    m5, m15 = make_market(rng, live_ticks=n_live)
+    n5 = m5["close"].shape[1]
+    c0 = float(m5["close"][0, 0])
+    hist = c0 * np.exp(np.cumsum(rng.normal(0.0, 0.0003, 3 * W)))
+    moves = [0.0005 * (-1) ** j if j + 1 in LSP_TICKS else 0.006 * (-1) ** j
+             for j in range(n_live)]
+    live = hist[-1] * np.exp(np.cumsum(np.repeat(np.asarray(moves) / 3, 3)))
+    btc = np.concatenate([hist, live])
+    assert btc.shape[0] == n5
+    # on the LSP bars most rows trade thin and every 16th heavy, so the
+    # SHORT route fires on a few dozen rows a tick, inside the wire's slots
+    heavy = np.arange(S) % 16 == 3
+    for j in range(n_live):
+        if j + 1 in LSP_TICKS:
+            cols = slice(3 * (W + j), 3 * (W + j) + 3)
+            m5["volume"][~heavy, cols] *= 0.3
+            m5["volume"][heavy, cols] *= 3.0
+    m5["close"][0] = btc
+    m5["open"][0] = np.concatenate([[c0], btc[:-1]])
+    m5["high"][0] = np.maximum(m5["open"][0], btc) * 1.0005
+    m5["low"][0] = np.minimum(m5["open"][0], btc) * 0.9995
+    g = lambda a: a.reshape(S, -1, 3)  # noqa: E731
+    m15.update(open=g(m5["open"])[:, :, 0], high=g(m5["high"]).max(axis=2),
+               low=g(m5["low"]).min(axis=2), close=g(m5["close"])[:, :, 2],
+               volume=g(m5["volume"]).sum(axis=2))
+    return m5, m15
+
+
+def _bar(m: dict, row: int, i: int) -> tuple:
+    return tuple(float(m[k][row, i]) for k in ("open", "high", "low", "close", "volume"))
+
+
+def _partial(bar: tuple) -> tuple:
+    """An update of the candle in progress: its open, half its move, half
+    its volume."""
+    o, _, _, c, v = bar
+    mid = o + (c - o) / 2
+    return (o, max(o, mid), min(o, mid), mid, v / 2)
+
+
+def _frame(symbol: str, interval: str, ts_s: int, bar: tuple) -> str:
+    """A KuCoin futures candle push, shaped as the recorded session's
+    (``tests/fixtures/kucoin_session.json``): string-encoded numbers, a
+    nanosecond push time."""
+    o, h, lo, c, v = bar
+    return json.dumps({
+        "type": "message",
+        "topic": f"/contractMarket/limitCandle:{symbol}_{interval}",
+        "subject": "candle.stick",
+        "data": {"symbol": symbol, "candles": [str(ts_s), repr(o), repr(h), repr(lo), repr(c),
+                                               repr(v)],
+                 "granularity": 5 if interval == "5min" else 15, "time": ts_s * 10**9 + 1},
+    })
+
+
+def _kline11(symbol: str, interval_s: int, ts_s: int, bar: tuple) -> dict:
+    o, h, lo, c, v = bar
+    return {"symbol": symbol, "open_time": ts_s * 1000,
+            "close_time": (ts_s + interval_s) * 1000 - 1, "open": o, "high": h, "low": lo,
+            "close": c, "volume": v, "quote_asset_volume": 0.0, "number_of_trades": 0.0,
+            "taker_buy_base_volume": 0.0, "taker_buy_quote_volume": 0.0, "exchange": "kucoin"}
+
+
+def live_bursts(m5: dict, m15: dict) -> list:
+    """The websocket traffic of a session, burst by burst: burst 0 opens
+    live bar 0 (its first 5m and 15m updates); burst k (1..LIVE11_TICKS)
+    brings the rest of 15m bar k-1 and its three 5m bars (an unclosed update,
+    then the final one) and opens the next, which closes them. Each burst is
+    ``(frames by topic, the klines it must put on the queue)``."""
+    names = live_symbols()
+    b5, b15 = 3 * W, W  # the first live bar's column
+    t15 = lambda j: T_LIVE0 + 900 * j  # noqa: E731
+    t5 = lambda j: T_LIVE0 + 300 * j  # noqa: E731
+    bursts = []
+    first: dict = {}
+    for r, name in enumerate(names):
+        first[f"{name}_5min"] = [_frame(name, "5min", t5(0), _partial(_bar(m5, r, b5)))]
+        first[f"{name}_15min"] = [_frame(name, "15min", t15(0), _partial(_bar(m15, r, b15)))]
+    bursts.append((first, []))
+    for k in range(1, LIVE11_TICKS + 1):
+        frames: dict = {}
+        want: list = []
+        for r, name in enumerate(names):
+            f5 = []
+            j0 = 3 * (k - 1)
+            for j in range(j0, j0 + 3):
+                bar = _bar(m5, r, b5 + j)
+                if j != j0:  # bar j0 got its first update in the previous burst
+                    f5.append(_frame(name, "5min", t5(j), _partial(bar)))
+                f5.append(_frame(name, "5min", t5(j), bar))
+                want.append(_kline11(name, 300, t5(j), bar))
+            f5.append(_frame(name, "5min", t5(j0 + 3), _partial(_bar(m5, r, b5 + j0 + 3))))
+            bar15 = _bar(m15, r, b15 + k - 1)
+            frames[f"{name}_5min"] = f5
+            frames[f"{name}_15min"] = [
+                _frame(name, "15min", t15(k - 1), _partial(bar15)),
+                _frame(name, "15min", t15(k - 1), bar15),
+                _frame(name, "15min", t15(k), _partial(_bar(m15, r, b15 + k))),
+            ]
+            want.append(_kline11(name, 900, t15(k - 1), bar15))
+        if k == WS_BAD_AT:
+            # valid JSON, an open time that is not a number
+            frames[f"{names[1]}_5min"].insert(0, json.dumps({
+                "type": "message", "topic": f"/contractMarket/limitCandle:{names[1]}_5min",
+                "data": {"candles": ["not-a-time", "1", "1", "1", "1", "1"]}}))
+        bursts.append((frames, want))
+    return bursts
+
+
+class KucoinWire:
+    """Fake KuCoin futures websocket connections for the connector's
+    ``connect``/``token_fetch`` seams: records each connection's subscribed
+    topics and pings, and serves it the frames :meth:`push` routes to it by
+    topic; :meth:`drop` closes one connection (its next read raises)."""
+
+    _CLOSE = object()
+
+    def __init__(self) -> None:
+        self.conns: dict[int, dict] = {}  # connectId index -> current connection
+        self.connects = 0
+        self.token_fetches = 0
+        self.pings = 0
+        self.last_frame_t = 0.0
+        wire = self
+
+        class Ws:
+            def __init__(self, conn: dict) -> None:
+                self.conn = conn
+
+            async def send(self, msg: str) -> None:
+                m = json.loads(msg)
+                if m.get("type") == "subscribe":
+                    prefix, suffixes = m["topic"].split(":", 1)
+                    self.conn["topics"].extend(suffixes.split(","))
+                elif m.get("type") == "ping":
+                    wire.pings += 1
+
+            def __aiter__(self):
+                return self
+
+            async def __anext__(self) -> str:
+                self.conn["reading"] = True
+                item = await self.conn["queue"].get()
+                if item is KucoinWire._CLOSE:
+                    raise ConnectionError("socket closed by the peer")
+                if self.conn["queue"].empty():
+                    wire.last_frame_t = time.perf_counter()
+                return item
+
+        class Connection:
+            def __init__(self, url: str) -> None:
+                self.idx = int(url.rsplit("connectId=bq", 1)[1])
+
+            async def __aenter__(self):
+                conn = {"topics": [], "queue": asyncio.Queue()}
+                wire.conns[self.idx] = conn
+                wire.connects += 1
+                return Ws(conn)
+
+            async def __aexit__(self, *exc) -> bool:
+                return False
+
+        self._connection = Connection
+
+    def connect(self, url: str):
+        return self._connection(url)
+
+    def token_fetch(self) -> tuple[str, str, float]:
+        self.token_fetches += 1
+        return "wss://smoke.invalid/endpoint", "smoke-token", 0.5
+
+    def subscribed(self, topics_total: int) -> bool:
+        """Every topic subscribed and every connection reading its frames."""
+        return (sum(len(c["topics"]) for c in self.conns.values()) == topics_total
+                and all(c.get("reading") for c in self.conns.values()))
+
+    def push(self, frames: dict) -> int:
+        """Route every frame to the connection subscribed to its topic;
+        returns the frames sent."""
+        route = {t: c for c in self.conns.values() for t in c["topics"]}
+        n = 0
+        for key, fs in frames.items():
+            q = route[key]["queue"]
+            for f in fs:
+                q.put_nowait(f)
+            n += len(fs)
+        return n
+
+    def drop(self, idx: int) -> dict:
+        conn = self.conns[idx]
+        conn["queue"].put_nowait(KucoinWire._CLOSE)
+        return conn
+
+
+class LiveFutures:
+    """The KuCoin futures REST client over the market: ``get_ui_klines`` in
+    the ``/kline/query`` row shape (the 400 bars closed by the boot, then
+    the first live bar, still open), and ``get_open_interest`` on the
+    service's clock, growing by OI_GROWTH[i % 3] every 15 minutes
+    (OI_STALE fails from live tick OI_STALE_FROM). Open-interest requests
+    wait on ``gate`` (a worker thread's), so the drive decides when a sweep
+    may run; a request made on the event loop's thread (a tick would make
+    it there) is counted in ``loop_calls`` and never waits."""
+
+    def __init__(self, history: dict, clock: dict) -> None:
+        import threading
+
+        self.history = history
+        self.clock = clock
+        self.index = {name: r for r, name in enumerate(live_symbols())}
+        self.gate = threading.Event()
+        self.lock = threading.Lock()
+        self.in_flight = 0
+        self.oi_calls = 0
+        self.loop_calls = 0
+        self.loop_thread = threading.get_ident()
+
+    def get_ui_klines(self, symbol: str, granularity_min: int = 15, limit: int = 400) -> list:
+        rows = self.history[granularity_min][self.index[symbol]]
+        return rows[max(rows.shape[0] - limit - 1, 0):].tolist()
+
+    def get_open_interest(self, symbol: str) -> float:
+        import threading
+
+        if threading.get_ident() == self.loop_thread:
+            self.loop_calls += 1
+        elif not self.gate.wait(timeout=120.0):
+            raise TimeoutError("open-interest gate never opened")
+        with self.lock:
+            self.in_flight += 1
+        try:
+            i = self.index[symbol]
+            k = (self.clock["ms"] // 1000 - T_LIVE0) // 900
+            if i == OI_STALE and k >= OI_STALE_FROM:
+                raise ConnectionError(f"{symbol}: open interest unavailable")
+            return 1000.0 * (1.0 + i % 7) * OI_GROWTH[i % 3] ** (k + 2)
+        finally:
+            with self.lock:
+                self.in_flight -= 1
+                self.oi_calls += 1
+
+
+def live_history(m5: dict, m15: dict, bars15: int = 400) -> dict:
+    """granularity (min) -> (S, n + 1, 6) ``/kline/query`` rows ``[time_ms,
+    open, high, low, close, volume]``: the last n bars closed at the boot
+    (``bars15`` 15m bars; three times as many 5m bars, at most 400) and the
+    first live bar, still open (the backfill drops it)."""
+    out = {}
+    for g, m, n_hist in ((15, m15, W), (5, m5, 3 * W)):
+        n = bars15 if g == 15 else min(3 * bars15, 400)
+        cols = slice(n_hist - n, n_hist + 1)
+        ts = (T_LIVE0 - 60 * g * np.arange(n, -1, -1)) * 1000
+        vals = [m[k][:, cols] for k in ("open", "high", "low", "close", "volume")]
+        out[g] = np.stack([np.broadcast_to(ts, vals[0].shape).astype(np.float64)] + vals,
+                          axis=-1)
+    return out
+
+
+def live_backend():
+    """The binbot backend of the service: the stub's answers with phase 6's
+    breadth schedule and phase 7's autotrade backend (without faults), the
+    KuCoin futures settings (autotrade off: every signal still reaches the
+    autotrade consumer) and the universe as the symbol list."""
+    backend = autotrade_backend(False)
+    backend.breadth = {"schedule": service_breadth()}
+    symbols_payload = [{"id": n, "base_asset": n[:-5], "quote_asset": "USDT",
+                        "futures_leverage": 5.0} for n in live_symbols()]
+    request = backend.request
+
+    def answer(method: str, url: str, **kwargs):
+        if url.endswith("/autotrade-settings/bots"):
+            backend.requests.append((method, url, None))
+            return backend._Resp({"data": {"autotrade": False, "exchange_id": "kucoin",
+                                           "market_type": "futures"}})
+        if url.endswith("/symbols"):
+            backend.requests.append((method, url, None))
+            return backend._Resp({"data": symbols_payload})
+        return request(method, url, **kwargs)
+
+    backend.request = answer
+    return backend
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _metric_samples(text: str) -> dict:
+    """family -> {sample line key: value} of a /metrics body."""
+    kinds: dict = {}
+    out: dict = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split()
+            kinds[name] = kind
+            continue
+        if not line or line.startswith("#"):
+            continue
+        key, value = line.rsplit(" ", 1)
+        name = key.split("{", 1)[0]
+        fam = name
+        for suffix in ("_bucket", "_sum", "_count"):
+            if name.endswith(suffix) and kinds.get(name[: -len(suffix)]) == "histogram":
+                fam = name[: -len(suffix)]
+        out.setdefault(fam, {})[key] = value
+    return out
+
+
+def _gauges_to_nan() -> None:
+    """Every gauge child of the process registry set to NaN, so a family a
+    run sets shows as changed in its scrape (the registry is shared by the
+    runs of one process)."""
+    from binquant_tpu_torch.obs.registry import REGISTRY
+
+    for fam in REGISTRY.collect():
+        if fam.kind == "gauge":
+            for _, child in fam.children():
+                child.set(float("nan"))
+
+
+def live_boot(device: str, history: dict, bursts: list, tmp: Path, tag: str,
+              oi: bool = True, backfill_chunk: int = 50, ticks: int = LIVE11_TICKS) -> dict:
+    """One cold boot of the service: ``run_live`` on ``device`` over the fake
+    binbot backend, Telegram transport, KuCoin futures client (history and,
+    with ``oi``, open interest) and websocket, on the service clock
+    ``T_LIVE0`` (the first live bar open), then ``ticks`` live ticks, each
+    the clock moved to the bar's close, one open-interest sweep let through
+    (with ``oi``), and its burst of frames pushed; connection 1 is dropped
+    before tick WS_CLOSE_AT and must reconnect. Per tick: the ms from the
+    push to the tick's signals emitted, the path, qtail calls by site, the
+    klines the frames put on the queue, the autotrade payloads delivered
+    and the tick path's open-interest calls. The /metrics samples before
+    and after the drive."""
+    from binquant_tpu_torch.__main__ import run_live
+    from binquant_tpu_torch.config import Config
+    from binquant_tpu_torch.obs.exposition import render_text
+    from binquant_tpu_torch.obs.instruments import WS_PARSE_ERRORS, WS_RECONNECTS
+    from binquant_tpu_torch.regime.context import ContextConfig
+
+    cuda = device == "cuda"
+    clock = {"ms": T_LIVE0 * 1000}
+    wire, futures, backend = KucoinWire(), LiveFutures(history, clock), live_backend()
+    sent: list[str] = []
+
+    async def transport(chat_id: str, text: str) -> None:
+        sent.append(text)
+
+    port = _free_port()
+    config = Config(
+        max_symbols=S, window_bars=W, carry_audit_every_ticks=LIVE11_AUDIT, env="CI",
+        delivery_wal_path=str(tmp / f"{tag}.wal.jsonl"),
+        fanout_outbox_path=str(tmp / f"{tag}.fanout.jsonl"),
+        heartbeat_path=str(tmp / f"{tag}.heartbeat"), metrics_port=port,
+        telegram_bot_token="", telegram_user_id="smoke", event_log="", checkpoint_path="",
+        log_level="WARNING",  # the service's INFO lines (one a signal) would bury the output
+    )
+    rec = {"klines": [], "payloads": [], "tick_oi_calls": [], "fired": [], "tick_ms": [],
+           "paths": [], "sites": [], "overflowed": [], "frames": [], "parse_s": [],
+           "ingested": [], "first_signal_tick": None, "oi_sweeps": []}
+    holder: dict = {}
+
+    def on_engine(engine) -> None:
+        holder["engine"] = engine
+        # drill scale: no one-second Telegram pacing, one sweep a batch
+        engine.telegram_consumer._min_send_interval_seconds = 0.0
+        cache = engine.oi_cache
+        cache.batch_size = S
+        cache.batch_interval_s = OI_SWEEP_PAUSE_S
+        if not oi:
+            cache.futures_api = None  # the engine without the feed: futures_api=None
+        ingest = engine.ingest
+
+        def recorded(kline):
+            rec["klines"].append(kline)
+            return ingest(kline)
+
+        engine.ingest = recorded
+        at, admit = engine.at_consumer, engine.at_consumer.process_autotrade_restrictions
+
+        async def received(result):
+            rec["payloads"].append(result)
+            await admit(result)
+
+        at.process_autotrade_restrictions = received
+        process_tick, finalize = engine.process_tick, engine._finalize_tick
+
+        async def counted(now_ms=None):
+            c0 = futures.oi_calls
+            out = await process_tick(now_ms)
+            rec["tick_oi_calls"].append(futures.oi_calls - c0)
+            return out
+
+        async def finalized(pending):
+            out = await finalize(pending)
+            rec["fired"].extend((pending.ts_ms, s.strategy, s.symbol, float(s.value.score))
+                                for s in out)
+            return out
+
+        engine.process_tick, engine._finalize_tick = counted, finalized
+
+    _gauges_to_nan()
+    before = _metric_samples(render_text())
+    parse0 = WS_PARSE_ERRORS.labels(exchange="kucoin").value
+    recon0 = WS_RECONNECTS.labels(exchange="kucoin").value
+    topics_total = 2 * S
+
+    async def wait_for(cond, what: str, task, timeout_s: float = 600.0) -> None:
+        t0 = time.perf_counter()
+        while not cond():
+            if task.done():
+                task.result()  # raises the service's exception
+                fail(f"[slice live] {tag}: the service returned while waiting for {what}")
+            if time.perf_counter() - t0 > timeout_s:
+                fail(f"[slice live] {tag}: timed out waiting for {what}")
+            await asyncio.sleep(0.002)
+
+    async def sweep(task) -> None:
+        """Let one whole open-interest sweep run at the current clock."""
+        engine = holder["engine"]
+        failing = int((clock["ms"] // 1000 - T_LIVE0) // 900 >= OI_STALE_FROM)
+        r0, c0 = engine.oi_cache.requests_made, futures.oi_calls
+        futures.gate.set()
+        await wait_for(lambda: engine.oi_cache.requests_made >= r0 + S - failing,
+                       "an open-interest sweep", task)
+        futures.gate.clear()
+        await wait_for(lambda: futures.in_flight == 0, "the sweep's requests to land", task)
+        rec["oi_sweeps"].append((engine.oi_cache.requests_made - r0, futures.oi_calls - c0))
+
+    async def drive() -> None:
+        t_boot = time.perf_counter()
+        task = asyncio.create_task(run_live(
+            device, config=config, binbot_session=backend, telegram_transport=transport,
+            futures_api=futures, ws_connect=wire.connect, ws_token_fetch=wire.token_fetch,
+            connector_options=dict(initial_backoff_s=0.01, reconnect_seed=SEED),
+            clock=lambda: clock["ms"], tick_interval_s=0.0, backfill_chunk=backfill_chunk,
+            on_engine=on_engine,
+        ))
+        await wait_for(lambda: wire.subscribed(topics_total), "the subscriptions", task)
+        rec["connections"] = len(wire.conns)
+        rec["frames"].append(wire.push(bursts[0][0]))
+        await wait_for(lambda: "engine" in holder and holder["engine"].backfill_stats is not None,
+                       "the backfill", task)
+        engine = holder["engine"]
+        rec["ready_s"] = time.perf_counter() - t_boot
+        rec["backfill"] = dict(engine.backfill_stats)
+        if cuda:
+            import torch
+
+            torch.cuda.synchronize()
+        if oi:
+            await sweep(task)  # the baseline sample, at the boot's clock
+        for k in range(1, ticks + 1):
+            clock["ms"] = (T_LIVE0 + 900 * k) * 1000
+            if oi:
+                await sweep(task)
+            if k == WS_CLOSE_AT:
+                idx = min(1, len(wire.conns) - 1)
+                wire.drop(idx)
+                await wait_for(lambda: wire.connects > rec["connections"] and wire.subscribed(
+                    topics_total), "the reconnect", task)
+            frames, want = bursts[k]
+            ticks0, n0 = engine.ticks_processed, len(rec["klines"])
+            before_sites = _qtail_sites(cuda)
+            over0, p0 = engine.overflow_ticks, len(rec["fired"])
+            t0 = time.perf_counter()
+            rec["frames"].append(wire.push(frames))
+            await wait_for(lambda: engine.ticks_processed > ticks0 and not engine._pending,
+                           f"live tick {k}", task)
+            rec["tick_ms"].append((time.perf_counter() - t0) * 1000.0)
+            rec["parse_s"].append(wire.last_frame_t - t0)
+            rec["paths"].append(engine.last_path)
+            rec["overflowed"].append(engine.overflow_ticks > over0)
+            rec["sites"].append(_sites_since(before_sites, cuda))
+            got = rec["klines"][n0:]
+            rec["ingested"].append(len(got))
+            key = lambda d: (d["symbol"], d["open_time"], d["close_time"])  # noqa: E731
+            if sorted(got, key=key) != sorted(want, key=key):
+                fail(f"[slice live] {tag}: tick {k}'s frames put {len(got)} klines on the "
+                     f"queue, expected {len(want)} equal to their bars")
+            if rec["first_signal_tick"] is None and len(rec["fired"]) > p0:
+                rec["first_signal_tick"] = k
+                rec["boot_to_first_signal_s"] = rec["ready_s"] + rec["tick_ms"][-1] / 1000.0
+            await settle(engine)
+            if k == LIVE11_SHORT:
+                # the point the shorter boots end at: their families compare here
+                rec["metrics_short"] = (await http_get(port, "/metrics"))[1]
+        rec["parse_errors"] = WS_PARSE_ERRORS.labels(exchange="kucoin").value - parse0
+        rec["reconnects"] = WS_RECONNECTS.labels(exchange="kucoin").value - recon0
+        code, text = await http_get(port, "/metrics")
+        if code != 200:
+            fail(f"[slice live] {tag}: /metrics answered {code}")
+        rec["metrics"] = text
+        futures.gate.set()  # the refresh's waiting requests return; the loop then stops
+        task.cancel()
+        try:
+            await task
+        except asyncio.CancelledError:
+            pass
+        else:
+            fail(f"[slice live] {tag}: run_live returned instead of being cancelled")
+
+    asyncio.run(drive())
+    engine = holder["engine"]
+    rec.update(engine=engine, before=before, pings=wire.pings, token_fetches=wire.token_fetches,
+               loop_calls=futures.loop_calls,
+               delivered=delivered_tuples_of(rec["payloads"], engine))
+    return rec
+
+
+def delivered_tuples_of(payloads: list, engine) -> list:
+    from binquant_tpu_torch.io.replay import delivered_tuples
+
+    return [t + (float(p.score),) for t, p in zip(delivered_tuples(payloads, engine.tracer),
+                                                  payloads)]
+
+
+def _family_changes(before: dict, after: dict) -> set:
+    """Families with a sample that is new or moved between two scrapes."""
+    nan = {"NaN"}
+    out = set()
+    for fam, samples in after.items():
+        old = before.get(fam, {})
+        for key, value in samples.items():
+            if key not in old or (old[key] != value and not {old[key], value} <= nan):
+                out.add(fam)
+                break
+    return out
+
+
+def check_live(card: str = "cuda") -> dict:
+    """``[slice live]``: the port's ``run_live`` as a KuCoin futures
+    deployment at S symbols, W bars, booted cold three times over fakes of
+    every network client (see :func:`live_boot`), each backfill in one
+    flush: on the card with the open-interest feed, on the card without it
+    (``futures_api=None``) and on the CPU with it. Checks: every closed candle frame put exactly one kline
+    on the queue, equal to its bar, unclosed ones none; the malformed frame
+    and the dropped connection counted; the card's delivered signals equal
+    the CPU's (fired set exact, scores at the wire contract); the open
+    interest vetoes at least one LiquidationSweepPump row that fired
+    without it (each a symbol growing under 1.02) and scales at least one
+    by its growth; no tick made an open-interest request; /metrics carries
+    every C3 and websocket family, and the card's changed families equal
+    the CPU's; qtail launches by site per tick equal the CPU twin's calls,
+    every launch equal to the twin."""
+    from binquant_tpu_torch.ops import quantile_tail as qt
+
+    cuda = card == "cuda"
+    lm5, lm15 = make_live_market(np.random.default_rng(SEED + 5))
+    bursts = live_bursts(lm5, lm15)
+    history = live_history(lm5, lm15, LIVE11_HISTORY)
+    bars = S * (LIVE11_HISTORY + min(3 * LIVE11_HISTORY, 400))
+    checks: list = []
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        qt.reset_launches()  # launches made elsewhere do not count
+        with _twin_checked(checks) if cuda else contextlib.nullcontext():
+            a = live_boot(card, history, bursts, tmp, "oi", backfill_chunk=S)
+        launches, n_launches = dict(qt.launches_by_site), qt.launches
+        b = live_boot(card, history, bursts, tmp, "no_oi", oi=False, backfill_chunk=S,
+                      ticks=LIVE11_SHORT)
+        qt.reset_launches()
+        c = live_boot("cpu", history, bursts, tmp, "cpu", backfill_chunk=S,
+                      ticks=LIVE11_SHORT)
+    if cuda and (not checks or not all(eq for *_, eq in checks)):
+        fail(f"[slice live] qtail launches unequal to the twin: {checks}")
+    for run, label in ((a, "card"), (b, "card without open interest"), (c, "cpu")):
+        if run["parse_errors"] != 1 or run["reconnects"] != 1:
+            fail(f"[slice live] {label}: {run['parse_errors']} parse errors and "
+                 f"{run['reconnects']} reconnects counted, expected 1 and 1")
+        if any(run["tick_oi_calls"]) or run["loop_calls"]:
+            fail(f"[slice live] {label}: open-interest requests on the tick path "
+                 f"{run['tick_oi_calls']}, on the loop {run['loop_calls']}")
+        if run["backfill"]["bars"] != bars or run["backfill"]["fetches_failed"]:
+            fail(f"[slice live] {label}: backfill {run['backfill']}")
+    want_paths = ["cold_start"] + ["audit" if t % LIVE11_AUDIT == 0 else "incremental"
+                                   for t in range(1, LIVE11_TICKS)]
+    for run, label in ((a, "card"), (b, "card without open interest"), (c, "cpu")):
+        if run["paths"] != want_paths[: len(run["paths"])]:
+            fail(f"[slice live] {label} routing {run['paths']}, expected {want_paths}")
+    short = LIVE11_SHORT
+    if a["sites"][:short] != c["sites"] or a["overflowed"][:short] != c["overflowed"]:
+        fail(f"[slice live] qtail calls by site per tick: card {a['sites']} "
+             f"cpu {c['sites']} (overflowed {a['overflowed']} / {c['overflowed']})")
+    for p, ov, sites in zip(a["paths"], a["overflowed"], a["sites"]):
+        want = dict(EXPECT_SITES[p])
+        for k2, v in (_expected_sites(p, dormant=True) if ov else {}).items():
+            want[k2] = want.get(k2, 0) + v
+        if sites != want:
+            fail(f"[slice live] qtail launches by site {a['sites']} on paths {a['paths']}")
+    # the card's delivered signals vs the CPU's
+    t_short = (T_LIVE0 + 900 * LIVE11_SHORT) * 1000  # the CPU's last tick
+    da = sorted(t for t in a["delivered"] if t[0] <= t_short)
+    dc = sorted(c["delivered"])
+    if [t[:5] for t in da] != [t[:5] for t in dc]:
+        fail(f"[slice live] delivered signals differ: card {len(da)} cpu {len(dc)}")
+    if not all(np.isclose(x[5], y[5], rtol=1e-4, atol=1e-5) for x, y in zip(da, dc)):
+        fail("[slice live] delivered scores differ beyond the wire contract")
+    # the open-interest gate
+    lsp = "liquidation_sweep_pump"
+    growth_of = {name: OI_GROWTH[i % 3] for i, name in enumerate(live_symbols())}
+    oi_l = {(t[0], t[2]): t[3] for t in a["fired"] if t[1] == lsp and t[0] <= t_short}
+    if any(t[1] == lsp for t in a["fired"] if t[0] > t_short):
+        fail("[slice live] LSP fired after the ticks the other boots cover")
+    no_l = {(t[0], t[2]): t[3] for t in b["fired"] if t[1] == lsp}
+    stale = live_symbols()[OI_STALE]
+    vetoed = sorted(set(no_l) - set(oi_l))
+    extra = sorted(set(oi_l) - set(no_l))
+    scaled = []
+    for key in set(oi_l) & set(no_l):
+        tick_k = (key[0] // 1000 - T_LIVE0) // 900
+        g = growth_of[key[1]]
+        if key[1] == stale and tick_k >= OI_STALE_FROM:
+            g = 1.0
+        if not np.isclose(oi_l[key], no_l[key] * max(g, 1.0), rtol=1e-4, atol=1e-5):
+            fail(f"[slice live] LSP score of {key}: {oi_l[key]} with open interest, "
+                 f"{no_l[key]} without, growth {g}")
+        if g > 1.0:
+            scaled.append(key)
+    bad_veto = [k2 for k2 in vetoed if growth_of[k2[1]] >= 1.02
+                or (k2[1] == stale and (k2[0] // 1000 - T_LIVE0) // 900 >= OI_STALE_FROM)]
+    if len(no_l) < 24 or not vetoed or not scaled or extra or bad_veto:
+        fail(f"[slice live] the open-interest gate: LSP fired {len(no_l)} rows without it, "
+             f"{len(oi_l)} with it; vetoed {len(vetoed)} (growth >= 1.02: {bad_veto}), "
+             f"scaled {len(scaled)}, fired only with it {extra}")
+    # /metrics families
+    fams_a = _metric_samples(a["metrics"])
+    typed = {line.split()[2] for line in a["metrics"].splitlines() if line.startswith("# TYPE ")}
+    # every family rendered, and with samples but the alarm counter (no
+    # alarm on a clean stream: its labeled children never exist)
+    missing = [f for f in C3_FAMILIES + WS_FAMILIES if f not in typed or (
+        not fams_a.get(f) and f != "bqt_carry_drift_alarms_total")]
+    if missing:
+        fail(f"[slice live] /metrics lacks {missing}")
+    changed_a = _family_changes(a["before"], _metric_samples(a["metrics_short"]))
+    changed_c = _family_changes(c["before"], _metric_samples(c["metrics_short"]))
+    if changed_a != changed_c:
+        fail(f"[slice live] families set by the card run {sorted(changed_a - changed_c)} "
+             f"but not the cpu's; by the cpu's only {sorted(changed_c - changed_a)}")
+    frames = sum(a["frames"])
+    parse_rate = [f / t for f, t in zip(a["frames"][1:], a["parse_s"]) if t > 0]
+    incr_ms = [t for t, p in zip(a["tick_ms"], a["paths"]) if p == "incremental"]
+    sweeps = a["oi_sweeps"]
+    result = {
+        "routing": a["paths"],
+        "overflowed": a["overflowed"],
+        "launches": n_launches,
+        "launches_by_site": launches,
+        "launches_by_tick": a["sites"],
+        "twin_checked": len(checks),
+        "connections": a["connections"],
+        "frames": frames,
+        "klines_per_tick": a["ingested"],
+        "frames_per_s_p50": _p(parse_rate, 50),
+        "parse_errors": a["parse_errors"],
+        "reconnects": a["reconnects"],
+        "token_fetches": a["token_fetches"],
+        "pings": a["pings"],
+        "signals": len(da),
+        "signals_card_all": len(a["delivered"]),
+        "signals_cpu": len(dc),
+        "lsp": {"fired_without_oi": len(no_l), "fired_with_oi": len(oi_l),
+                "vetoed": len(vetoed), "scaled": len(scaled)},
+        "oi_requests_per_sweep": [s[0] for s in sweeps],
+        "oi_calls_per_sweep": [s[1] for s in sweeps],
+        "tick_path_oi_calls": sum(a["tick_oi_calls"]),
+        "backfill": {"card": a["backfill"], "card_one_flush": b["backfill"], "cpu": c["backfill"]},
+        "ready_s": {"card": a["ready_s"], "card_one_flush": b["ready_s"], "cpu": c["ready_s"]},
+        "first_tick_ms": a["tick_ms"][0],
+        "first_signal_tick": a["first_signal_tick"],
+        "boot_to_first_signal_s": a.get("boot_to_first_signal_s"),
+        "tick_ms": a["tick_ms"],
+        "incremental_tick_p50_ms": _p(incr_ms, 50) if incr_ms else None,
+        "cpu_tick_ms": c["tick_ms"],
+        "changed_families": len(changed_a),
+    }
+    print(
+        f"[slice live] S={S} W={W}: run_live booted cold as a KuCoin futures deployment over "
+        f"fakes ({a['connections']} websocket connections, {a['token_fetches']} bullet "
+        f"fetches, {a['pings']} pings); backfill {a['backfill']['bars']} bars in one flush "
+        f"{a['backfill']['seconds']:.2f} s (card without open interest "
+        f"{b['backfill']['seconds']:.2f} s, cpu {c['backfill']['seconds']:.2f} s); boot to "
+        f"ready {a['ready_s']:.2f} s; first tick {a['tick_ms'][0]:.1f} ms queue to emitted; "
+        f"boot to the first signal {result['boot_to_first_signal_s']} s (tick "
+        f"{a['first_signal_tick']}); routing {a['paths']}"
+    )
+    print(
+        f"[slice live] {frames} frames, {result['frames_per_s_p50']:.0f} frames/s parsed (p50 "
+        f"over bursts), klines per tick {a['ingested']} all equal to their bars, "
+        f"1 parse error and 1 reconnect counted; incremental tick p50 "
+        f"{result['incremental_tick_p50_ms']} ms through the connector; {len(da)} delivered "
+        f"signals equal to the cpu's (scores at the wire contract); LSP fired "
+        f"{len(no_l)} rows without open interest, {len(oi_l)} with it: {len(vetoed)} vetoed "
+        f"(growth 1.01), {len(scaled)} scaled by their growth; open-interest requests per "
+        f"sweep {result['oi_requests_per_sweep']}, 0 on the tick path; qtail {n_launches} "
+        f"{launches}, {len(checks)} held to the twin; {len(changed_a)} metric families set, "
+        f"the cpu's the same"
+    )
+    return result
+
+
+def cold_boot(card: str = "cuda") -> dict:
+    """``--cold-boot``: the time to the first signal after a cold boot of
+    the service as a user starts it, the backfill at the production flush
+    of every 50 symbols: phase 11's card boot with the open-interest feed,
+    to its first live tick. Prints the backfill's seconds, boot to ready,
+    the first tick's ms from the frames' push to its signals emitted, and
+    boot to the first signal."""
+    lm5, lm15 = make_live_market(np.random.default_rng(SEED + 5))
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        run = live_boot(card, live_history(lm5, lm15), live_bursts(lm5, lm15), Path(tmp),
+                        "cold", ticks=1)
+    if run["first_signal_tick"] != 1:
+        fail(f"[cold boot] the first live tick emitted no signal ({run['paths']})")
+    result = {"backfill": run["backfill"], "ready_s": run["ready_s"],
+              "first_tick_ms": run["tick_ms"][0],
+              "boot_to_first_signal_s": run["boot_to_first_signal_s"]}
+    print(f"[cold boot] S={S} W={W}: backfill {run['backfill']['bars']} bars in "
+          f"{run['backfill']['seconds']:.2f} s (a flush every 50 symbols), boot to ready "
+          f"{run['ready_s']:.2f} s, first tick {run['tick_ms'][0]:.1f} ms from the frames' push "
+          f"to emitted, boot to the first signal {run['boot_to_first_signal_s']:.2f} s")
+    return result
+
+
 def torch_empty_cache() -> None:
     import gc
 
@@ -4631,6 +5447,10 @@ def main() -> int:
         t_phase = now
 
     t_phase = t0
+    if "--cold-boot" in sys.argv[1:]:
+        print(json.dumps({"cold_boot": cold_boot()}))
+        lap("cold boot")
+        return 0
     if "--fold-ab" in sys.argv[1:]:
         cm5, cm15 = make_crash_market(np.random.default_rng(SEED + 1))
         print(json.dumps({"fold_ab": fold_ab(cm5, cm15)}))
@@ -4675,6 +5495,10 @@ def main() -> int:
     lap("scanned")
     backtest = check_backtest()
     lap("backtest")
+    torch_empty_cache()
+    # phase 11: the port as a service, booted cold through run_live
+    live = check_live()
+    lap("live")
     slices = {
         "classic": {k: v for k, v in classic.items()
                     if k not in ("fired", "indicators", "tick_times")},
@@ -4687,6 +5511,7 @@ def main() -> int:
         "fanout": {k: v for k, v in fanout.items() if k != "paths"},
         "scanned": scanned,
         "backtest": backtest,
+        "live": live,
     }
     if "--profile" in sys.argv[1:]:
         slices["profile"] = profile_slice(m5, m15, cm5, cm15)
@@ -4696,7 +5521,7 @@ def main() -> int:
     drives = {"classic": classic, "incremental": incremental, "dormant": dormant,
               "pipelined": pipelined, "service": service, "delivery": delivery,
               "observability": observability, "fanout": fanout, "scanned": scanned,
-              "backtest": backtest}
+              "backtest": backtest, "live": live}
     for run in drives.values():
         for k, v in run["launches_by_site"].items():
             by_site[k] = by_site.get(k, 0) + v

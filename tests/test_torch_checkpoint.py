@@ -281,10 +281,10 @@ def test_shape_mismatch_and_sharded_manifest_start_cold(seq, tmp_path, caplog):
     sharded = tmp_path / "sharded.ckpt.npz"
     tckpt.atomic_savez(sharded, arrays, meta)
     d = _port(**SERIAL)
-    with pytest.raises(ValueError, match="A8"):
+    with pytest.raises(ValueError, match="A10"):
         tckpt.load_state(sharded, d.state, d.registry)
     assert not tckpt.CheckpointManager(sharded).try_restore(d)
-    assert d.ticks_processed == 0 and "A8" in caplog.text
+    assert d.ticks_processed == 0 and "A10" in caplog.text
 
 
 def test_open_outcome_registry_survives_mid_horizon(tmp_path):

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of the reference package, no
 pydantic, ``httpx`` only where a network client is built without a session
 or transport (and then only at its first request, but for the binbot
-client), and no silent CPU fallback at its entry points. ``import torch``
+client), ``websockets`` only where a connector is built without a
+connection factory, and no silent CPU fallback at its entry points. ``import torch``
 itself loads ``torch.profiler``, so the import check asserts instead that no
 profiler is created until a profiler window opens."""
 
@@ -41,6 +42,7 @@ def test_import_pulls_in_no_jax_and_no_reference_module():
         "import binquant_tpu_torch.fanout, binquant_tpu_torch.fanout.snapshot\n"
         "import binquant_tpu_torch.backtest, binquant_tpu_torch.backtest.kernel\n"
         "import binquant_tpu_torch.backtest.driver\n"
+        "import binquant_tpu_torch.__main__, binquant_tpu_torch.utils\n"
         "import asyncio\n"
         "import torch.profiler\n"
         "made = []\n"
@@ -77,7 +79,7 @@ def test_import_pulls_in_no_jax_and_no_reference_module():
         "asyncio.run(window())\n"
         "assert ctl.closed.is_set() and made == [1] and ctl.last_trace is not None\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'binquant_tpu', 'httpx', 'pydantic'))\n"
+        "('jax', 'jaxlib', 'binquant_tpu', 'httpx', 'pydantic', 'websockets'))\n"
         "print(','.join(bad))\n"
     )
     proc = subprocess.run(
@@ -103,23 +105,54 @@ def test_sources_import_no_jax_and_no_reference_package():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     assert {PKG / "backtest" / f for f in ("__init__.py", "kernel.py", "driver.py")} <= set(files)
+    assert {PKG / "__main__.py", PKG / "io" / "websocket.py", PKG / "io" / "exchanges.py"} <= set(
+        files)
     for path in files:
         roots = _imported_roots(path)
         assert not roots & {"jax", "jaxlib", "binquant_tpu", "pydantic"}, (path, roots)
+        # nothing that opens a connection is imported when a module loads
+        top = set()
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, ast.Import):
+                top.update(a.name.split(".")[0] for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                top.add(node.module.split(".")[0])
+        assert not top & {"websockets", "httpx"}, (path, top)
+
+
+def test_websockets_is_imported_only_where_no_connect_is_given():
+    """``websockets`` is imported once in the port: in the connectors'
+    shared constructor, in its no-connection-factory branch."""
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    hits = []
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import) and any(a.name == "websockets" for a in node.names):
+                hits.append((path, node, tree))
+    assert [p for p, _, _ in hits] == [PKG / "io" / "websocket.py"]
+    tree = hits[0][2]
+    init = next(n for n in ast.walk(tree) if isinstance(n, ast.ClassDef) and n.name == "_Connector")
+    init = next(n for n in init.body if isinstance(n, ast.FunctionDef) and n.name == "__init__")
+    branch = next(n for n in ast.walk(init)
+                  if isinstance(n, ast.If) and ast.unparse(n.test) == "connect is None")
+    assert hits[0][1] in list(ast.walk(branch))
 
 
 def test_httpx_is_imported_only_where_no_session_is_given():
-    """``httpx`` is imported in three places and nowhere else (no other
+    """``httpx`` is imported in four places and nowhere else (no other
     port module, nor the smoke script, names it): the binbot client's
     constructor, in its no-session branch; the exchange clients' session,
     in its no-session branch, at the first request; the Telegram bot
     transport's send, which is built only for a consumer with a token and
-    no transport."""
+    no transport; KuCoin's bullet handshake, which runs only for a
+    connector built without ``token_fetch``."""
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     allowed = {  # file -> (function holding the import, branch test or None)
         PKG / "io" / "binbot.py": ("__init__", "session is None"),
         PKG / "io" / "exchanges.py": ("session", "self._session is None"),
         PKG / "io" / "telegram.py": ("post", None),
+        PKG / "io" / "websocket.py": ("_default_token_fetch", None),
     }
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -333,9 +333,9 @@ def env_free_reference_config(monkeypatch):
 
 def test_config_defaults_equal_the_reference(env_free_reference_config):
     """Every knob the port's Config has, at its default, equals the
-    reference's environment-free default. Paths compare by file name: the
-    port keeps its files in the temporary directory, the reference in
-    /tmp."""
+    reference's environment-free default. Paths and directories compare by
+    their last component: the port keeps its files in the temporary
+    directory, the reference in /tmp."""
     import dataclasses
 
     ref, port = env_free_reference_config, TConfig()
@@ -352,7 +352,7 @@ def test_config_defaults_equal_the_reference(env_free_reference_config):
         ref_name = REFERENCE_NAMES.get(name, name)
         assert hasattr(ref, ref_name), name
         want, got = getattr(ref, ref_name), getattr(port, name)
-        if name.endswith("_path") and want:
+        if name.endswith(("_path", "_dir")) and want:
             assert got.rsplit("/", 1)[-1] == want.rsplit("/", 1)[-1], name
         elif isinstance(want, tuple) or isinstance(got, tuple):
             assert tuple(got) == tuple(want), name
