@@ -10,8 +10,10 @@ pipelined production loop:
 
 * ``pipeline_depth`` — dispatch tick i, emit tick i-depth, whose wire
   copy has landed meanwhile; 0 is the serial (same-tick) loop;
-* ``donate`` — at depth <= 1 the ring planes are written in place instead
-  of cloned on every apply (the reference donates its state there);
+* ``donate`` — the ring planes are written in place instead of cloned on
+  every apply (the reference donates its state): at depth <= 1 the live
+  rings themselves, at depth >= 2 a recycled slot the live rings are
+  copied into first, so an in-flight tick's rings stay intact;
 * ``early_emit`` — the live loop lands a dispatched tick's wire and emits
   it as soon as the copy completes (``SignalEngine.emit_ready``);
 * ``numeric_digest`` / ``ingest_digest`` — the numeric-health and
@@ -26,8 +28,13 @@ pipelined production loop:
   ring, at most ``outcome_cap`` open signals (``obs/outcomes.py``);
 * ``checkpoint_path`` — where :class:`CheckpointManager` snapshots the
   engine every ``checkpoint_every_ticks`` ticks (empty: no checkpoints);
-  ``ckpt_shards`` above 1 asks for a sharded archive, which the port does
-  not write yet (``io/checkpoint.py``);
+  ``ckpt_shards`` above 1 writes that many per-shard archives (0: the
+  mesh size, 1 since the port runs unsharded; a restore reads any count,
+  ``io/checkpoint.py``);
+* ``mesh_devices`` (``BQT_MESH_DEVICES``, read when the Config is built) —
+  shard the symbol axis over this many cards (0 or 1: one card). The port
+  has no multi-card tick: with fewer cards visible it warns and runs on
+  one, with that many it raises (``parallel/mesh.py``);
 * ``binbot_timeout_s``, ``binbot_retry_max``, ``binbot_retry_backoff_s`` —
   the binbot REST client's deadline per request and its bounded, jittered
   retries (``io/binbot.py``);
@@ -89,9 +96,11 @@ pipelined production loop:
   sheds, ``slow_consumer``); ``fanout_outbox_path`` the frame outbox a
   reconnecting cursor replays from (empty: no replay; by default in the
   temporary directory, as the reference keeps it in ``/tmp``) with
-  ``fanout_outbox_cap`` entries a generation; ``fanout_outbox_shards`` and
-  ``fanout_snapshot_shards`` above 1 ask for the sharded outbox and
-  snapshots, which the port does not have yet (the plane raises);
+  ``fanout_outbox_cap`` entries a generation; ``fanout_outbox_shards``
+  above 1 splits the outbox into that many partitions by the firing row's
+  shard under one cursor, and ``fanout_snapshot_shards`` above 1 splits the
+  snapshot's symbol rows into that many archives (0: the checkpoint's
+  count);
   ``fanout_snapshot_path`` the snapshot-warm boot sidecar saved with every
   checkpoint (empty: none); ``fanout_compact_frac`` the freed/claimed slot
   fraction past which an unsubscribe compacts the planes (0: never);
@@ -147,6 +156,7 @@ class Config:
         default_factory=lambda: _env_int("BQT_CHECKPOINT_EVERY_TICKS", 60)
     )
     ckpt_shards: int = 0
+    mesh_devices: int = field(default_factory=lambda: _env_int("BQT_MESH_DEVICES", 0))
     binbot_timeout_s: float = 10.0
     binbot_retry_max: int = 2
     binbot_retry_backoff_s: float = 0.2

@@ -17,7 +17,11 @@ scatter, the input state is left untouched) and an in-place form
 argument): the scatter writes the input state's ring planes, as the
 reference donates its state at ``pipeline_depth <= 1``. A caller of the
 in-place form must not read the input state's rings as pre-tick data
-afterwards.
+afterwards. The double-buffered form (the reference's ``tick_step_wire_db``,
+``pipeline_depth >= 2``) is the in-place form over a recycled
+:class:`RingSlot`: :func:`into_ring_slot` copies the input state's rings
+into the slot first, so the input state stays intact while the tick writes
+the slot.
 
 The multi-tick drives' device side: :func:`tick_step_scan` runs a chunk of
 replayed ticks (each :func:`_fold_and_step_wire`: the folds, then the wire
@@ -1540,6 +1544,57 @@ def tick_step_wire_inplace(
         inplace=True,
     )
     return new_state, outputs.wire
+
+
+class RingSlot(NamedTuple):
+    """The four ring planes of one engine state: the double-buffered
+    step's scratch slot (the counterpart of the state slot the reference's
+    ``tick_step_wire_db`` donates). Everything else in a state is small and
+    produced functionally by every step."""
+
+    times5: torch.Tensor
+    values5: torch.Tensor
+    times15: torch.Tensor
+    values15: torch.Tensor
+
+
+def ring_slot_of(state: EngineState) -> RingSlot:
+    return RingSlot(state.buf5.times, state.buf5.values, state.buf15.times, state.buf15.values)
+
+
+def empty_ring_slot(state: EngineState) -> RingSlot:
+    """A fresh slot shaped like ``state``'s rings (uninitialized: the slot
+    is always overwritten whole before it is read)."""
+    return RingSlot(*(torch.empty_like(p) for p in ring_slot_of(state)))
+
+
+def into_ring_slot(state: EngineState, slot: RingSlot) -> EngineState:
+    """The double-buffered step's first half: copy ``state``'s ring planes
+    into ``slot`` and return the state re-pointed at the slot. The in-place
+    folds and :func:`tick_step_wire_inplace` then write the slot, and
+    ``state`` itself stays intact for an in-flight tick's fallback. The
+    caller keeps every read of ``state`` and every write of ``slot`` on one
+    stream, so a later write into ``state``'s planes (once they are a slot
+    themselves) follows this copy's read."""
+    for src, dst in zip(ring_slot_of(state), slot, strict=True):
+        dst.copy_(src)
+    return state._replace(
+        buf5=state.buf5._replace(times=slot.times5, values=slot.values5),
+        buf15=state.buf15._replace(times=slot.times15, values=slot.values15),
+    )
+
+
+def slot_storages(slot: RingSlot) -> set[int]:
+    """The storage addresses of a slot's planes."""
+    return {p.untyped_storage().data_ptr() for p in slot}
+
+
+def slot_is_free_of(slot: RingSlot, state: EngineState) -> bool:
+    """The torch counterpart of the reference's ``_unique_buffers`` check:
+    True when the slot's four planes use four storages of their own, none
+    of them one of ``state``'s ring planes'."""
+    own = slot_storages(slot)
+    return len(own) == len(slot) and not own & slot_storages(ring_slot_of(state))
 
 
 def canonicalize_state(state: EngineState) -> EngineState:

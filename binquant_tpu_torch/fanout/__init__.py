@@ -2,7 +2,7 @@
 the match on the device, and the WebSocket/SSE broadcast tier behind the
 delivery plane. The port of ``binquant_tpu/fanout``."""
 
-from binquant_tpu_torch.fanout.hub import BroadcastOutbox, FanoutHub
+from binquant_tpu_torch.fanout.hub import BroadcastOutbox, FanoutHub, ShardedBroadcastOutbox
 from binquant_tpu_torch.fanout.kernel import (
     DevicePlanes,
     pack_words_np,
@@ -18,6 +18,7 @@ from binquant_tpu_torch.fanout.registry import (
 
 __all__ = [
     "BroadcastOutbox",
+    "ShardedBroadcastOutbox",
     "DevicePlanes",
     "FanoutHub",
     "FanoutPlane",

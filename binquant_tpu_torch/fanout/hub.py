@@ -25,8 +25,12 @@ Cursor semantics: every frame carries a monotonically increasing ``seq``
 ``cursor=<trace_id>/<tick_seq>`` resolves through the outbox to the LAST
 frame of that traced tick (at-least-once within a tick).
 
-The reference's ``ShardedBroadcastOutbox`` (per-shard partitions under one
-cursor) is not ported: the plane refuses ``outbox_shards > 1``.
+:class:`ShardedBroadcastOutbox` splits the outbox into per-shard
+partitions (``<path>.pK-of-N``, routed by the firing row's shard) under the
+one global cursor: appends go to the firing row's partition, every read
+serves the merged, seq-ordered stream, and partitions of an earlier count
+(or a single-file log at the base path) are folded in read-only. Either
+package reads the other's partitions.
 """
 
 from __future__ import annotations
@@ -159,31 +163,10 @@ class BroadcastOutbox:
         self._lines = 0
         self.rotations += 1
 
-    def _scan(self) -> list[str]:
-        out: list[str] = []
-        for p in (self._gen1, self.path):  # gen-1 is strictly older
-            if not p.exists():
-                continue
-            with open(p, encoding="utf-8") as f:
-                out.extend(
-                    line.rstrip("\n") for line in f if line.strip()
-                )
-        return out
-
     def entries(self) -> list[tuple[dict, np.ndarray]]:
         """Every (frame, recipient words) pair in append order; torn
         lines skipped."""
-        out = []
-        for raw in self._scan():
-            try:
-                rec = json.loads(raw)
-                words = np.frombuffer(
-                    base64.b64decode(rec["w"]), np.uint32
-                )
-                out.append((rec["frame"], words))
-            except (ValueError, KeyError):
-                continue
-        return out
+        return _read_entries((self._gen1, self.path))  # gen-1 is strictly older
 
     def last_seq(self) -> int:
         """Highest frame seq in the log (-1 when empty) — what a plane
@@ -245,6 +228,110 @@ class BroadcastOutbox:
             self._f.close()
         except Exception:  # pragma: no cover
             pass
+
+
+def _read_entries(paths) -> list[tuple[dict, np.ndarray]]:
+    """The (frame, recipient words) records of outbox files, in file then
+    line order; a missing or unreadable file and torn lines are skipped."""
+    out = []
+    for p in paths:
+        try:
+            with open(p, encoding="utf-8") as f:
+                lines = [line.rstrip("\n") for line in f if line.strip()]
+        except OSError:
+            continue
+        for raw in lines:
+            try:
+                rec = json.loads(raw)
+                out.append((rec["frame"], np.frombuffer(base64.b64decode(rec["w"]), np.uint32)))
+            except (ValueError, KeyError):
+                continue
+    return out
+
+
+class ShardedBroadcastOutbox:
+    """:class:`BroadcastOutbox` split into per-shard partitions under ONE
+    global cursor. Appends route by ``shard_of(frame)`` (the firing row's
+    shard) into ``<path>.pK-of-N`` partition logs, each bounded by ``cap``
+    as a :class:`BroadcastOutbox` is; every read (``entries``,
+    ``last_seq``, ``resolve_cursor``, ``replay_after``) serves the merged
+    stream in seq order, so the hub sees one population and cursors of an
+    unsharded deployment keep resolving. Partition files of an earlier
+    count, and a single-file log at ``path`` itself (with its ``.1``
+    generation), are folded in read-only as retired sources: their frames
+    stay replayable and seed ``last_seq``. A drop-in for
+    :class:`BroadcastOutbox`."""
+
+    def __init__(self, path: str | Path, n_shards: int, cap: int = 4096, shard_of=None) -> None:
+        self.path = Path(path)
+        self.n_shards = max(int(n_shards), 1)
+        self.cap = max(int(cap), 1)
+        self._shard_of = shard_of
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self._parts = [
+            BroadcastOutbox(
+                self.path.with_name(f"{self.path.name}.p{k}-of-{self.n_shards}"), cap=self.cap
+            )
+            for k in range(self.n_shards)
+        ]
+        self._retired: list[Path] = [
+            p for p in (self.path.with_name(self.path.name + ".1"), self.path) if p.is_file()
+        ]
+        live = {part.path.name for part in self._parts} | {part._gen1.name for part in self._parts}
+        self._retired += [
+            p for p in sorted(self.path.parent.glob(f"{self.path.name}.p*-of-*"))
+            if p.name not in live and p.is_file()
+        ]
+
+    @property
+    def appends(self) -> int:
+        return sum(p.appends for p in self._parts)
+
+    @property
+    def rotations(self) -> int:
+        return sum(p.rotations for p in self._parts)
+
+    def _route(self, frame: dict) -> int:
+        """The frame's partition: ``shard_of(frame)``, or (no router, or
+        one that fails or answers out of range) a stable hash of the
+        symbol name; merge order is by seq either way."""
+        if self._shard_of is not None:
+            try:
+                k = int(self._shard_of(frame))
+                if 0 <= k < self.n_shards:
+                    return k
+            except Exception:
+                pass
+        return sum(str(frame.get("symbol", "")).encode()) % self.n_shards
+
+    def append(self, frame: dict, words: np.ndarray) -> None:
+        self._parts[self._route(frame)].append(frame, words)
+
+    def entries(self) -> list[tuple[dict, np.ndarray]]:
+        """The retired sources' and every partition's records, merged in
+        the plane's global seq order."""
+        out = _read_entries(self._retired)
+        for part in self._parts:
+            out.extend(part.entries())
+        out.sort(key=lambda e: int(e[0].get("seq", -1)))
+        return out
+
+    def last_seq(self) -> int:
+        return BroadcastOutbox.last_seq(self)
+
+    def resolve_cursor(self, cursor: str, entries: list | None = None) -> int | None:
+        return BroadcastOutbox.resolve_cursor(
+            self, cursor, entries if entries is not None else self.entries()
+        )
+
+    def replay_after(self, seq: int, slot: int, entries: list | None = None) -> list[dict]:
+        return BroadcastOutbox.replay_after(
+            self, seq, slot, entries if entries is not None else self.entries()
+        )
+
+    def close(self) -> None:
+        for part in self._parts:
+            part.close()
 
 
 # -- connections -------------------------------------------------------------

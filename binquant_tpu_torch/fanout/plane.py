@@ -18,8 +18,11 @@ finalize, and frame sequence numbers advance in emission order, so the
 ticks and equals the pure-Python
 :meth:`~binquant_tpu_torch.fanout.registry.SubscriptionRegistry.match_oracle`.
 
-Not ported: the sharded outbox and sharded snapshots (``outbox_shards`` or
-``snapshot_shards`` above 1 raise).
+Sharding, as in the reference: ``outbox_shards`` above 1 partitions the
+outbox by the firing row's shard (:class:`~binquant_tpu_torch.fanout.hub.
+ShardedBroadcastOutbox`, one merged cursor), and a snapshot saved at
+``snapshot_shards`` (0: the checkpoint's count) above 1 splits
+``sym_plane`` at the shard bounds (``fanout/snapshot.py``).
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import numpy as np
 
 from binquant_tpu_torch.engine.step import STRATEGY_ORDER
 from binquant_tpu_torch.enums import MarketRegimeCode
-from binquant_tpu_torch.fanout.hub import BroadcastOutbox, FanoutHub
+from binquant_tpu_torch.fanout.hub import BroadcastOutbox, FanoutHub, ShardedBroadcastOutbox
 from binquant_tpu_torch.fanout.kernel import DevicePlanes, popcount_words
 from binquant_tpu_torch.fanout.registry import (
     INVALID_REGIME_ROW,
@@ -55,6 +58,7 @@ from binquant_tpu_torch.obs.instruments import (
     FANOUT_SNAPSHOT,
     FANOUT_SUBSCRIPTIONS,
 )
+from binquant_tpu_torch.parallel.mesh import shard_of_row
 
 log = logging.getLogger(__name__)
 
@@ -86,12 +90,6 @@ class FanoutPlane:
         *,
         device,
     ) -> None:
-        if int(outbox_shards) > 1 or int(snapshot_shards) > 1:
-            raise ValueError(
-                f"fanout outbox_shards={outbox_shards}, snapshot_shards="
-                f"{snapshot_shards}: the sharded outbox and sharded "
-                "snapshots are not ported yet (ROADMAP A10)"
-            )
         self.engine_registry = engine_registry
         self.subscriptions = SubscriptionRegistry(
             symbol_capacity=engine_registry.capacity, capacity=capacity
@@ -106,10 +104,23 @@ class FanoutPlane:
         self.compact_frac = float(compact_frac)
         self.compactions = 0
         self._device = DevicePlanes(self.subscriptions, device=device)
-        self.outbox_shards = 1 if outbox_path else 0
-        self.outbox = (
-            BroadcastOutbox(outbox_path, cap=outbox_cap) if outbox_path else None
-        )
+        self.outbox_shards = int(outbox_shards) if outbox_path else 0
+        if outbox_path and int(outbox_shards) > 1:
+            # per-shard partitions under one global cursor: a frame goes
+            # to the partition of its firing row's shard, the hub reads one
+            # merged, seq-ordered stream
+            cap_rows, n = engine_registry.capacity, int(outbox_shards)
+
+            def frame_shard(frame: dict) -> int:
+                return shard_of_row(int(frame["row"]), cap_rows, n)
+
+            self.outbox = ShardedBroadcastOutbox(
+                outbox_path, n_shards=n, cap=outbox_cap, shard_of=frame_shard
+            )
+        else:
+            self.outbox = (
+                BroadcastOutbox(outbox_path, cap=outbox_cap) if outbox_path else None
+            )
         # per-slot minimum frame seq: slots are RECYCLED on unsubscribe,
         # and outbox frames / in-flight delivery-worker frames encode
         # recipients as slot bits — a new claimant must never receive (or
@@ -307,6 +318,10 @@ class FanoutPlane:
         reg = self.subscriptions
         t0 = time.perf_counter()
         n_shards = max(int(n_shards), 1)
+        if n_shards > 1 and reg.symbol_capacity % n_shards:
+            # the shard bounds need even blocks: an odd count saves one
+            # monolithic archive rather than failing the save
+            n_shards = 1
         columns = reg.export_columns()
         ms = sorted(self._slot_min_seq.items())
         columns["min_seq_slots"] = np.asarray([s for s, _ in ms], np.int64)

@@ -17,10 +17,22 @@ archived, and a restore re-attaches zero cursors.
 Older archives migrate as the reference's do: version 3 has v4's layout;
 versions 1 and 2 lack a suffix of the indicator carry, whose leaves keep
 the engine's empty carry, and the restore reports ``_carry_rebuilt`` so
-the first tick recomputes it from the windows. Sharded archives (a
-manifest with ``shard_count > 1``) are not ported yet: loading one raises,
-and :meth:`CheckpointManager.try_restore` starts cold, as on any load
-error. Every save also writes the fan-out plane's snapshot sidecar
+the first tick recomputes it from the windows.
+
+Sharded archives (:func:`save_state_sharded`, the reference's format): one
+archive per shard. ``<path>`` holds shard 0 and the manifest (registry,
+host carries, the shard roster, a per-save nonce, the indices of the
+symbol leaves), ``<path>.shardK-of-N`` the others. A leaf whose leading
+dimension is the capacity is a symbol leaf and is split at
+:func:`~binquant_tpu_torch.parallel.mesh.shard_bounds`; every other leaf
+rides shard 0 once. The siblings are written first and the manifest last,
+so a torn save leaves a roster the loader rejects: a missing sibling, a
+nonce that differs from the manifest's, or a sibling of another shard
+count all start cold. :func:`load_state` reads a monolithic archive or a
+manifest alike and concatenates the slices back, so an archive saved at
+any shard count restores into an engine of either package.
+
+Every save also writes the fan-out plane's snapshot sidecar
 (``fanout/snapshot.py``) when the engine has a plane with a snapshot path.
 """
 
@@ -41,6 +53,7 @@ from binquant_tpu_torch.engine.buffer import MarketBuffer
 from binquant_tpu_torch.engine.step import EngineState, canonicalize_state
 from binquant_tpu_torch.obs.events import get_event_log
 from binquant_tpu_torch.obs.instruments import CHECKPOINT_SAVES
+from binquant_tpu_torch.parallel.mesh import shard_bounds
 
 CKPT_VERSION = 4
 
@@ -128,6 +141,91 @@ def save_state(
     atomic_savez(path, arrays, meta)
 
 
+def _shard_path(path: Path, k: int, n: int) -> Path:
+    """The archive holding shard ``k`` of ``n`` (shard 0 is ``path``)."""
+    if k == 0:
+        return path
+    return path.with_name(f"{path.name}.shard{k}-of-{n}")
+
+
+def _symbol_leaf_flags(leaves: list, capacity: int) -> list[bool]:
+    """Which archive leaves carry the symbol axis (leading dimension equal
+    to the capacity), the reference's rule."""
+    if capacity == 4:
+        raise ValueError("a capacity of 4 is ambiguous with the score vectors")
+    return [leaf.dim() >= 1 and leaf.shape[0] == capacity for leaf in leaves]
+
+
+def save_state_sharded(
+    path: str | Path,
+    state: EngineState,
+    registry,
+    n_shards: int,
+    host_carries: dict | None = None,
+) -> None:
+    """Write the snapshot as ``n_shards`` archives (see the module
+    docstring); one shard is :func:`save_state`'s monolithic archive."""
+    n_shards = int(n_shards)
+    if n_shards <= 1:
+        return save_state(path, state, registry, host_carries=host_carries)
+    leaves = _archive_leaves(canonicalize_state(state))
+    capacity = int(state.buf15.filled.shape[0])
+    flags = _symbol_leaf_flags(leaves, capacity)
+    bounds = shard_bounds(capacity, n_shards)
+    nonce = os.urandom(8).hex()
+    path = Path(path)
+    host = [_host_leaf(leaf) for leaf in leaves]
+    for k in range(n_shards - 1, -1, -1):  # the manifest (k = 0) commits last
+        lo, hi = bounds[k]
+        arrays = {
+            f"leaf_{i}": (host[i][lo:hi] if flags[i] else host[i])
+            for i in range(len(host))
+            if flags[i] or k == 0
+        }
+        meta = {
+            "version": CKPT_VERSION,
+            "n_leaves": len(leaves),
+            "shard_count": n_shards,
+            "shard_index": k,
+            "rows": [lo, hi],
+            "nonce": nonce,
+        }
+        if k == 0:
+            meta["registry"] = registry.to_mapping()
+            meta["host_carries"] = host_carries or {}
+            meta["symbol_leaves"] = [i for i, f in enumerate(flags) if f]
+        atomic_savez(_shard_path(path, k, n_shards), arrays, meta)
+
+
+def _read_meta(data) -> dict:
+    return json.loads(bytes(data["__meta"].tobytes()).decode())
+
+
+def _sharded_arrays(path: Path, meta: dict, data, n_leaves: int) -> list[np.ndarray]:
+    """A sharded archive set's leaves as whole host arrays: each symbol
+    leaf's slices concatenated in shard order, the others from the
+    manifest. Raises ValueError on a torn roster."""
+    n = int(meta["shard_count"])
+    sym = set(meta["symbol_leaves"])
+    parts: dict[int, list] = {i: [data[f"leaf_{i}"]] for i in sym}
+    for k in range(1, n):
+        sp = _shard_path(path, k, n)
+        if not sp.exists():
+            raise ValueError(f"shard file {sp.name} missing (torn save) — start cold")
+        with np.load(sp) as sd:
+            smeta = _read_meta(sd)
+            if smeta.get("nonce") != meta.get("nonce"):
+                raise ValueError(f"shard {k} nonce mismatch (torn save) — start cold")
+            if smeta.get("shard_index") != k or smeta.get("shard_count") != n:
+                raise ValueError(f"shard file {sp.name} roster mismatch — start cold")
+            for i in sym:
+                parts[i].append(sd[f"leaf_{i}"])
+    return [
+        np.concatenate(parts[i], axis=0) if i in sym else data[f"leaf_{i}"]
+        for i in range(n_leaves)
+    ]
+
+
 def _reattach_cursors(state: EngineState) -> EngineState:
     """Re-attach the canonical (zero) cursors the archive strips."""
 
@@ -141,23 +239,23 @@ def _reattach_cursors(state: EngineState) -> EngineState:
 
 
 def load_state(path: str | Path, template_state: EngineState, registry):
-    """Restore ``(state, host_carries)`` from ``path`` into the template's
-    structure, on the template's device; the registry is rebuilt row for
-    row in place. Raises ValueError on a leaf count, shape or dtype that
-    does not match (capacity or window changed: start cold instead) and on
-    a sharded archive."""
+    """Restore ``(state, host_carries)`` from ``path`` (a monolithic
+    archive or a sharded set's manifest) into the template's structure, on
+    the template's device; the registry is rebuilt row for row in place.
+    Raises ValueError on a leaf count, shape or dtype that does not match
+    (capacity or window changed: start cold instead), on a torn shard
+    roster and on a sibling shard file given as the path."""
     path = Path(path)
     device = template_state.buf5.times.device
     with np.load(path) as data:
-        meta = json.loads(bytes(data["__meta"].tobytes()).decode())
+        meta = _read_meta(data)
         version = meta["version"]
         if version not in (1, 2, 3, CKPT_VERSION):
             raise ValueError(f"checkpoint version {version} unsupported")
-        if int(meta.get("shard_count", 1)) > 1:
+        sharded = int(meta.get("shard_count", 1)) > 1
+        if sharded and int(meta.get("shard_index", 0)) != 0:
             raise ValueError(
-                f"{path.name} is a sharded archive ({meta['shard_count']} shards); the "
-                "port restores monolithic archives only until sharding is ported "
-                "(ROADMAP A10)"
+                f"{path.name} is a non-manifest shard file — restore from the manifest path"
             )
         t_leaves = _archive_leaves(template_state)
         ic = template_state.indicator_carry
@@ -173,12 +271,17 @@ def load_state(path: str | Path, template_state: EngineState, registry):
             raise ValueError(
                 f"checkpoint has {meta['n_leaves']} leaves, engine expects {expected}"
             )
+        arrays = (
+            _sharded_arrays(path, meta, data, len(t_leaves))
+            if sharded
+            else [data[f"leaf_{i}"] for i in range(meta["n_leaves"])]
+        )
         leaves = []
         for i, t in enumerate(t_leaves):
             if i >= meta["n_leaves"]:
                 leaves.append(t.clone())  # the template's empty carry (v1, v2)
                 continue
-            arr = data[f"leaf_{i}"]
+            arr = arrays[i]
             if tuple(arr.shape) != tuple(t.shape):
                 raise ValueError(
                     f"checkpoint leaf {i} shape {arr.shape} != {tuple(t.shape)} "
@@ -222,13 +325,9 @@ class CheckpointManager:
         t0 = time.perf_counter()
         try:
             n_shards = self.shard_count_for(engine)
-            if n_shards > 1:
-                raise ValueError(
-                    f"ckpt_shards={n_shards}: sharded archives are not ported yet (ROADMAP A10)"
-                )
             with engine.hold_state("checkpoint save"):
-                save_state(self.path, engine.state, engine.registry,
-                           host_carries=engine.host_carries())
+                save_state_sharded(self.path, engine.state, engine.registry, n_shards,
+                                   host_carries=engine.host_carries())
         except Exception:
             CHECKPOINT_SAVES.labels(outcome="error").inc()
             logging.exception("checkpoint save failed; continuing")
@@ -255,7 +354,8 @@ class CheckpointManager:
     @staticmethod
     def shard_count_for(engine) -> int:
         """The archives a save writes: the config's ``ckpt_shards`` when
-        set, else 1 (the port runs unsharded)."""
+        set, else the mesh size, which is 1: the port's engine runs
+        unsharded (``parallel/mesh.py``). A restore reads any saved count."""
         return int(getattr(engine.config, "ckpt_shards", 0) or 0) or 1
 
     def try_restore(self, engine) -> bool:
@@ -270,6 +370,9 @@ class CheckpointManager:
             logging.exception("checkpoint restore failed; starting cold")
             return False
         engine.state = state
+        # a restored state is a new lineage: no ring slot of the old one
+        # may be written into it
+        engine._invalidate_spares("checkpoint restore")
         engine.restore_host_carries(carries)
         engine.note_state_restored(migrated=bool(carries.get("_carry_rebuilt", False)))
         if engine.device.type == "cuda":

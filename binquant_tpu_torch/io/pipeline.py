@@ -28,8 +28,12 @@ landed) with empty update batches and the PRE-tick small carries (regime,
 dedupe, indicator carry — produced functionally, so the pre-tick tensors
 are simply kept). An exception after the tick's first in-place write (a
 ring plane's version counter moved) resets the engine cold; one before it
-leaves the state intact. Depth >= 2, or ``donate=False``, runs the copying
-step, whose fallback re-runs the tick from the pre-tick state.
+leaves the state intact. At depth >= 2 (the double-buffered rotation,
+:meth:`_donation_mode`) the tick writes a recycled ring slot holding a copy
+of the live rings instead, so each in-flight tick's fallback reads its own
+post state; a dispatch that raises drops the slot and keeps the live state.
+``donate=False`` runs the copying step, whose fallback re-runs the tick
+from the pre-tick state.
 
 Routing (``incremental=True``, the production default): a tick runs the
 INCREMENTAL step, reading indicators from the carried state advanced by one
@@ -183,14 +187,20 @@ from binquant_tpu_torch.engine.step import (
     WIRE_FIRED_COUNT_OFF,
     WIRE_MAX_FIRED,
     HostInputs,
+    RingSlot,
     apply_updates_carry_step,
     apply_updates_carry_step_counted,
     apply_updates_scan,
     apply_updates_scan_counted,
     apply_updates_step,
     apply_updates_step_counted,
+    empty_ring_slot,
     initial_engine_state,
+    into_ring_slot,
     measure_carry_drift,
+    ring_slot_of,
+    slot_is_free_of,
+    slot_storages,
     tick_step,
     tick_step_scan,
     tick_step_wire,
@@ -239,6 +249,7 @@ from binquant_tpu_torch.obs.tracing import (
     profiler_window_active,
     step_annotation,
 )
+from binquant_tpu_torch.parallel.mesh import resolve_mesh
 from binquant_tpu_torch.regime.context import ContextConfig
 from binquant_tpu_torch.regime.grid_policy import GridOnlyPolicy, read_breadth_momentum
 from binquant_tpu_torch.regime.time_filter import is_quiet_hours
@@ -412,6 +423,9 @@ class _PendingTick(NamedTuple):
     # (WireFired, ctx) already decoded by a chunk drive's one-pass block
     # decode; None: finalize decodes the wire itself
     unpacked: Any = None
+    # double-buffered dispatch: (the tick's post rings, the state
+    # generation), back into the slot rotation once the tick finalizes
+    spare: Any = None
 
 
 def _note_symbols_per_tick(slots5: list, slots15: list) -> None:
@@ -523,6 +537,19 @@ class SignalEngine:
         self.inplace_ticks = 0
         self.overflow_ticks = 0
         self.state_resets = 0
+        # the double-buffered rotation (depth >= 2, see _donation_mode): free
+        # ring slots, at most four; the light-load parking slot (a finalized
+        # tick whose post state is still the live state); the generation a
+        # cold reset or a restore bumps, so a pending tick of an older
+        # lineage never pools its slot; and the slots allocated on a miss
+        self._spare_slots: list[RingSlot] = []
+        self._spare_slots_max = 4
+        self._state_generation = 0
+        self._deferred_spare: tuple[RingSlot, int] | None = None
+        self.fresh_slots = 0
+        # the symbol mesh: the port runs unsharded (mesh_devices > 1 warns
+        # or raises, parallel/mesh.py)
+        self.mesh = resolve_mesh(int(self.config.mesh_devices or 0), self.capacity)
         self.market_breadth: MarketBreadthSeries | None = None
         self._last_breadth_bucket = -1
         self.grid_only_policy = GridOnlyPolicy.disabled("not_evaluated")
@@ -1613,14 +1640,83 @@ class SignalEngine:
         return inputs_dev, torch.from_numpy(momentum_seq).to(dev), (prev[0] != 0, prev[1])
 
     def _donation_mode(self) -> str | None:
-        """How this dispatch treats the rings: ``"single"`` writes them in
-        place (``donate`` at depth <= 1, where a tick always finalizes before
-        the next dispatch writes the rings again, so the fallback's lazy
-        read of ``self.state`` sees the tick's own post-tick rings); None
-        runs the copying step (``donate`` off, or depth >= 2)."""
-        if self.donate and self.pipeline_depth <= 1:
-            return "single"
-        return None
+        """How this dispatch treats the rings (the reference's modes):
+
+        * None — the copying step (``donate`` off);
+        * ``"single"`` — ``donate`` at depth <= 1: the folds and the step
+          write the live rings in place. A tick always finalizes before the
+          next dispatch writes them again, so its fallback's post-tick rings
+          are still its own;
+        * ``"double"`` — ``donate`` at depth >= 2: the live rings are copied
+          into a recycled :class:`RingSlot` (:meth:`_take_slot`), which the
+          folds and the step then write in place, so every in-flight tick's
+          post state stays intact for its own fallback. A finalized tick's
+          post rings return to the pool (:meth:`_rotate_spare`); a dispatch
+          with no tick in flight pools the rings it replaced at once
+          (:meth:`_release_rings`), so only the first tick allocates a slot.
+          Every read and write stays on the one compute stream, so tick
+          i+1's reads of a slot finish before tick i+2 writes it.
+        """
+        if not self.donate:
+            return None
+        return "single" if self.pipeline_depth <= 1 else "double"
+
+    def _invalidate_spares(self, why: str) -> None:
+        """Retire every slot of the current state lineage (a cold reset, a
+        restore): the pool and the parking slot empty, and the generation
+        moves on, so a pending tick of the old lineage pools nothing."""
+        self._spare_slots.clear()
+        self._deferred_spare = None
+        self._state_generation += 1
+        logging.info(
+            "ring slots invalidated (%s); state generation now %d",
+            why, self._state_generation,
+        )
+
+    def _pool_slot(self, slot: RingSlot) -> None:
+        if len(self._spare_slots) < self._spare_slots_max:
+            self._spare_slots.append(slot)
+
+    def _take_slot(self, live) -> RingSlot:
+        """The double-buffered dispatch's slot: the newest pooled one, or a
+        fresh one (counted in ``fresh_slots``) when the pool is empty. A
+        pooled slot that shares a storage with the live rings, or two of
+        its planes one storage, is dropped for a fresh one."""
+        slot = self._spare_slots.pop() if self._spare_slots else None
+        if slot is None or not slot_is_free_of(slot, live):
+            slot = empty_ring_slot(live)
+            self.fresh_slots += 1
+        return slot
+
+    def _release_rings(self, live) -> None:
+        """A double dispatch with no tick in flight: nothing reads the rings
+        it replaced, nor the parking slot (those rings, or older ones a
+        prune replaced), so both return to the pool now. This is where a
+        parked slot is promoted: the dispatch after a parking always finds
+        no tick in flight."""
+        parked, self._deferred_spare = self._deferred_spare, None
+        if parked is not None and parked[1] == self._state_generation and (
+            slot_is_free_of(parked[0], self.state)
+            and not slot_storages(parked[0]) & slot_storages(ring_slot_of(live))
+        ):
+            self._pool_slot(parked[0])
+        if slot_is_free_of(ring_slot_of(live), self.state):
+            self._pool_slot(ring_slot_of(live))
+
+    def _rotate_spare(self, pending: _PendingTick) -> None:
+        """After a double-buffered tick finalizes: its post rings return to
+        the pool, or park while they are still the live rings (light load;
+        :meth:`_release_rings` promotes them). A slot of a retired
+        generation is dropped."""
+        if pending.spare is None:
+            return
+        slot, gen = pending.spare
+        if gen != self._state_generation:
+            return
+        if slot_is_free_of(slot, self.state):
+            self._pool_slot(slot)
+        else:
+            self._deferred_spare = (slot, gen)
 
     def _ring_planes(self) -> list[torch.Tensor]:
         st = self.state
@@ -1635,6 +1731,8 @@ class SignalEngine:
             "%s; resetting the engine state cold (reset #%d)", why, self.state_resets
         )
         self.state = initial_engine_state(self.capacity, self.window, device=self.device)
+        # the slots may alias buffers of the failed lineage
+        self._invalidate_spares(f"cold reset: {why}")
         for latest in self._host_latest.values():
             latest[:] = -1
         self._ingest_fold_counts = None
@@ -1776,7 +1874,7 @@ class SignalEngine:
                 self._measure_drift(pairs, btc_row, ts_ms, sp_audit, trace)
 
         mode = self._donation_mode()
-        inplace = mode == "single"
+        inplace = mode is not None
         cfg, key = self.context_config, self._wire_enabled_key()
         # a classic engine never reads the carry: no rebuild on its ticks
         flags = dict(
@@ -1786,6 +1884,12 @@ class SignalEngine:
         )
         planes = self._ring_planes()
         versions = [p._version for p in planes]
+        live = self.state
+        idle = not self._pending
+        if mode == "double":
+            # the live rings stay intact for the in-flight ticks' fallbacks:
+            # this tick writes a recycled slot holding a copy of them
+            self.state = into_ring_slot(live, self._take_slot(live))
         try:
             with trace.span("buffer_fold", advance_carry=use_incremental):
                 u5, u15 = self._fold_updates(
@@ -1820,25 +1924,33 @@ class SignalEngine:
                 )
                 host, ready = self._start_wire_copy(wire)
         except BaseException:
-            if inplace:
+            if mode == "double":
+                # only the slot was written: drop it, keep the live state
+                self.state = live
+            elif inplace:
                 self._recover_after_inplace_failure(planes, versions)
             raise
         if not use_incremental:
             self._carry_desync_reason = None
-
+        spare = None
+        if mode == "double":
+            spare = (ring_slot_of(self.state), self._state_generation)
+            if idle:
+                self._release_rings(live)
         if inplace:
             self.inplace_ticks += 1
-            # the pre-tick rings are gone: re-evaluate from the POST-tick
-            # rings (read at call time; at depth <= 1 no later dispatch has
-            # written them yet) with empty batches and the pre-tick small
-            # carries, which the step left untouched
+            # the pre-tick rings are gone: re-evaluate from this tick's
+            # POST-tick rings, captured now (at depth >= 2 later dispatches
+            # replace self.state before this tick finalizes; at depth <= 1
+            # none writes them before then), with empty batches and the
+            # pre-tick small carries, which the step left untouched
             small = (pre.regime_carry, pre.mrf_last_emitted, pre.pt_last_signal_close,
                      pre.indicator_carry)
             empty = self._empty_updates()
 
-            def fallback(_args=(small, inputs, cfg, key, flags, empty)):
-                small_, inp, cfg_, key_, flags_, emp = _args
-                st = self.state._replace(
+            def fallback(_args=(self.state, small, inputs, cfg, key, flags, empty)):
+                post, small_, inp, cfg_, key_, flags_, emp = _args
+                st = post._replace(
                     regime_carry=small_[0], mrf_last_emitted=small_[1],
                     pt_last_signal_close=small_[2], indicator_carry=small_[3],
                 )
@@ -1868,6 +1980,7 @@ class SignalEngine:
             dispatched_at=time.perf_counter(),
             trace=trace,
             ingest_mono=ingest_mono,
+            spare=spare,
         )
 
     def _oldest_pending_mono(self) -> float | None:
@@ -1898,6 +2011,7 @@ class SignalEngine:
                 raise
             finally:
                 self.tracer.complete(trace, snapshot_fn=self._flight_snapshot)
+                self._rotate_spare(pending)
 
     async def _finalize_tick_inner(self, pending: _PendingTick) -> list:
         ts5, ts15 = pending.ts5, pending.ts15
@@ -2405,8 +2519,8 @@ class SignalEngine:
             "incremental_enabled": self.incremental,
             "incremental_ticks": self.incremental_ticks,
             "full_recompute_ticks": self.full_recompute_ticks,
-            # ticks whose rings were written in place, and cold resets
-            # after an in-place failure
+            # ticks whose rings were written in place (the live rings or a
+            # recycled slot), and cold resets after an in-place failure
             "donated_ticks": self.inplace_ticks,
             "donated_state_resets": self.state_resets,
             "scanned_ticks": self.scanned_ticks,

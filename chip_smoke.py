@@ -80,8 +80,14 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    counts must equal the CPU engine's (the crash tick's pairs pass its cap
    of 1024), horizons 1, 4 and 16 mature within the drive and 96 does not;
    the host ms of each maturation tick (gather, copy, fold) is printed. The
-   same drive at depth 0 with copied rings on the card gives the tick times
-   and peak device memory it is printed beside.
+   same drive on five card engines taking each tick in turns, two rounds,
+   gives the tick times and peak device memory: depth 1 in place, depth 0
+   copying with and without the digests and the meter, depth 2 on
+   double-buffered rings (each tick writes a recycled ring slot; held
+   against the CPU engine as depth 1 is, in both rounds, with 0 slots
+   allocated after the first tick) and depth 2 copying; for each, the
+   caching allocator's large-pool allocations per tick and the slots
+   pooled.
 6. Drive the service around the tick (``[slice service]``): the
    production loop, an audit and a checkpoint every 8 ticks, a binbot
    client over the stub backend with a scripted breadth schedule (one
@@ -90,9 +96,12 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    symbol from a fake REST source (one symbol's fetches raise, a bar that
    has not closed is served and dropped), then ``consume_loop`` takes 16
    live ticks of the production drive's downtrend from an
-   ``asyncio.Queue``, bucket by bucket, and is cancelled. Boot B restores
-   A's archive of tick 8, tops the rings up by ``backfill`` (in one
-   flush, as A) and consumes ticks 9-16. A CPU engine (depth
+   ``asyncio.Queue``, bucket by bucket, and is cancelled; tick 8's state
+   is also saved at 4 shards and monolithic, each save timed. Boot B
+   restores the 4-shard set, tops the rings up by ``backfill`` (in one
+   flush, as A) and consumes ticks 9-16. Fresh card engines restore the
+   monolithic archive and the 4-shard set (every leaf bit-equal, and to
+   boot B's) and run tick 9 to the same wire bit for bit. A CPU engine (depth
    0, copied rings) takes boot A's stream. Routing, fired tuples, notifier
    digests, leverage PUTs, host carries and rings must equal the CPU's
    (wires within the contract) and B's ticks must equal A's bit for bit
@@ -185,7 +194,10 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    consumer's sheds and its cursor replay of exactly its outbox frames; the
    ``fanout_recipient_set`` invariant; a second card engine booted from the
    last archive and its snapshot (planes bit for bit, its first match on
-   the crash tick's signals equal to the first engine's); qtail launches by
+   the crash tick's signals equal to the first engine's), and once more
+   with the outbox in 4 partitions (the single-file log folded in) and the
+   snapshot re-saved as a 4-shard set: the same recipient sets, and the
+   same cursor replays for the protected users from three cursors; qtail launches by
    site per tick equal to the CPU twin's calls. Then 1,000,000 subscriptions
    alone: the full push, one match at K = 8, 128 and 2048 (CUDA events,
    warm) with its peak device memory, K=8 against the CPU torch path and
@@ -250,10 +262,22 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    p50 through the connector and the open-interest requests per sweep.
 12. Print the kernels line, the card's name and power limit, and the result.
 
-Phase 5 times three card configurations (depth 1 in place; depth 0
-copying; depth 0 copying without the digests and the meter) over two
-rounds of the same ticks, the engines taking each tick in turns, with the
-device idle before every call, as between live ticks.
+The drives are host-bound (the card is idle most of a tick), so after
+phase 2 the phases run in two processes on the one card at once: this one
+runs phases 5-8 and 11, a second one (``--second PATH``, started by this
+one and killed with it) runs phases 3, 4, 9 and 10 and writes their
+results to PATH, its standard output to ``PATH.log`` (printed here when
+it ends). Each process zeroes and reads its own launch counts around each
+of its drives; the kernels line sums both. Host times of either process
+are taken while the other runs. Both run OpenMP with
+``OMP_WAIT_POLICY=PASSIVE`` (unless set): the CPU engines' threads sleep
+between parallel regions instead of spinning on the shared cores.
+
+Phase 5 times five card configurations (depth 1 in place; depth 0
+copying; depth 0 copying without the digests and the meter; depth 2 on
+double-buffered rings; depth 2 copying) over two rounds of the same
+ticks, the engines taking each tick in turns, with the device idle before
+every call, as between live ticks.
 
 With ``--profile`` it also drives the incremental path and the production
 loop once more each under ``torch.profiler`` and prints, per tick kind
@@ -1326,6 +1350,9 @@ def _engine_summary(engine) -> dict:
         "overflow_ticks": engine.overflow_ticks,
         "inplace_ticks": engine.inplace_ticks,
         "state_resets": engine.state_resets,
+        "spare_slots": len(engine._spare_slots),
+        "spare_bytes": sum(p.numel() * p.element_size()
+                           for slot in engine._spare_slots for p in slot),
         "wire_bufs_pinned": None if engine._wire_bufs is None
         else [b.is_pinned() for b in engine._wire_bufs],
         "drift_audits": engine.drift.audits,
@@ -1365,7 +1392,8 @@ def drive_pipelined(configs: dict, m5: dict, m15: dict, profiler=None) -> dict:
         engines[label], ticks = _pipelined_engine(device, m5, m15, depth, donate, digests)
     outs = {
         label: {"paths": [], "launches": [], "sites": [], "call_ms": [], "landed_ms": [],
-                "base_bytes": [], "peak_bytes": [], "fired": []}
+                "base_bytes": [], "peak_bytes": [], "fired": [], "fresh_slots": [],
+                "large_allocs": []}
         for label in configs
     }
 
@@ -1383,6 +1411,7 @@ def drive_pipelined(configs: dict, m5: dict, m15: dict, profiler=None) -> dict:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated() if cuda else None
+        allocs = torch.cuda.memory_stats().get("allocation.large_pool.allocated", 0) if cuda else 0
         before = dict(qt.launches_by_site)
         rng = (
             torch.profiler.record_function("chip_smoke_tick")
@@ -1398,6 +1427,12 @@ def drive_pipelined(configs: dict, m5: dict, m15: dict, profiler=None) -> dict:
         out["landed_ms"].append((time.perf_counter() - t0) * 1000.0)
         out["base_bytes"].append(base)
         out["peak_bytes"].append(torch.cuda.max_memory_allocated() if cuda else None)
+        # the caching allocator's large-pool (> 1 MiB) allocations this call
+        # made, and the ring slots the engine allocated so far
+        out["large_allocs"].append(
+            torch.cuda.memory_stats().get("allocation.large_pool.allocated", 0) - allocs
+            if cuda else None)
+        out["fresh_slots"].append(engine.fresh_slots)
         out["sites"].append(launches_since(before))
         out["launches"].append(sum(out["sites"][-1].values()))
         out["paths"].append(engine.last_path)
@@ -1437,10 +1472,11 @@ EXPECT_SITES = {
 
 def check_pipelined(m5, m15) -> dict:
     """The production loop on the card against the serial loop on the CPU,
-    then the tick times and device memory of three card configurations
+    then the tick times and device memory of five card configurations
     taking the same ticks in turns: depth 1 with rings in place, depth 0
-    with copied rings, and depth 0 with copied rings and neither digest nor
-    the meter."""
+    with copied rings, depth 0 with copied rings and neither digest nor the
+    meter, depth 2 on double-buffered rings (held against the CPU too, in
+    each round) and depth 2 with copied rings."""
     import torch
 
     from binquant_tpu_torch.engine.step import (
@@ -1464,6 +1500,8 @@ def check_pipelined(m5, m15) -> dict:
         "depth1_inplace": ("cuda", 1, True, True),
         "depth0_copying": ("cuda", 0, False, True),
         "depth0_copying_no_digests": ("cuda", 0, False, False),
+        "depth2_double": ("cuda", 2, True, True),
+        "depth2_copying": ("cuda", 2, False, True),
     }
     rounds = [drive_pipelined(configs, m5, m15) for _ in range(2)]
 
@@ -1471,7 +1509,8 @@ def check_pipelined(m5, m15) -> dict:
         "audit" if t % AUDIT_EVERY == 0 else "incremental" for t in range(1, LIVE_TICKS + 2)
     ]
     with_digests = [(gpu, "depth 1")] + [
-        (r[k], k) for r in rounds for k in ("depth1_inplace", "depth0_copying")
+        (r[k], k) for r in rounds
+        for k in ("depth1_inplace", "depth0_copying", "depth2_double", "depth2_copying")
     ]
     for run, label in (*with_digests, (cpu, "cpu"),
                        *((r["depth0_copying_no_digests"], "no digests") for r in rounds)):
@@ -1498,46 +1537,76 @@ def check_pipelined(m5, m15) -> dict:
             and gpu["wire_bufs_pinned"] == [True, True]):
         fail(f"depth 1: in-place ticks {gpu['inplace_ticks']}, resets {gpu['state_resets']}, "
              f"pinned wire buffers {gpu['wire_bufs_pinned']}")
+    # depth 2 on double-buffered rings: every tick writes a ring slot, one
+    # allocated on the first tick and none after
+    for r in rounds:
+        d2 = r["depth2_double"]
+        fresh_after = d2["fresh_slots"][-1] - d2["fresh_slots"][0]
+        if not (d2["inplace_ticks"] == len(expect) and d2["state_resets"] == 0
+                and d2["fresh_slots"][0] == 1 and fresh_after == 0
+                and d2["wire_bufs_pinned"] == [True] * 3):
+            fail(f"depth 2 double: in-place ticks {d2['inplace_ticks']}, resets "
+                 f"{d2['state_resets']}, fresh slots per call {d2['fresh_slots']}, pinned "
+                 f"wire buffers {d2['wire_bufs_pinned']}")
+        if r["depth2_copying"]["inplace_ticks"] or r["depth2_copying"]["fresh_slots"][-1]:
+            fail("depth 2 copying wrote rings in place")
     crash_ms = gpu["tick_times"][-1]
     crash_fired = sum(1 for f in gpu["fired"] if f[0] == crash_ms)
-    if not (gpu["overflow_ticks"] == cpu["overflow_ticks"] == 1) or crash_fired <= WIRE_MAX_FIRED:
-        fail(f"overflow ticks {gpu['overflow_ticks']}/{cpu['overflow_ticks']}, "
-             f"{crash_fired} signals on the crash tick (need > {WIRE_MAX_FIRED})")
-    if len(gpu["ingest_digests"]) != len(expect):
-        fail(f"{len(gpu['ingest_digests'])} ingest digests for {len(expect)} ticks")
-    for a, b in zip(gpu["ingest_digests"], cpu["ingest_digests"], strict=True):
-        if not np.array_equal(a.view(np.int32), b.view(np.int32)):
-            fail(f"ingest digest differs from the cpu engine's: {a} vs {b}")
     n_counts = 2 * len(NUMERIC_STAGES) + 2 * len(STRATEGY_ORDER)
     # a gate margin is an RSI/MFI (0-100 points) minus its threshold: the
     # wire contract at that indicator's scale; the other floats at their own
     margin = np.array([n.startswith("margin.") for n in numeric_digest_layout()])
     atol = np.where(margin, 1e-4 * 100 + 1e-5, 1e-5)
-    numeric_err = 0.0
-    for (_, a), (_, b) in zip(gpu["numeric_history"], cpu["numeric_history"], strict=True):
-        if not np.array_equal(a[:n_counts], b[:n_counts]):
-            fail(f"numeric digest counts differ from the cpu engine's: {a[:n_counts]} vs {b[:n_counts]}")
-        close = np.isclose(a, b, rtol=1e-4, atol=atol, equal_nan=True)
-        if not close.all():
-            bad = np.flatnonzero(~close)
-            fail(f"numeric digest floats differ at {bad.tolist()}: {a[bad]} vs {b[bad]}")
-        fin = np.isfinite(a) & np.isfinite(b)
-        numeric_err = max(numeric_err, float(np.abs(a[fin] - b[fin]).max(initial=0.0)))
-    if gpu["drift_audits"] != 2 or gpu["drift_skipped"] or cpu["drift_audits"] != 2:
-        fail(f"drift meter: {gpu['drift_audits']} audits, {gpu['drift_skipped']} skipped")
-    for (_, dg, bg), (_, dc, bc) in zip(gpu["drift_history"], cpu["drift_history"], strict=True):
-        if bg != bc or any(dg[f]["compared"] != dc[f]["compared"] for f in dg):
-            fail(f"drift meter differs from the cpu engine's: {dg} {bg} vs {dc} {bc}")
-    for key, a in gpu["rings"].items():
-        b = cpu["rings"][key]
-        if not torch.equal(torch.nan_to_num(a.float(), nan=-1.0), torch.nan_to_num(b.float(), nan=-1.0)):
-            fail(f"pipelined drive: {key} differs between the card and the cpu")
-    # the outcome tracker: the matured tuples and counters exactly the cpu's
-    go, co = gpu["outcomes"], cpu["outcomes"]
-    for k in ("matured_set", "registered", "matured", "truncated", "evictions", "open"):
-        if go[k] != co[k]:
-            fail(f"pipelined drive: outcome {k} differs from the cpu engine's: "
-                 f"{str(go[k])[:200]} vs {str(co[k])[:200]}")
+
+    def hold(run, label) -> float:
+        """A card engine against the cpu engine: the overflow, both digest
+        blocks, the drift meter, the rings and the outcome tracker."""
+        fired = sum(1 for f in run["fired"] if f[0] == crash_ms)
+        if not (run["overflow_ticks"] == cpu["overflow_ticks"] == 1) or fired <= WIRE_MAX_FIRED:
+            fail(f"{label}: overflow ticks {run['overflow_ticks']}/{cpu['overflow_ticks']}, "
+                 f"{fired} signals on the crash tick (need > {WIRE_MAX_FIRED})")
+        if len(run["ingest_digests"]) != len(expect):
+            fail(f"{label}: {len(run['ingest_digests'])} ingest digests for {len(expect)} ticks")
+        for a, b in zip(run["ingest_digests"], cpu["ingest_digests"], strict=True):
+            if not np.array_equal(a.view(np.int32), b.view(np.int32)):
+                fail(f"{label}: ingest digest differs from the cpu engine's: {a} vs {b}")
+        err = 0.0
+        for (_, a), (_, b) in zip(run["numeric_history"], cpu["numeric_history"], strict=True):
+            if not np.array_equal(a[:n_counts], b[:n_counts]):
+                fail(f"{label}: numeric digest counts differ from the cpu engine's: "
+                     f"{a[:n_counts]} vs {b[:n_counts]}")
+            close = np.isclose(a, b, rtol=1e-4, atol=atol, equal_nan=True)
+            if not close.all():
+                bad = np.flatnonzero(~close)
+                fail(f"{label}: numeric digest floats differ at {bad.tolist()}: "
+                     f"{a[bad]} vs {b[bad]}")
+            fin = np.isfinite(a) & np.isfinite(b)
+            err = max(err, float(np.abs(a[fin] - b[fin]).max(initial=0.0)))
+        if run["drift_audits"] != 2 or run["drift_skipped"] or cpu["drift_audits"] != 2:
+            fail(f"{label}: drift meter: {run['drift_audits']} audits, "
+                 f"{run['drift_skipped']} skipped")
+        for (_, dg, bg), (_, dc, bc) in zip(run["drift_history"], cpu["drift_history"],
+                                            strict=True):
+            if bg != bc or any(dg[f]["compared"] != dc[f]["compared"] for f in dg):
+                fail(f"{label}: drift meter differs from the cpu engine's: "
+                     f"{dg} {bg} vs {dc} {bc}")
+        for key, a in run["rings"].items():
+            b = cpu["rings"][key]
+            if not torch.equal(torch.nan_to_num(a.float(), nan=-1.0),
+                               torch.nan_to_num(b.float(), nan=-1.0)):
+                fail(f"{label}: {key} differs between the card and the cpu")
+        # the outcome tracker: the matured tuples and counters exactly the cpu's
+        go, co = run["outcomes"], cpu["outcomes"]
+        for k in ("matured_set", "registered", "matured", "truncated", "evictions", "open"):
+            if go[k] != co[k]:
+                fail(f"{label}: outcome {k} differs from the cpu engine's: "
+                     f"{str(go[k])[:200]} vs {str(co[k])[:200]}")
+        return err
+
+    numeric_err = hold(gpu, "pipelined drive")
+    for r in rounds:
+        numeric_err = max(numeric_err, hold(r["depth2_double"], "depth 2 double"))
+    go = gpu["outcomes"]
     horizons = sorted({t[3] for t in go["matured_set"]})
     if horizons != [1, 4, 16] or not go["evictions"] or go["truncated"]:
         fail(f"pipelined drive: matured horizons {horizons} (expected 1, 4, 16: 96 bars need "
@@ -1572,6 +1641,12 @@ def check_pipelined(m5, m15) -> dict:
                 "peak_above_resident_bytes": max(above),
             }
         t["crash_tick_ms"] = [r["call_ms"][-1] for r in runs]
+        t["fresh_slots_after_first_tick"] = [r["fresh_slots"][-1] - r["fresh_slots"][0]
+                                             for r in runs]
+        t["large_allocs_per_live_tick_p50"] = _p(
+            [r["large_allocs"][i] for r in runs for i in live], 50)
+        t["slots_pooled"] = [r["spare_slots"] for r in runs]
+        t["pool_bytes"] = [r["spare_bytes"] for r in runs]
         timing[label] = t
     # the main run, alone on the card: its own peak device memory
     peak_alone = {
@@ -1587,7 +1662,7 @@ def check_pipelined(m5, m15) -> dict:
         "outcomes": {k: go[k] for k in ("registered", "matured", "truncated", "evictions", "open")}
         | {"matured_horizons": horizons, "maturation_host_ms_p50": maturation},
     }
-    d1, d0, dn = (timing[k] for k in configs)
+    d1, d0, dn, dd, dc = (timing[k] for k in configs)
     mib = 2 ** 20
 
     def kinds(d, key, scale=1.0):
@@ -1613,6 +1688,25 @@ def check_pipelined(m5, m15) -> dict:
         f"depth 0 copying {kinds(d0, 'peak_above_resident_bytes', mib)} MiB, without digests "
         f"{kinds(dn, 'peak_above_resident_bytes', mib)} MiB; depth 1 alone on the card: "
         f"{peak_alone['incremental'] / mib:.1f}/{peak_alone['full'] / mib:.1f} MiB"
+    )
+    print(
+        f"[slice pipelined] depth 2 (the same ticks, in the same turns): double-buffered rings "
+        f"(each tick writes a recycled slot) routing, fired sets, both digest blocks, drift "
+        f"verdicts, outcomes and rings equal to the cpu engine's in both rounds, the crash "
+        f"tick's fallback from its own post rings; incremental/full tick p50 ms double "
+        f"{kinds(dd, 'tick_p50_ms')} (p99 {kinds(dd, 'tick_p99_ms')}), copying "
+        f"{kinds(dc, 'tick_p50_ms')} (p99 {kinds(dc, 'tick_p99_ms')}), depth 1 in place "
+        f"{kinds(d1, 'tick_p50_ms')}; peak device memory above the resident state (the pool "
+        f"included in it), incremental/full: double {kinds(dd, 'peak_above_resident_bytes', mib)}"
+        f" MiB, copying {kinds(dc, 'peak_above_resident_bytes', mib)} MiB, depth 1 in place "
+        f"{kinds(d1, 'peak_above_resident_bytes', mib)} MiB; fresh slot allocations after the "
+        f"first tick, per round: double {dd['fresh_slots_after_first_tick']}; large-pool "
+        f"allocations per live tick p50 (the caching allocator's requests over 1 MiB): double "
+        f"{dd['large_allocs_per_live_tick_p50']:.0f}, copying "
+        f"{dc['large_allocs_per_live_tick_p50']:.0f}, depth 1 in place "
+        f"{d1['large_allocs_per_live_tick_p50']:.0f}, depth 0 copying "
+        f"{d0['large_allocs_per_live_tick_p50']:.0f}; slots pooled at the end, per round: "
+        f"double {dd['slots_pooled']} ({dd['pool_bytes'][0] / mib:.1f} MiB)"
     )
     print(
         f"[slice pipelined] outcomes: registered {go['registered']}, matured {go['matured']} "
@@ -1724,7 +1818,7 @@ def service_drive(device: str, m5: dict, m15: dict, first: int, ckpt_path, symbo
     folds would take minutes)."""
     import torch
 
-    from binquant_tpu_torch.io.checkpoint import CheckpointManager
+    from binquant_tpu_torch.io.checkpoint import CheckpointManager, save_state_sharded
     from binquant_tpu_torch.io.replay import StubSession, delivered_tuples, make_stub_engine
     from binquant_tpu_torch.ops import quantile_tail as qt
     from binquant_tpu_torch.regime.context import ContextConfig
@@ -1746,6 +1840,7 @@ def service_drive(device: str, m5: dict, m15: dict, first: int, ckpt_path, symbo
     if out["restored"] != restore:
         fail(f"service drive on {device}: try_restore gave {out['restored']}, expected {restore}")
     out["restore_ms"] = engine.checkpoint.last_restore_ms
+    out["restored_leaves"] = _archive_leaves_cpu(engine.state) if restore else None
     now_ms = (T_LIVE0 + 900 * first) * 1000
     loaded = engine.backfill(symbols(), make_fetch(m5, m15, W + first), now_ms=now_ms,
                              chunk=chunk)
@@ -1793,7 +1888,18 @@ def service_drive(device: str, m5: dict, m15: dict, first: int, ckpt_path, symbo
             if n == keep_at:
                 kept = Path(str(ckpt_path) + f".tick{n}")
                 shutil.copy(ckpt_path, kept)
-                out["kept"] = (kept, copy.deepcopy(engine.at_consumer.all_symbols))
+                # the same state once more, at 4 shards and monolithic, each
+                # save timed alone
+                kept4 = Path(str(ckpt_path) + f".tick{n}.x4")
+                save_ms = {}
+                with engine.hold_state("the sharded save"):
+                    for shards, target in ((4, kept4), (1, Path(str(kept) + ".x1"))):
+                        t_save = time.perf_counter()
+                        save_state_sharded(target, engine.state, engine.registry, shards,
+                                           host_carries=engine.host_carries())
+                        save_ms[shards] = (time.perf_counter() - t_save) * 1000.0
+                out["kept"] = (kept, kept4, copy.deepcopy(engine.at_consumer.all_symbols),
+                               save_ms)
         task.cancel()
         try:
             await task
@@ -1813,6 +1919,60 @@ def service_drive(device: str, m5: dict, m15: dict, first: int, ckpt_path, symbo
                for name in ("buf5", "buf15") for f in ("times", "values", "filled")},
         canonical=_canonical_rings(engine.state),
     )
+    return out
+
+
+def _archive_leaves_cpu(state) -> list:
+    """A state's checkpoint leaves (rings canonical), on the host."""
+    from binquant_tpu_torch.engine.step import canonicalize_state
+    from binquant_tpu_torch.io.checkpoint import _archive_leaves
+
+    return [t.cpu() for t in _archive_leaves(canonicalize_state(state))]
+
+
+def _leaves_equal(a: list, b: list) -> bool:
+    """Two lists of host leaves, bit for bit (float32 compared as int32)."""
+    import torch
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(bits(x), bits(y))
+        for x, y in zip(a, b))
+
+
+def restore_next_tick(archive, m5: dict, m15: dict, symbols_list) -> dict:
+    """A fresh production card engine restores ``archive`` (a monolithic
+    archive or a sharded set's manifest) and runs the next live tick
+    without a top-up and without an audit (the restored carry advances):
+    restore ms, the restored leaves, the tick's path, wire and fired
+    tuples."""
+    from binquant_tpu_torch.io.checkpoint import CheckpointManager
+    from binquant_tpu_torch.io.replay import StubSession, make_stub_engine, signal_tuples
+    from binquant_tpu_torch.regime.context import ContextConfig
+
+    engine = make_stub_engine(
+        capacity=S, window=W, context_config=ContextConfig(), device="cuda", incremental=True,
+        carry_audit_every=0, all_symbols=symbols_list,
+        session=StubSession({"schedule": service_breadth()[SERVICE_EVERY:]}),
+        **OBS_OFF, **FANOUT_OFF,
+    )
+    mgr = CheckpointManager(archive)
+    out = {"restored": mgr.try_restore(engine)}
+    out["restore_ms"], out["leaves"] = mgr.last_restore_ms, _archive_leaves_cpu(engine.state)
+    now_ms, klines = live_ticks_of(m5, m15, SERVICE_TICKS)[SERVICE_EVERY]
+
+    async def run() -> list:
+        for k in klines:
+            engine.ingest(k)
+        fired = await engine.process_tick(now_ms=now_ms)
+        fired += await engine.flush_pending()
+        await engine.aclose_delivery(drain_s=0.0)
+        return signal_tuples(fired)
+
+    out["fired"] = asyncio.run(run())
+    out.update(path=engine.last_path, wire=engine.last_wire.copy())
     return out
 
 
@@ -1869,11 +2029,13 @@ def _carries_match(a: dict, b: dict) -> bool:
 
 def check_service(m5, m15) -> dict:
     """Boot A on the card: no archive, backfill, SERVICE_TICKS live ticks
-    through the consume loop (checkpoints at ticks 8 and 16; the archive of
-    tick 8 kept). Boot B on the card: restore tick 8's archive, backfill
-    again (the top-up: bars the archive holds are written again), live
-    ticks 9..16. The CPU engine runs boot A's stream at depth 0 with copied
-    rings."""
+    through the consume loop (checkpoints at ticks 8 and 16; tick 8's
+    archive kept, and its state saved again at 4 shards and monolithic).
+    Boot B on the card: restore tick 8's 4-shard set, backfill again (the
+    top-up: bars the archive holds are written again), live ticks 9..16.
+    Fresh card engines restore the monolithic archive and the 4-shard set
+    and run the next tick. The CPU engine runs boot A's stream at depth 0
+    with copied rings."""
     import torch
 
     from binquant_tpu_torch.ops import quantile_tail as qt
@@ -1886,14 +2048,22 @@ def check_service(m5, m15) -> dict:
         qt.reset_launches()  # launches made elsewhere do not count
         a = service_drive("cuda", m5, m15, 0, tmp / "a.npz", sym_a, production=True,
                           restore=False, keep_at=SERVICE_EVERY)
-        kept, sym_b = a["kept"]
-        # the restart's top-up in one flush, as A's backfill (the rings it
-        # leaves are the same at any cadence; the production flush of every
-        # 50 symbols is timed by --cold-boot and its folds by --fold-ab)
-        b = service_drive("cuda", m5, m15, SERVICE_EVERY, kept, sym_b, production=True,
-                          restore=True)
+        kept, kept4, sym_b, shard_save_ms = a["kept"]
+        # the restart from the 4-shard set of tick 8's state; its top-up in
+        # one flush, as A's backfill (the rings it leaves are the same at any
+        # cadence; the production flush of every 50 symbols is timed by
+        # --cold-boot and its folds by --fold-ab)
+        b_path = tmp / "b.npz"  # boot B saves into its own path: kept4 stays as saved
+        for f in tmp.glob(kept4.name + "*"):
+            shutil.copy(f, tmp / f.name.replace(kept4.name, b_path.name))
+        b = service_drive("cuda", m5, m15, SERVICE_EVERY, b_path, copy.deepcopy(sym_b),
+                          production=True, restore=True)
         launches = dict(qt.launches_by_site)  # read just after the card drives
         n_launches = qt.launches
+        # the monolithic archive and the 4-shard set of one state, each
+        # restored into a fresh card engine that runs the next tick
+        restores = {n: restore_next_tick(path, m5, m15, copy.deepcopy(sym_b))
+                    for n, path in ((1, kept), (4, kept4))}
         cpu = service_drive("cpu", m5, m15, 0, tmp / "cpu.npz", sym_cpu, production=False,
                             restore=False)
     want_a = ["cold_start"] + ["audit" if t == SERVICE_EVERY else "incremental"
@@ -1931,6 +2101,19 @@ def check_service(m5, m15) -> dict:
             if not torch.equal(torch.nan_to_num(v.float(), nan=-1.0),
                                torch.nan_to_num(other.float(), nan=-1.0)):
                 fail(f"service: ring {k} differs between boot A and {label}")
+    one, four = restores[1], restores[4]
+    if not (one["restored"] and four["restored"]):
+        fail(f"service: fresh restores gave {one['restored']} (monolithic), "
+             f"{four['restored']} (4 shards)")
+    if not (_leaves_equal(one["leaves"], four["leaves"])
+            and _leaves_equal(four["leaves"], b["restored_leaves"])):
+        fail("service: the leaves restored from the 4-shard set differ from the monolithic "
+             "archive's (or from boot B's)")
+    if not (one["path"] == four["path"] == "incremental" and one["fired"] == four["fired"]
+            and np.array_equal(one["wire"], four["wire"], equal_nan=True)):
+        fail(f"service: the next tick after a 4-shard restore ({four['path']}, "
+             f"{len(four['fired'])} signals) differs from the monolithic restore's "
+             f"({one['path']}, {len(one['fired'])})")
     n_digests = sum(len(d) for d in a["digests"])
     n_puts = sum(len(p) for p in a["puts"])
     if n_digests < 2 or n_puts == 0:
@@ -1956,6 +2139,10 @@ def check_service(m5, m15) -> dict:
                                 for k, r in (("A", a), ("B", b), ("cpu", cpu))},
         "save_ms": {"A": a["saves_ms"], "B": b["saves_ms"]},
         "restore_ms": b["restore_ms"],
+        "sharded": {"save_ms": shard_save_ms,
+                    "restore_ms": {1: one["restore_ms"], 4: four["restore_ms"],
+                                   "B (4)": b["restore_ms"]},
+                    "next_tick": {"path": four["path"], "signals": len(four["fired"])}},
         "state_bytes": a["state_bytes"],
         "first_tick_ms": {"A": a["tick_ms"][0], "B": b["tick_ms"][0], "cpu": cpu["tick_ms"][0]},
         "tick_ms": {"A": a["tick_ms"], "B": b["tick_ms"]},
@@ -1984,6 +2171,15 @@ def check_service(m5, m15) -> dict:
         f"over {len(a['calibration_ms'])} runs; {n_digests} digests {result['digest_events']}, "
         f"{n_puts} leverage PUTs, {len(fired)} signals, all equal to the cpu engine's; "
         f"qtail launches {n_launches} {launches}; wire max abs err vs cpu {err:.3g}"
+    )
+    print(
+        f"[slice service] sharded archives: tick {SERVICE_EVERY}'s state saved at 4 shards in "
+        f"{shard_save_ms[4]:.1f} ms and monolithic in {shard_save_ms[1]:.1f} ms; boot B "
+        f"restored the 4-shard set in {b['restore_ms']:.1f} ms (its ticks 9-16 equal to boot "
+        f"A's bit for bit, above); fresh card engines restored the monolithic archive in "
+        f"{one['restore_ms']:.1f} ms and the 4-shard set in {four['restore_ms']:.1f} ms, every "
+        f"leaf bit-equal (and to boot B's), and ran the next tick ({four['path']}, "
+        f"{len(four['fired'])} signals) to the same wire bit for bit"
     )
     return result
 
@@ -3596,7 +3792,7 @@ def check_fanout(m5, m15, card: str = "cuda") -> dict:
     from binquant_tpu_torch.engine.step import STRATEGY_ORDER
     from binquant_tpu_torch.fanout.kernel import unpack_slots
     from binquant_tpu_torch.fanout.registry import SubscriptionRegistry, _SlotRecord
-    from binquant_tpu_torch.fanout.snapshot import load_snapshot
+    from binquant_tpu_torch.fanout.snapshot import load_snapshot, save_snapshot
     from binquant_tpu_torch.io.checkpoint import CheckpointManager
     from binquant_tpu_torch.io.replay import make_stub_engine
     from binquant_tpu_torch.obs.events import EventLog, set_event_log
@@ -3630,7 +3826,7 @@ def check_fanout(m5, m15, card: str = "cuda") -> dict:
         plane = engine.fanout
         # -- a second card engine boots from the last archive and its sidecar
         paths = {k: str(tmp / f"card.{k}") for k in ("outbox.jsonl", "fanout.npz", "ckpt.npz")}
-        archive, _, meta = load_snapshot(paths["fanout.npz"])
+        archive, columns, meta = load_snapshot(paths["fanout.npz"])
         boot = make_stub_engine(
             capacity=S, window=W, context_config=ContextConfig(), device=card, delivery=False,
             fanout=True, fanout_overrides=dict(fanout_outbox_path=paths["outbox.jsonl"],
@@ -3645,6 +3841,28 @@ def check_fanout(m5, m15, card: str = "cuda") -> dict:
         boot_planes = dict(zip(("sym_plane", "strat_plane", "regime_plane", "any_masks",
                                 "floors"), boot.fanout._device.host_planes()))
         boot_words = boot.fanout.match([s for s, _, _ in crash["signals"]], crash["ctx"])
+        boot_replays = {key: cursor_replay(boot.fanout, *key)
+                        for key in replay_keys(main["records"])}
+        # -- once more with the outbox in 4 partitions and the snapshot in 4
+        # shards: the archive re-saved as a 4-shard set; the partitions fold
+        # the single-file log in, read-only
+        snap4 = tmp / "card.fanout4.npz"
+        save_snapshot(snap4, archive, columns, meta, n_shards=4)
+        boot4 = make_stub_engine(
+            capacity=S, window=W, context_config=ContextConfig(), device=card, delivery=False,
+            fanout=True, fanout_overrides=dict(
+                fanout_outbox_path=paths["outbox.jsonl"], fanout_snapshot_path=str(snap4),
+                fanout_outbox_shards=4, fanout_snapshot_shards=4),
+            **OBS_OFF,
+        )
+        restored4 = {name: getattr(boot4.fanout.subscriptions, name).copy() for name in archive}
+        if not CheckpointManager(paths["ckpt.npz"]).try_restore(boot4):
+            fail("fanout: the sharded engine did not restore the last checkpoint")
+        boot4_kind = boot4.fanout.sync_device()
+        boot4_words = boot4.fanout.match([s for s, _, _ in crash["signals"]], crash["ctx"])
+        boot4_replays = {key: cursor_replay(boot4.fanout, *key) for key in boot_replays}
+        boot4_outbox = (type(boot4.fanout.outbox).__name__, boot4.fanout.outbox_shards)
+        del boot4
         # the crash tick's match again, warm (in the drive it was the first
         # match of its bucket: the allocator's first blocks of that size)
         sigs = [s for s, _, _ in crash["signals"]]
@@ -3794,6 +4012,17 @@ def check_fanout(m5, m15, card: str = "cuda") -> dict:
     if boot_kind != "full" or not all(
             np.array_equal(bw, w) for bw, (_, _, w) in zip(boot_words, crash["signals"])):
         fail("fanout: the restored engine's first match differs from the crash tick's")
+    # -- the sharded restart: the unsharded restart's recipient sets and replays
+    for name, arr in archive.items():
+        if not np.array_equal(restored4[name], arr):
+            fail(f"fanout: the {name} restored from the 4-shard snapshot differs")
+    if boot4_outbox != ("ShardedBroadcastOutbox", 4) or boot4_kind != "full" or not all(
+            np.array_equal(a, b) for a, b in zip(boot4_words, boot_words, strict=True)):
+        fail(f"fanout: the sharded restart ({boot4_outbox}, {boot4_kind} sync) matched "
+             "recipient sets other than the unsharded restart's")
+    if boot4_replays != boot_replays or not any(boot_replays.values()):
+        bad = [k for k in boot_replays if boot4_replays[k] != boot_replays[k]]
+        fail(f"fanout: the sharded restart's cursor replays differ at {bad[:3]}")
 
     # -- numbers
     def ev(kind):
@@ -3824,6 +4053,9 @@ def check_fanout(m5, m15, card: str = "cuda") -> dict:
                                     "resume_fallbacks")},
         "stalled": {k: v for k, v in main["stalled"].items() if k not in ("want", "got")}
         | {"replayed": len(main["stalled"]["got"])},
+        "sharded_restart": {"replays": len(boot_replays),
+                            "frames_replayed": sum(len(v or ()) for v in boot_replays.values()),
+                            "restore_ms": ev("fanout_snapshot_restore")[-1:]},
         "snapshot_save_ms": ev("fanout_snapshot_save"),
         "snapshot_restore_ms": ev("fanout_snapshot_restore"),
         "compact_ms": ev("fanout_compact"), "bulk_load_ms": main["bulk_load_ms"],
@@ -3856,12 +4088,43 @@ def check_fanout(m5, m15, card: str = "cuda") -> dict:
     if lag:
         print(f"[slice fanout] fanout sink queue->ack lag p50 {_p(lag, 50):.2f} p99 "
               f"{_p(lag, 99):.2f} ms ({len(lag)} acks)")
+    print(f"[slice fanout] the restart once more with the outbox in 4 partitions and the "
+          f"snapshot in 4 shards: the crash tick's {len(boot_words)} recipient sets and "
+          f"{len(boot_replays)} cursor replays ({result['sharded_restart']['frames_replayed']} "
+          f"frames) equal to the unsharded restart's")
     print(f"[slice fanout] hub {result['hub']}; stalled consumer {result['stalled']}; "
           f"snapshot save ms {result['snapshot_save_ms']}, restore ms "
           f"{result['snapshot_restore_ms']}, compaction ms {result['compact_ms']}, "
           f"bulk load {main['bulk_load_ms']:.0f} ms, match_oracle ms/signal p50 "
           f"{_p(oracle_ms, 50):.1f}")
     return result
+
+
+def replay_keys(records: list) -> list:
+    """The (user, cursor) pairs a restart's replay is checked on: the
+    protected users, from the start of the log, from the middle fired
+    tick's first frame and from its trace cursor."""
+    frames = [f for r in records for _, f, _ in r["signals"]]
+    mid = frames[len(frames) // 2]
+    cursors = ["-1", str(int(mid["seq"]) - 1)]
+    if mid.get("trace_id"):
+        cursors.append(f"{mid['trace_id']}/{mid['tick_seq']}")
+    return [(user, c) for user in ("watch_ws", "watch_sse", "stalled") for c in cursors]
+
+
+def cursor_replay(plane, user: str, cursor: str) -> list | None:
+    """The frame seqs a reconnect of ``user`` with ``cursor`` replays from
+    the plane's outbox: the hub's outbox path (the slot's min-seq floor,
+    the excluded post-snapshot range)."""
+    slot = plane.subscriptions.slot_of(user)
+    entries = plane.outbox.entries()
+    seq = plane.outbox.resolve_cursor(cursor, entries=entries)
+    if slot is None or seq is None:
+        return None
+    seq = max(seq, plane.hub.min_seq_of(slot) - 1)
+    excl = plane.hub.replay_excluded
+    return [int(f["seq"]) for f in plane.outbox.replay_after(seq, slot, entries=entries)
+            if excl is None or not excl[0] <= int(f["seq"]) <= excl[1]]
 
 
 def timed_match(dev, rows, strats, scores, regime: int):
@@ -5414,13 +5677,107 @@ def profile_slice(m5, m15, cm5, cm15) -> dict:
     return result
 
 
+class Laps:
+    """Prints ``[time] <name>: <seconds since the last lap>``."""
+
+    def __init__(self) -> None:
+        self.t = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] {name}: {now - self.t:.1f} s", flush=True)
+        self.t = now
+
+
+def second_phases(lap: Laps) -> dict:
+    """Phases 3, 4, 9 and 10, the second process's share: their results by
+    slice, as the first process puts them in the slice line."""
+    m5, m15 = make_market(np.random.default_rng(SEED))
+    # phase 3: the classic and the incremental live paths
+    classic = check_classic(m5, m15)
+    serial_ref: dict = {}  # the serial incremental card drive, for phase 10
+    incremental = check_incremental(m5, m15, classic, keep=serial_ref)
+    lap("classic and incremental")
+    # phase 4: the dormant strategy set with the spike detector
+    dormant = check_dormant()
+    lap("dormant")
+    torch_empty_cache()
+    # phase 9: the subscription fan-out plane, on phase 5's market
+    cm5, cm15 = make_crash_market(np.random.default_rng(SEED + 1))
+    fanout = check_fanout(cm5, cm15)
+    lap("fanout")
+    torch_empty_cache()
+    # phase 10: the scanned drive (phase 3's market, then phase 5's crash)
+    # and the time-batched backtest with the sweep
+    scanned = check_scanned(m5, m15, serial_ref, cm5, cm15)
+    serial_ref.clear()
+    lap("scanned")
+    backtest = check_backtest()
+    lap("backtest")
+    return {
+        "classic": {k: v for k, v in classic.items()
+                    if k not in ("fired", "indicators", "tick_times")},
+        "incremental": incremental,
+        "dormant": dormant,
+        "fanout": {k: v for k, v in fanout.items() if k != "paths"},
+        "scanned": scanned,
+        "backtest": backtest,
+    }
+
+
+def _die_with_parent() -> None:
+    """Have the kernel kill this process when the process that started it
+    ends, however it ends; exit at once if it has ended already."""
+    import ctypes
+    import signal
+
+    parent = os.getppid()
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG
+    if os.getppid() != parent:
+        sys.exit(1)
+
+
+def start_second(out: Path) -> subprocess.Popen:
+    """Start ``chip_smoke.py --second out``: its standard output goes to
+    ``out.log``, its standard error to this process's, its temporary files
+    to a directory of its own under ``build/``."""
+    tmp = out.with_suffix(".tmp")
+    tmp.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, TMPDIR=str(tmp), PYTHONUNBUFFERED="1")
+    with open(out.with_suffix(".log"), "w") as log:
+        return subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--second", str(out)],
+            cwd=ROOT, env=env, stdout=log, stdin=subprocess.DEVNULL,
+        )
+
+
+def finish_second(proc: subprocess.Popen, out: Path, wait: bool) -> dict | None:
+    """The second process's results once it has ended (``wait``: until it
+    has), its log printed here; None while it runs. Fails if it failed."""
+    if not wait and proc.poll() is None:
+        return None
+    rc = proc.wait()
+    print(out.with_suffix(".log").read_text(), end="", flush=True)
+    if rc != 0:
+        fail(f"the second process (phases 3, 4, 9 and 10) exited with {rc}")
+    return json.loads(out.read_text())
+
+
 def main() -> int:
     if not (ROOT / "binquant_tpu_torch" / "csrc" / "qtail.cu").is_file():
         print("chip_smoke: run from a checkout holding binquant_tpu_torch/", file=sys.stderr)
         return 2
+    args = sys.argv[1:]
+    second = Path(args[args.index("--second") + 1]) if "--second" in args else None
+    if second is not None:
+        _die_with_parent()
     # the smoke needs one card: on a host with several, use the first only
     visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0")
     os.environ["CUDA_VISIBLE_DEVICES"] = visible.split(",")[0].strip()
+    # the two processes' CPU engines share the host's cores: their OpenMP
+    # threads sleep between parallel regions instead of spinning (read when
+    # torch loads its OpenMP runtime; the second process inherits it)
+    os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
     try:
         import torch
     except ImportError:
@@ -5437,91 +5794,80 @@ def main() -> int:
 
     # phase 1: build (one nvcc per kernel source; the port has one)
     t0 = time.perf_counter()
-    lib, compile_s = qt.build(verbose=True)
+    lib, compile_s = qt.build(verbose=second is None)
     print(f"[build] {lib.name}: nvcc {compile_s:.2f} s (set-up {time.perf_counter() - t0:.2f} s)")
-
-    def lap(name: str) -> None:
-        nonlocal t_phase
-        now = time.perf_counter()
-        print(f"[time] {name}: {now - t_phase:.1f} s")
-        t_phase = now
-
-    t_phase = t0
-    if "--cold-boot" in sys.argv[1:]:
+    lap = Laps()
+    lap.t = t0
+    if second is not None:
+        slices = second_phases(lap)
+        tmp = second.with_name(second.name + ".part")
+        tmp.write_text(json.dumps(slices))
+        tmp.replace(second)
+        return 0
+    if "--cold-boot" in args:
         print(json.dumps({"cold_boot": cold_boot()}))
         lap("cold boot")
         return 0
-    if "--fold-ab" in sys.argv[1:]:
+    if "--fold-ab" in args:
         cm5, cm15 = make_crash_market(np.random.default_rng(SEED + 1))
         print(json.dumps({"fold_ab": fold_ab(cm5, cm15)}))
         lap("fold A/B")
         return 0
-    # phase 2: kernel vs twin
+    # phase 2: kernel vs twin, alone on the card
     qreport = check_quantile_kernel()
     lap("build and kernel")
 
-    # phase 3: the classic and the incremental live paths
-    rng = np.random.default_rng(SEED)
-    m5, m15 = make_market(rng)
-    classic = check_classic(m5, m15)
-    serial_ref: dict = {}  # the serial incremental card drive, for phase 10
-    incremental = check_incremental(m5, m15, classic, keep=serial_ref)
-    lap("classic and incremental")
-    # phase 4: the dormant strategy set with the spike detector
-    dormant = check_dormant()
-    lap("dormant")
-    # phase 5: the production loop, on its own seeded market
-    cm5, cm15 = make_crash_market(np.random.default_rng(SEED + 1))
-    pipelined = check_pipelined(cm5, cm15)
-    lap("pipelined")
-    # phase 6: the service around the tick, on the same market's downtrend
-    service = check_service(cm5, cm15)
-    lap("service")
-    # phase 7: the delivery plane and the real sinks, on phase 5's market
-    delivery = check_delivery(cm5, cm15)
-    lap("delivery")
-    # phase 8: the tick's default observability, on phase 5's market
-    observability = check_observability(cm5, cm15)
-    lap("observability")
-    torch_empty_cache()
-    # phase 9: the subscription fan-out plane, on phase 5's market
-    fanout = check_fanout(cm5, cm15)
-    lap("fanout")
-    torch_empty_cache()
-    # phase 10: the scanned drive (phase 3's market, then phase 5's crash)
-    # and the time-batched backtest with the sweep
-    scanned = check_scanned(m5, m15, serial_ref, cm5, cm15)
-    serial_ref.clear()
-    lap("scanned")
-    backtest = check_backtest()
-    lap("backtest")
-    torch_empty_cache()
-    # phase 11: the port as a service, booted cold through run_live
-    live = check_live()
-    lap("live")
+    (ROOT / "build").mkdir(exist_ok=True)
+    parts = Path(tempfile.mkdtemp(prefix="chip_smoke.", dir=ROOT / "build"))
+    out = parts / "second.json"
+    proc = start_second(out)
+    try:
+        got = None
+        # phase 5: the production loop, on its own seeded market
+        cm5, cm15 = make_crash_market(np.random.default_rng(SEED + 1))
+        pipelined = check_pipelined(cm5, cm15)
+        lap("pipelined")
+        got = got or finish_second(proc, out, wait=False)
+        # phase 6: the service around the tick, on the same market's downtrend
+        service = check_service(cm5, cm15)
+        lap("service")
+        got = got or finish_second(proc, out, wait=False)
+        # phase 7: the delivery plane and the real sinks, on phase 5's market
+        delivery = check_delivery(cm5, cm15)
+        lap("delivery")
+        got = got or finish_second(proc, out, wait=False)
+        # phase 8: the tick's default observability, on phase 5's market
+        observability = check_observability(cm5, cm15)
+        lap("observability")
+        torch_empty_cache()
+        got = got or finish_second(proc, out, wait=False)
+        # phase 11: the port as a service, booted cold through run_live
+        live = check_live()
+        lap("live")
+        got = got or finish_second(proc, out, wait=True)
+        lap("the second process's end")
+        print(f"[time] all phases, both processes: {time.perf_counter() - t0:.1f} s")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(parts, ignore_errors=True)
     slices = {
-        "classic": {k: v for k, v in classic.items()
-                    if k not in ("fired", "indicators", "tick_times")},
-        "incremental": incremental,
-        "dormant": dormant,
+        **{k: got[k] for k in ("classic", "incremental", "dormant")},
         "pipelined": pipelined,
         "service": service,
         "delivery": delivery,
         "observability": {k: v for k, v in observability.items() if k != "paths"},
-        "fanout": {k: v for k, v in fanout.items() if k != "paths"},
-        "scanned": scanned,
-        "backtest": backtest,
+        **{k: got[k] for k in ("fanout", "scanned", "backtest")},
         "live": live,
     }
-    if "--profile" in sys.argv[1:]:
+    if "--profile" in args:
+        m5, m15 = make_market(np.random.default_rng(SEED))
         slices["profile"] = profile_slice(m5, m15, cm5, cm15)
 
     abp = qreport["abp"]
     by_site: dict[str, int] = {}
-    drives = {"classic": classic, "incremental": incremental, "dormant": dormant,
-              "pipelined": pipelined, "service": service, "delivery": delivery,
-              "observability": observability, "fanout": fanout, "scanned": scanned,
-              "backtest": backtest, "live": live}
+    drives = {k: v for k, v in slices.items() if k != "profile"}
     for run in drives.values():
         for k, v in run["launches_by_site"].items():
             by_site[k] = by_site.get(k, 0) + v

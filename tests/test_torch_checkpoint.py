@@ -23,7 +23,9 @@ between the packages.
 * Migrations and refusals: a v3 archive (zero cursors re-attached,
   identical next tick); a v2 archive (carry suffix dropped: the template's
   empty carry, ``_carry_rebuilt``, a ``cold_start`` first tick); a
-  capacity change and a sharded manifest start cold.
+  capacity change and a sharded manifest whose sibling is missing start
+  cold, a whole sharded set restores (the cross-package sharded archives
+  are in ``tests/test_torch_sharded.py``).
 * The open outcome registry survives a restart mid-horizon
   (``tests/test_outcomes.py:276``): the restored drive matures the set of
   the uninterrupted one, which equals the reference's.
@@ -265,6 +267,8 @@ def test_v2_archive_rebuilds_the_carry(seq, tmp_path):
 
 
 def test_shape_mismatch_and_sharded_manifest_start_cold(seq, tmp_path, caplog):
+    """A capacity change and a sharded manifest whose sibling is missing
+    start cold; a whole sharded set restores the saved state."""
     a = _port(**SERIAL)
     _drive(a, seq[:2])
     path = tmp_path / "small.ckpt.npz"
@@ -277,14 +281,24 @@ def test_shape_mismatch_and_sharded_manifest_start_cold(seq, tmp_path, caplog):
     with np.load(path) as data:
         arrays = {k: data[k] for k in data.files}
     meta = json.loads(bytes(arrays.pop("__meta").tobytes()).decode())
-    meta.update(shard_count=2, shard_index=0)
-    sharded = tmp_path / "sharded.ckpt.npz"
-    tckpt.atomic_savez(sharded, arrays, meta)
+    meta.update(shard_count=2, shard_index=0, symbol_leaves=[], nonce="0")
+    torn = tmp_path / "torn.ckpt.npz"
+    tckpt.atomic_savez(torn, arrays, meta)  # a manifest without its sibling
     d = _port(**SERIAL)
-    with pytest.raises(ValueError, match="A10"):
-        tckpt.load_state(sharded, d.state, d.registry)
-    assert not tckpt.CheckpointManager(sharded).try_restore(d)
-    assert d.ticks_processed == 0 and "A10" in caplog.text
+    with pytest.raises(ValueError, match="missing"):
+        tckpt.load_state(torn, d.state, d.registry)
+    assert not tckpt.CheckpointManager(torn).try_restore(d)
+    assert d.ticks_processed == 0 and "missing" in caplog.text
+
+    sharded = tmp_path / "sharded.ckpt.npz"
+    tckpt.save_state_sharded(sharded, a.state, a.registry, 2, host_carries=a.host_carries())
+    assert (tmp_path / "sharded.ckpt.npz.shard1-of-2").exists()
+    with pytest.raises(ValueError, match="non-manifest"):
+        tckpt.load_state(tmp_path / "sharded.ckpt.npz.shard1-of-2", d.state, d.registry)
+    assert tckpt.CheckpointManager(sharded).try_restore(d)
+    assert d.ticks_processed == a.ticks_processed == 2
+    assert d.registry.to_mapping() == a.registry.to_mapping()
+    _assert_leaves_equal(_canonical_leaves(a.state), _canonical_leaves(d.state))
 
 
 def test_open_outcome_registry_survives_mid_horizon(tmp_path):

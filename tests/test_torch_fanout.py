@@ -7,7 +7,8 @@ slots and fired buckets of 4, 8 and 16 (the no-row bucket, the
 invalid-regime row, NaN and ±inf scores, ``+inf`` floors), the delta
 scatter with its pads, both registries after one churn script (planes,
 floors, dirty cells, versions, ``export_columns``), snapshot archives
-crossing between the packages both ways and the rejections, and the hub
+crossing between the packages both ways and the rejections (the sharded
+sets are in ``tests/test_torch_sharded.py``), and the hub
 over real 127.0.0.1 sockets (WS and SSE delivery, the slow consumer's
 shed, cursor resume from the outbox and the tail ring, outbox rotation).
 The 1M-slot match is marked ``slow``.
@@ -388,7 +389,8 @@ def test_snapshot_archives_cross_between_the_packages(tmp_path):
 def test_snapshot_rejections_start_cold(tmp_path, monkeypatch):
     """The port's restore starts cold, never raises, on: a torn archive, a
     future layout version, a symbol capacity the engine does not have, and
-    the reference's sharded manifest (not ported); it refuses to write one."""
+    a sharded set with a sibling missing. The reference's sharded manifest
+    restores, the port writes one, and the plane partitions its outbox."""
     rows_map = {"BTCUSDT": 0, "ETHUSDT": 1}
     j, t = _planes(tmp_path, "snap.npz", rows_map)
     for plane, mod in ((j, jr), (t, tr)):
@@ -402,11 +404,13 @@ def test_snapshot_rejections_start_cold(tmp_path, monkeypatch):
         assert ok or len(plane.subscriptions) == 0
         return not ok
 
-    assert cold(j.snapshot_path)  # sharded: refused
-    with pytest.raises(ValueError, match="not ported"):
-        t.save_snapshot(n_shards=2)
-    with pytest.raises(ValueError, match="not ported"):
-        ts.load_snapshot(j.snapshot_path)
+    assert not cold(j.snapshot_path)  # sharded: restored
+    assert int(ts.load_snapshot(j.snapshot_path)[2]["shard_count"]) == 4
+    sharded = tmp_path / "t2.snap.npz"
+    assert t.save_snapshot(sharded, n_shards=2)["shard_count"] == 2
+    assert not cold(sharded)
+    (tmp_path / "t2.snap.npz.shard1-of-2").unlink()  # a torn roster
+    assert cold(sharded)
     assert not cold(t.snapshot_path)
     assert cold(t.snapshot_path, capacity=16)  # the engine's symbol axis grew
     monkeypatch.setattr(ts, "FANOUT_SNAP_VERSION", 99)
@@ -414,8 +418,9 @@ def test_snapshot_rejections_start_cold(tmp_path, monkeypatch):
     monkeypatch.undo()
     t.snapshot_path.write_bytes(t.snapshot_path.read_bytes()[:100])  # torn
     assert cold(t.snapshot_path)
-    with pytest.raises(ValueError, match="not ported"):
-        tp.FanoutPlane(_Rows(rows_map), outbox_shards=2, device="cpu")
+    part = tp.FanoutPlane(_Rows(rows_map), outbox_shards=2, device="cpu",
+                          outbox_path=str(tmp_path / "out.jsonl"))
+    assert isinstance(part.outbox, th.ShardedBroadcastOutbox) and part.outbox_shards == 2
 
 
 def test_snapshot_fingerprint_mismatch_refreshes_rows(tmp_path):

@@ -2,7 +2,8 @@
 pydantic, ``httpx`` only where a network client is built without a session
 or transport (and then only at its first request, but for the binbot
 client), ``websockets`` only where a connector is built without a
-connection factory, and no silent CPU fallback at its entry points. ``import torch``
+connection factory, ``urllib.request`` only in the AI report's default
+fetch, and no silent CPU fallback at its entry points. ``import torch``
 itself loads ``torch.profiler``, so the import check asserts instead that no
 profiler is created until a profiler window opens."""
 
@@ -43,6 +44,8 @@ def test_import_pulls_in_no_jax_and_no_reference_module():
         "import binquant_tpu_torch.backtest, binquant_tpu_torch.backtest.kernel\n"
         "import binquant_tpu_torch.backtest.driver\n"
         "import binquant_tpu_torch.__main__, binquant_tpu_torch.utils\n"
+        "import binquant_tpu_torch.parallel, binquant_tpu_torch.parallel.mesh\n"
+        "import binquant_tpu_torch.strategies.binance_report_ai\n"
         "import asyncio\n"
         "import torch.profiler\n"
         "made = []\n"
@@ -107,6 +110,8 @@ def test_sources_import_no_jax_and_no_reference_package():
     assert {PKG / "backtest" / f for f in ("__init__.py", "kernel.py", "driver.py")} <= set(files)
     assert {PKG / "__main__.py", PKG / "io" / "websocket.py", PKG / "io" / "exchanges.py"} <= set(
         files)
+    assert {PKG / "parallel" / "__init__.py", PKG / "parallel" / "mesh.py",
+            PKG / "strategies" / "binance_report_ai.py"} <= set(files)
     for path in files:
         roots = _imported_roots(path)
         assert not roots & {"jax", "jaxlib", "binquant_tpu", "pydantic"}, (path, roots)
@@ -118,6 +123,23 @@ def test_sources_import_no_jax_and_no_reference_package():
             elif isinstance(node, ast.ImportFrom) and node.module:
                 top.add(node.module.split(".")[0])
         assert not top & {"websockets", "httpx"}, (path, top)
+
+
+def test_report_ai_reaches_the_network_only_in_its_default_fetch():
+    """``strategies/binance_report_ai.py`` imports ``urllib`` only inside
+    ``default_fetch``, the one function that POSTs to the endpoint."""
+    path = PKG / "strategies" / "binance_report_ai.py"
+    tree = ast.parse(path.read_text())
+    holders = [
+        node.name for node in ast.walk(tree)
+        if isinstance(node, ast.FunctionDef)
+        and any(isinstance(n, ast.Import) and any(a.name.startswith("urllib") for a in n.names)
+                for n in ast.walk(node))
+    ]
+    assert holders == ["default_fetch"]
+    top = {a.name.split(".")[0] for node in tree.body if isinstance(node, ast.Import)
+           for a in node.names}
+    assert "urllib" not in top
 
 
 def test_websockets_is_imported_only_where_no_connect_is_given():

@@ -9,8 +9,14 @@ in-place rings ask for:
   the in-flight tick at once, so the next call has nothing of it;
   ``flush_pending`` emits the last tick; the whole replay emits the serial
   loop's signal tuples in the same order. Depth 0 returns each tick's
-  signals from its own call; depth 2 runs the copying step and emits the
-  same set.
+  signals from its own call; depth 2 emits the same set through the copying
+  step (``donate`` off) and the double-buffered one (on).
+* Depth >= 2 on double-buffered rings: no slot shares a storage with the
+  live rings, an in-flight tick's rings or another slot; the overflow
+  drill emits the copying set; a cold reset retires the pooled slots; the
+  pool keeps at most four; under light load (a flush after every tick) the
+  parked slots are reused, one slot allocated in all; a failed dispatch
+  drops its slot and keeps the live state.
 * The overflow drill (``generate_burst_replay``: a market-wide crash fires
   MeanReversionFade on more rows than the wire's 128 compaction slots): at
   depth 1 with rings in place the fallback re-evaluates from the post-tick
@@ -117,22 +123,40 @@ def test_depth1_defers_one_tick_emit_ready_and_flush(seq, serial):
 
 
 def test_depth2_runs_the_copying_step_and_emits_the_serial_set(seq, serial):
-    engine = treplay.make_stub_engine(capacity=CAP, window=WIN, device="cpu", pipeline_depth=2)
-    assert engine.donate and engine._donation_mode() is None
-    run = _drive(engine, seq)
-    assert run["returned"][0] == [] and run["returned"][1] == []
-    got = {t for r in run["returned"] for t in _tuples(r)} | set(_tuples(run["tail"]))
-    assert got == set(serial[1]) and engine.inplace_ticks == 0
+    """Depth 2 without ``donate`` runs the copying step; with it (the
+    default) the double-buffered step: every tick writes a recycled ring
+    slot, one slot is allocated on the first tick and none after. Both emit
+    the serial set, two ticks late."""
+    for donate, mode in ((False, None), (True, "double")):
+        engine = treplay.make_stub_engine(capacity=CAP, window=WIN, device="cpu",
+                                          pipeline_depth=2, donate=donate)
+        assert engine._donation_mode() == mode
+        run = _drive(engine, seq)
+        assert run["returned"][0] == [] and run["returned"][1] == []
+        got = {t for r in run["returned"] for t in _tuples(r)} | set(_tuples(run["tail"]))
+        assert got == set(serial[1])
+        assert engine.inplace_ticks == (len(seq) if donate else 0)
+        assert engine.fresh_slots == (1 if donate else 0) and engine.state_resets == 0
 
 
-def test_overflow_fallback_in_place_emits_the_copying_set(tmp_path):
-    n_symbols = 130
-    assert n_symbols > tstep.WIRE_MAX_FIRED
-    path = tmp_path / "burst.jsonl"
-    treplay.generate_burst_replay(path, n_symbols=n_symbols, n_ticks=108)
-    kw = dict(capacity=136, window=110, device="cpu")
+BURST_SYMBOLS = 130
+BURST_KW = dict(capacity=136, window=110, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def burst(tmp_path_factory):
+    """The overflow drill's replay and the copying serial loop's run of it."""
+    assert BURST_SYMBOLS > tstep.WIRE_MAX_FIRED
+    path = tmp_path_factory.mktemp("torch_burst") / "burst.jsonl"
+    treplay.generate_burst_replay(path, n_symbols=BURST_SYMBOLS, n_ticks=108)
     copying: list = []
-    cstats = treplay.run_replay(path, collect=copying, **kw, **SERIAL)
+    cstats = treplay.run_replay(path, collect=copying, **BURST_KW, **SERIAL)
+    return path, copying, cstats
+
+
+def test_overflow_fallback_in_place_emits_the_copying_set(burst):
+    path, copying, cstats = burst
+    n_symbols, kw = BURST_SYMBOLS, BURST_KW
     inplace: list = []
     istats = treplay.run_replay(path, collect=inplace, **kw)
     assert cstats["overflow_ticks"] == istats["overflow_ticks"] == 1
@@ -198,3 +222,171 @@ def test_failure_before_any_inplace_write_keeps_the_state(seq, monkeypatch):
     assert engine.state is st and engine.state_resets == 0
     assert [p._version for p in planes] == versions
     assert int(st.buf15.filled.max()) == 3
+
+
+# -- depth >= 2: the double-buffered rotation ---------------------------------------
+
+
+def _storages(slot) -> set[int]:
+    return tstep.slot_storages(slot)
+
+
+def test_depth2_slots_never_alias_the_live_or_in_flight_rings(seq):
+    """After every call at depth 2 the live rings, each in-flight tick's
+    post rings and every pooled slot use storages of their own (checked by
+    ``data_ptr`` of each plane's storage); the fallback of each in-flight
+    tick holds its own post rings, not the live ones."""
+    engine = treplay.make_stub_engine(capacity=CAP, window=WIN, device="cpu", pipeline_depth=2)
+
+    async def go():
+        for tick_ms, klines in seq[:40]:
+            for kl in klines:
+                engine.ingest(kl)
+            await engine.process_tick(now_ms=tick_ms)
+            live = _storages(tstep.ring_slot_of(engine.state))
+            assert len(live) == 4
+            # the newest in-flight tick's post rings ARE the live rings
+            *older, newest = engine._pending
+            assert _storages(newest.spare[0]) == live
+            groups = [live] + [_storages(p.spare[0]) for p in older]
+            groups += [_storages(s) for s in engine._spare_slots]
+            flat = [ptr for g in groups for ptr in g]
+            assert len(flat) == len(set(flat))
+            assert len(engine._spare_slots) <= engine._spare_slots_max
+        await engine.flush_pending()
+
+    asyncio.run(go())
+    assert engine.fresh_slots == 1 and engine.inplace_ticks == 40
+
+
+def test_depth2_overflow_fallback_emits_the_copying_set(burst):
+    """A >128-fire crash at depth 2 overflows the wire: the fallback of the
+    in-flight crash tick re-evaluates from its own post rings (a later tick
+    has replaced the live state by then) and emits the copying serial
+    loop's set."""
+    path, copying, cstats = burst
+    double: list = []
+    dstats = treplay.run_replay(path, collect=double, pipeline_depth=2, **BURST_KW)
+    assert cstats["overflow_ticks"] == dstats["overflow_ticks"] == 1
+    assert dstats["inplace_ticks"] == 108 and dstats["state_resets"] == 0
+    assert len(copying) >= BURST_SYMBOLS
+    assert sorted(double) == sorted(copying)
+
+
+def test_cold_reset_invalidates_pooled_slots(seq, monkeypatch):
+    """A cold reset retires the lineage: the pool and the parking slot
+    empty, the generation moves on, and the in-flight ticks of the old
+    lineage pool nothing when they finalize."""
+    engine = treplay.make_stub_engine(capacity=CAP, window=WIN, device="cpu", pipeline_depth=2)
+    _warm(engine, seq, 6)
+    asyncio.run(engine.emit_ready())  # the oldest tick's post rings: pooled
+    assert len(engine._spare_slots) == 1 and len(engine._pending) == 1
+    gen = engine._state_generation
+    engine.recover_if_state_poisoned()  # a healthy state: nothing happens
+    assert engine._state_generation == gen
+    monkeypatch.setattr(torch.Tensor, "cpu", lambda self: (_ for _ in ()).throw(RuntimeError()))
+    engine.recover_if_state_poisoned()
+    monkeypatch.undo()
+    assert engine.state_resets == 1 and engine._state_generation == gen + 1
+    assert engine._spare_slots == [] and engine._deferred_spare is None
+    asyncio.run(engine.flush_pending())
+    # the finalized tick was of the old lineage: nothing pooled or parked
+    assert engine._spare_slots == [] and engine._deferred_spare is None
+    fresh = engine.fresh_slots
+    _tick(engine, seq, 6)
+    assert engine.last_path == "cold_start" and engine.fresh_slots == fresh + 1
+
+
+def test_the_pool_never_exceeds_four(seq):
+    """A deep pipeline's flush finalizes many ticks at once; the pool keeps
+    at most four slots (the rest are freed), as the reference's does."""
+    engine = treplay.make_stub_engine(capacity=CAP, window=WIN, device="cpu", pipeline_depth=7)
+    _warm(engine, seq, 12)
+    assert len(engine._pending) == 7
+    pooled: list = []
+    pool = engine._pool_slot
+
+    def spy(slot):
+        pooled.append(slot)
+        pool(slot)
+
+    engine._pool_slot = spy
+    asyncio.run(engine.flush_pending())
+    # six of the seven post states are free at the flush, the last is live
+    assert len(pooled) == 6 and len(engine._spare_slots) == 4
+    assert engine._deferred_spare is not None
+
+
+def test_light_load_reuses_parked_slots(seq):
+    """A flush after every tick (light load: each tick finalizes before the
+    next dispatch) parks the finalized post rings, which are still the live
+    ones; the next dispatch pools them and a later one takes them back, so
+    only the first tick allocates a slot."""
+    engine = treplay.make_stub_engine(capacity=CAP, window=WIN, device="cpu", pipeline_depth=2)
+    taken: list = []
+    take = engine._take_slot
+
+    def spy(live):
+        slot = take(live)
+        taken.append(_storages(slot))
+        return slot
+
+    engine._take_slot = spy
+    parked: list = []
+
+    async def go():
+        for tick_ms, klines in seq[:12]:
+            for kl in klines:
+                engine.ingest(kl)
+            await engine.process_tick(now_ms=tick_ms)
+            await engine.flush_pending()
+            assert engine._deferred_spare is not None
+            parked.append(_storages(engine._deferred_spare[0]))
+
+    asyncio.run(go())
+    assert engine.fresh_slots == 1
+    # from the third tick on, each tick writes the rings parked two ticks ago
+    for k in range(2, 12):
+        assert taken[k] == parked[k - 2], k
+
+
+def test_double_failure_drops_the_slot_and_keeps_the_state(seq, monkeypatch):
+    """A dispatch that raises after writing its slot drops the slot and
+    keeps the live state, unwritten; no reset is counted and the next tick
+    runs on."""
+    engine = treplay.make_stub_engine(capacity=CAP, window=WIN, device="cpu", pipeline_depth=2)
+    _warm(engine, seq, 4)
+    live = engine.state
+    planes = list(tstep.ring_slot_of(live))
+    versions = [p._version for p in planes]
+    before = [p.clone() for p in planes]
+    taken: list = []
+    take = engine._take_slot
+
+    def spy(live_):
+        slot = take(live_)
+        taken.append(slot)
+        return slot
+
+    engine._take_slot = spy
+
+    def device_fault(*args, **kwargs):
+        raise RuntimeError("device fault after the scatter")
+
+    # the step has scattered the tick into the slot when the context fails
+    monkeypatch.setattr(tstep, "compute_market_context", device_fault)
+    with pytest.raises(RuntimeError, match="device fault"):
+        _tick(engine, seq, 4)
+    monkeypatch.undo()
+    assert engine.state is live and engine.state_resets == 0
+    assert [p._version for p in planes] == versions
+    for a, b in zip(before, planes):
+        assert torch.equal(torch.nan_to_num(a.float(), nan=-1.0),
+                           torch.nan_to_num(b.float(), nan=-1.0))
+    # the slot was written (copied into, then scattered) and is not pooled
+    slot_versions = [p._version for p in taken[0]]
+    assert all(v > 0 for v in slot_versions)
+    dropped = _storages(taken[0])
+    assert all(not dropped & _storages(s) for s in engine._spare_slots)
+    _tick(engine, seq, 5)
+    assert engine.inplace_ticks == 5 and not _storages(taken[1]) & dropped

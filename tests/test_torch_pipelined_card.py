@@ -23,7 +23,10 @@ serial engine on the CPU (depth 0, copied rings, the same flags). Contract:
   digest block's counts exactly and its floats within ``rtol=1e-4,
   atol=1e-5`` (NaN where NaN); each audit's drift has the same
   ``compared`` counts and alarm verdicts;
-* the rings are equal bit for bit after the drive.
+* the rings are equal bit for bit after the drive;
+* at depth 2 on double-buffered rings the card engine launches as at depth
+  1, emits the CPU's set (the crash tick's fallback from its own post
+  rings), ends with the CPU's rings and allocates one ring slot in all.
 """
 
 from __future__ import annotations
@@ -82,11 +85,15 @@ def _drive(device: str, seq, **serial) -> dict:
 
 
 @pytest.fixture(scope="module")
-def drives(tmp_path_factory):
+def seq(tmp_path_factory):
     _card()
     path = tmp_path_factory.mktemp("pipelined_card") / "burst.jsonl"
     treplay.generate_burst_replay(path, n_symbols=SYMBOLS, n_ticks=TICKS)
-    seq = treplay.tick_seq(path)
+    return treplay.tick_seq(path)
+
+
+@pytest.fixture(scope="module")
+def drives(seq):
     gpu = _drive("cuda", seq)
     cpu = _drive("cpu", seq, pipeline_depth=0, donate=False)
     return gpu, cpu
@@ -156,3 +163,21 @@ def test_rings_match_cpu(drives):
         for f in ("times", "values", "filled", "cursor"):
             a, b = getattr(getattr(sg, ring), f).cpu(), getattr(getattr(sc, ring), f)
             assert torch.equal(a.nan_to_num(nan=-1.0), b.nan_to_num(nan=-1.0)), (ring, f)
+
+
+@pytest.mark.cuda
+def test_depth2_double_buffered_rings_match_cpu(seq, drives):
+    gpu, cpu = drives
+    d2 = _drive("cuda", seq, pipeline_depth=2)
+    eng = d2["engine"]
+    assert eng._donation_mode() == "double"
+    assert d2["paths"] == cpu["paths"] and d2["sites"] == gpu["sites"]
+    assert eng.inplace_ticks == TICKS and eng.state_resets == 0 and eng.fresh_slots == 1
+    assert eng.overflow_ticks == 1 and sorted(d2["fired"]) == sorted(cpu["fired"])
+    for ring in ("buf5", "buf15"):
+        for f in ("times", "values", "filled", "cursor"):
+            a = getattr(getattr(eng.state, ring), f).cpu()
+            b = getattr(getattr(cpu["engine"].state, ring), f)
+            assert torch.equal(a.nan_to_num(nan=-1.0), b.nan_to_num(nan=-1.0)), (ring, f)
+    live = tstep.slot_storages(tstep.ring_slot_of(eng.state))
+    assert all(not live & tstep.slot_storages(slot) for slot in eng._spare_slots)
