@@ -21,8 +21,9 @@ does, in the same order, with nothing of the JAX package:
 12. the consume loop beside the open-interest refresh.
 
 Offline modes, without network: ``--replay FILE`` (the serial drive, or
-``--scanned``), ``--backtest`` (the time-batched backend), with
-``main.py``'s argument checks; ``--replay-report`` is accepted as there,
+``--scanned``), ``--backtest`` (the time-batched backend), ``--scenario
+NAME|all|list`` (the scenario corpus and the chaos drills,
+``sim/runner.py``), with ``main.py``'s argument checks; ``--replay-report`` is accepted as there,
 and the run's statistics are printed either way. ``--device`` (``cuda`` by
 default) picks the card; without one the command fails, and it runs on the
 CPU only when asked (``--device cpu``). The settings are ``Config``'s,
@@ -273,6 +274,15 @@ def build_parser() -> argparse.ArgumentParser:
         "emitted signal set is the serial full-recompute drive's",
     )
     parser.add_argument(
+        "--scenario",
+        help="run the adversarial scenario engine: a scenario name from "
+        "binquant_tpu_torch/sim, 'all' for the whole corpus and the three "
+        "chaos drills, or 'list'. Each scenario is driven scanned AND serial "
+        "and through the full-recompute oracle, with signal-set equality, the "
+        "pinned corpus and the graceful-degradation invariants asserted; "
+        "verdicts also land in the event log (BQT_EVENT_LOG)",
+    )
+    parser.add_argument(
         "--device",
         default="cuda",
         help="the torch device to run on (default cuda; the command fails "
@@ -284,6 +294,18 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.scenario:
+        if args.replay or args.scanned or args.backtest:
+            parser.error(
+                "--scenario runs the sim corpus on its own drives (serial "
+                "+ scanned + full-oracle); combining it with --replay/"
+                "--scanned/--backtest would be silently ignored"
+            )
+        from binquant_tpu_torch.config import Config
+        from binquant_tpu_torch.sim.runner import main_cli
+
+        install_event_log(Config().event_log)
+        return main_cli(args.scenario, device=args.device)
     if args.scanned and not args.replay:
         parser.error("--scanned requires --replay")
     if args.backtest and (not args.replay or args.scanned):

@@ -636,6 +636,9 @@ class SignalEngine:
         self.heartbeat_write_failures = 0
         self._hb_consecutive_failures = 0
         self._hb_last_warn = float("-inf")
+        # the websocket tracker /healthz reads: None reads the module's
+        # (the one the live connectors feed); a drill sets its own
+        self.ws_health = None
         # -- the tick's observability (see the module docstring)
         self.latency = LatencyTracker()
         cfg = self.config
@@ -2499,7 +2502,7 @@ class SignalEngine:
             status = "degraded" if self._hb_consecutive_failures else "ok"
         else:
             status = "stale"
-        ws = WS_HEALTH.snapshot()
+        ws = (self.ws_health or WS_HEALTH).snapshot()
         if status == "ok" and ws["storming"]:
             status = "degraded"
         ingest = self.ingest_monitor.snapshot()

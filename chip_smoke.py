@@ -17,7 +17,10 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    backtest's ``abp_core_batch`` shapes — the default 16-tick chunk's
    2048x176 (K=52), a 32-tick chunk's 2048x224 (K=100) and the sweep's
    first chunk, which holds the warm tick's 400 bars, 2048x573 (K=449, the
-   block kernel) — and at a short ``W < L+K-1`` input.
+   block kernel) — at a short ``W < L+K-1`` input and at phase 12's
+   32-row shapes (the corpus's and the soak's 32x120 tail; the soak's
+   ``abp_core_batch`` chunks, 32x168 (K=52) on its 16-tick chunks, 32x159
+   (K=43) and 32x207 (K=91) on its two other chunk shapes).
    Time the kernel on the device (200 wrapper calls captured in one CUDA
    graph, replayed between two events), the host-issued call loop, the
    card's launch floor (the same graph at S=1, K=1, L=1), the twin and a
@@ -260,18 +263,51 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    cold boot in parts (backfill seconds, boot to ready, the first tick's
    queue-to-emitted ms), frames parsed per second, the incremental tick's
    p50 through the connector and the open-interest requests per sweep.
-12. Print the kernels line, the card's name and power limit, and the result.
+12. Drive the scenario engine, the chaos drills and the production-day
+   soak (``[slice scenarios]``, ``sim/`` and ``soak/``), on the card only:
+   the references are the pinned corpus (the JAX engine's own signal sets,
+   ``tests/fixtures/scenario_signals.json``) and the drills' own oracles.
+   A: ``rewrite_storm`` at S symbols and W bars (its 112 ticks, seed 29,
+   chunks of 32) through ``run_spec``: serial incremental, scanned and
+   serial classic, the three fired sets equal, routing exactly
+   {cold_start, rewrite} with rewrite >= 6 and equal between the serial
+   and the scanned drive, every check of the runner green (zero crash-ring
+   entries, dedupe, heartbeat, outcome parity, numeric health) but the
+   overflow script, which at this width is counted: the scanned drive
+   overflows, and re-drives, on the serial drive's overflowing ticks. It
+   prints the seconds to generate and to parse the stream, each drive's
+   tick p50/p99 and ms per scanned chunk, and its peak device memory above
+   what its engine held once built (the copies each qtail call leaves for
+   the twin are kept in host memory, so the peak holds none of them). B: ``run_corpus(include_slow=False,
+   chaos=True)``: the 11 scenarios at their own shapes, three drives each
+   with every check of the runner, every signal set equal to its pinned
+   set but for flips inside ``declared_gate_margins()`` (counted and
+   printed; a flip only the pins hold fails: the card has no payload to
+   judge it by), then the websocket, delivery and fan-out chaos drills,
+   each ok. C: ``soak_drill(full=False)``: the verdict ok, every fault
+   window attributed and none vacuous, zero autotrade loss and no
+   duplicate ack across the kill, the resumed signals equal to the
+   oracle's; it prints the victim's wall time and the close→ack p99 per
+   sink. In all three, every serial tick's qtail launches by site are what
+   its path makes (:func:`scenario_tick_sites`: 1 at ``abp_core`` a
+   classic tick, 2 a full tick of an incremental engine, none an
+   incremental tick, doubled plus ``detect_spikes`` on an overflow), the
+   launches sum to the part's (the soak's ext-parity backtests aside), and
+   each is held against the twin: as many twin checks as launches.
+13. Print the kernels line, the card's name and power limit, and the result.
 
 The drives are host-bound (the card is idle most of a tick), so after
-phase 2 the phases run in two processes on the one card at once: this one
-runs phases 5-8 and 11, a second one (``--second PATH``, started by this
-one and killed with it) runs phases 3, 4, 9 and 10 and writes their
-results to PATH, its standard output to ``PATH.log`` (printed here when
-it ends). Each process zeroes and reads its own launch counts around each
-of its drives; the kernels line sums both. Host times of either process
-are taken while the other runs. Both run OpenMP with
-``OMP_WAIT_POLICY=PASSIVE`` (unless set): the CPU engines' threads sleep
-between parallel regions instead of spinning on the shared cores.
+phase 2 the phases run in three processes on the one card at once: this
+one runs phases 5-8 and 11, a second one (``--second PATH``) phases 3, 4,
+9 and 10 and phase 12's part C, a third one (``--third PATH``) phase 12's
+parts A and B; each is started by this
+one and killed with it, writes its results to PATH and its standard
+output to ``PATH.log`` (printed here when it ends). Each process zeroes
+and reads its own launch counts around each of its drives; the kernels
+line sums all three. Host times of any process are taken while the others
+run. All run OpenMP with ``OMP_WAIT_POLICY=PASSIVE`` (unless set): the
+CPU engines' threads sleep between parallel regions instead of spinning
+on the shared cores.
 
 Phase 5 times five card configurations (depth 1 in place; depth 0
 copying; depth 0 copying without the digests and the meter; depth 2 on
@@ -437,6 +473,13 @@ def check_quantile_kernel() -> dict:
         ("abp_batch", S, 224, 80, 100, 0.92, 20),
         ("abp_batch_warm", S, BT_WARM_QTAIL[0], 80, BT_WARM_QTAIL[1], 0.92, 20),
         ("short_input", 64, 60, 80, 4, 0.92, 20),
+        # phase 12's corpus, drills and soak (32 rows, a 120-bar window):
+        # abp_core and abp_init_from_window, then abp_core_batch on the
+        # soak's backtest chunks: its 16-tick ones and its two others
+        ("scn_abp", 32, 120, 80, 4, 0.92, 20),
+        ("scn_batch16", 32, 168, 80, 52, 0.92, 20),
+        ("scn_batch43", 32, 159, 80, 43, 0.92, 20),
+        ("scn_batch91", 32, 207, 80, 91, 0.92, 20),
     ]
     # the card's launch floor: the same graph method on the least work
     one = torch.zeros((1, 1), dtype=torch.float32, device="cuda")
@@ -4509,13 +4552,15 @@ def check_scanned(m5, m15, serial: dict, cm5, cm15, card: str = "cuda") -> dict:
 
 
 @contextlib.contextmanager
-def _twin_checked(checks: list):
+def _twin_checked(checks: list, on_host: bool = False):
     """Hold every qtail call ActivityBurstPump and the spike detector make
     inside the block against the twin on the same input, bit for bit, once
-    the block has ended: each call's input and output are cloned on the
-    device as it is made (so a timed drive carries two copies a call and no
-    twin), and ``checks`` gets one ``(site, shape, num_out, equal)`` entry a
-    call."""
+    the block has ended: each call's input and output are cloned as it is
+    made (so a timed drive carries two copies a call and no twin), and
+    ``checks`` gets one ``(site, shape, num_out, equal)`` entry a call. The
+    copies stay on the device, or with ``on_host`` go to pinned host memory
+    by an asynchronous copy on the compute stream, so that the device memory
+    a drive reports holds none of them."""
     import torch
 
     from binquant_tpu_torch.ops import quantile_tail as qt
@@ -4525,9 +4570,14 @@ def _twin_checked(checks: list):
     real = qt.rolling_quantile_tail
     saved: list = []
 
+    def keep(t):
+        if on_host and t.is_cuda:
+            return t.to("cpu", non_blocking=True)  # pinned, ordered after the launch
+        return t.clone()
+
     def checked(x, window, q, num_out=1, min_periods=None, site="direct"):
         out = real(x, window, q, num_out=num_out, min_periods=min_periods, site=site)
-        saved.append((site, x.clone(), window, q, num_out, min_periods, out.clone()))
+        saved.append((site, x.device, keep(x), window, q, num_out, min_periods, keep(out)))
         return out
 
     mods = (abp_mod, spike_mod)
@@ -4538,7 +4588,10 @@ def _twin_checked(checks: list):
     finally:
         for mod in mods:
             mod.rolling_quantile_tail = real
-    for site, x, window, q, num_out, mp, out in saved:
+    if on_host and torch.cuda.is_available():
+        torch.cuda.synchronize()
+    for site, dev, x, window, q, num_out, mp, out in saved:
+        x, out = x.to(dev), out.to(dev)
         twin = qt.rolling_quantile_tail_reference(x, window, q, num_out, mp)
         a = torch.nan_to_num(out, nan=-9e9).view(torch.int32)
         b = torch.nan_to_num(twin, nan=-9e9).view(torch.int32)
@@ -5547,6 +5600,427 @@ def check_live(card: str = "cuda") -> dict:
     return result
 
 
+# -- phase 12: the scenario engine, the chaos drills and the soak ----------
+
+SCN_WIDE = "rewrite_storm"  # part A's family, at S symbols and W bars
+
+
+def scenario_tick_sites(incremental: bool, path: str, overflowed: bool) -> dict:
+    """qtail calls by site one serial tick of a corpus engine makes: 1 at
+    ``abp_core`` on a classic engine; on an incremental engine 2 on a full
+    tick (``abp_core`` and ``abp_init_from_window``: cold start, rewrite,
+    churn, audit, a restore) and none on an incremental one. An overflowed
+    tick's fallback re-runs the tick's path evaluating every strategy, so
+    its calls are doubled and the spike detector's added."""
+    if not incremental:
+        want = {"abp_core": 1}
+    elif path == "incremental":
+        want = {}
+    else:
+        want = {"abp_core": 1, "abp_init_from_window": 1}
+    if overflowed:
+        want = {k: 2 * v for k, v in want.items()}
+        want["detect_spikes"] = 1
+    return want
+
+
+class CorpusRecorder:
+    """Records every engine ``sim.runner.corpus_engine`` builds while it is
+    installed (the corpus drives, the drills and the soak build theirs
+    there): per serial tick (``process_tick``, which every serial tick, a
+    chunk-breaking one and an overflow re-drive go through) its time, path,
+    overflow and qtail calls by site; per scanned chunk its ms and calls;
+    the indicators of every fired signal; the peak device memory of each
+    ``drive_scenario`` above what was allocated once its engine was built;
+    and the seconds ``write_scenario_file`` and ``tick_seq`` took."""
+
+    def __init__(self, cuda: bool) -> None:
+        self.cuda = cuda
+        self.engines: list[dict] = []
+        self.drives: list[dict] = []
+        self.gen_s: list[float] = []
+        self.parse_s: list[float] = []
+        self.indicators: dict = {}
+
+    def _sync(self) -> None:
+        if self.cuda:
+            import torch
+
+            torch.cuda.synchronize()
+
+    def __enter__(self) -> "CorpusRecorder":
+        from binquant_tpu_torch.sim import runner
+
+        self._saved = {k: getattr(runner, k) for k in (
+            "corpus_engine", "drive_scenario", "write_scenario_file", "tick_seq")}
+        saved = self._saved
+
+        def build(**knobs):
+            import torch
+
+            engine = saved["corpus_engine"](**knobs)
+            rec = {"incremental": engine.incremental, "ticks": [], "chunks": [],
+                   "base": None}
+            self._wrap(engine, rec)
+            if self.cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                rec["base"] = torch.cuda.memory_allocated()
+            self.engines.append(rec)
+            return engine
+
+        def drive_scenario(scenario, path, *, scanned, incremental, device="cuda"):
+            import torch
+
+            t0 = time.perf_counter()
+            out = saved["drive_scenario"](scenario, path, scanned=scanned,
+                                          incremental=incremental, device=device)
+            self._sync()
+            rec = self.engines[-1]
+            self.drives.append({
+                "drive": "scanned" if scanned else ("serial" if incremental else "classic"),
+                "engine": rec, "wall_s": time.perf_counter() - t0,
+                "peak_above_bytes": (torch.cuda.max_memory_allocated() - rec["base"])
+                if self.cuda else None,
+            })
+            return out
+
+        def timed(name, sink):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = saved[name](*args, **kwargs)
+                sink.append(time.perf_counter() - t0)
+                return out
+            return call
+
+        runner.corpus_engine = build
+        runner.drive_scenario = drive_scenario
+        runner.write_scenario_file = timed("write_scenario_file", self.gen_s)
+        runner.tick_seq = timed("tick_seq", self.parse_s)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from binquant_tpu_torch.sim import runner
+
+        for k, v in self._saved.items():
+            setattr(runner, k, v)
+
+    def _wrap(self, engine, rec: dict) -> None:
+        from binquant_tpu_torch.io.replay import signal_tuples
+
+        process_tick, flush = engine.process_tick, engine._flush_scan_plan
+
+        def keep(fired) -> None:
+            for sig, tup in zip(fired, signal_tuples(fired)):
+                self.indicators[tup] = sig.analytics.get("indicators") or {}
+
+        async def tick(now_ms=None):
+            self._sync()
+            before, overflows = _qtail_sites(self.cuda), engine.overflow_ticks
+            t0 = time.perf_counter()
+            fired = await process_tick(now_ms=now_ms)
+            self._sync()
+            rec["ticks"].append({
+                "now_ms": now_ms, "ms": (time.perf_counter() - t0) * 1000.0,
+                "path": engine.last_path, "overflowed": engine.overflow_ticks > overflows,
+                "sites": _sites_since(before, self.cuda),
+            })
+            keep(fired)
+            return fired
+
+        async def chunk(plan):
+            self._sync()
+            before = _qtail_sites(self.cuda)
+            t0 = time.perf_counter()
+            fired = await flush(plan)
+            self._sync()
+            rec["chunks"].append({"ticks": len(plan["ticks"]),
+                                  "ms": (time.perf_counter() - t0) * 1000.0,
+                                  "sites": _sites_since(before, self.cuda)})
+            keep(fired)
+            return fired
+
+        engine.process_tick = tick
+        engine._flush_scan_plan = chunk
+
+
+def _add_sites(total: dict, sites: dict) -> dict:
+    for k, v in sites.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def check_corpus_launches(rec: CorpusRecorder, label: str) -> dict:
+    """Every recorded serial tick made exactly the qtail calls
+    :func:`scenario_tick_sites` gives for its path; a scanned chunk makes
+    none of its own (its overflow re-drive's ticks are serial ticks).
+    Returns the calls by site over the recorded ticks."""
+    total: dict = {}
+    for e in rec.engines:
+        for t in e["ticks"]:
+            want = scenario_tick_sites(e["incremental"], t["path"], t["overflowed"])
+            if t["sites"] != want:
+                fail(f"{label}: a {t['path']} tick (overflowed {t['overflowed']}) made qtail "
+                     f"calls {t['sites']}, expected {want}")
+            _add_sites(total, t["sites"])
+    return total
+
+
+def _flip_report(name: str, got: list, pinned: list, indicators: dict) -> tuple[int, list]:
+    """Signals the card's set and the pinned set disagree on: (flips inside
+    the declared gate margins, the others). A flip the card fired is judged
+    by its payload's gated indicator; one only the pins hold has no card
+    payload and counts as outside."""
+    from binquant_tpu_torch.strategies.params import declared_gate_margins
+
+    margins = declared_gate_margins()
+    inside, outside = 0, []
+    for f in sorted(set(map(tuple, got)) ^ set(map(tuple, pinned))):
+        ind = indicators.get(tuple(f))
+        side = "the card" if ind is not None else "the pins"
+        print(f"[slice scenarios] {name}: flip {f} held by {side} only, gated indicators "
+              f"{{rsi: {(ind or {}).get('rsi')}, mfi: {(ind or {}).get('mfi')}}}")
+        if ind is not None and _gated_flip_ok(tuple(f), ind, margins):
+            inside += 1
+        else:
+            outside.append(tuple(f))
+    return inside, outside
+
+
+def _tick_stats(ticks: list) -> dict:
+    ms = [t["ms"] for t in ticks]
+    return {"ticks": len(ms), "p50_ms": _p(ms, 50) if ms else None,
+            "p99_ms": _p(ms, 99) if ms else None}
+
+
+def scenario_wide(card: str, workdir: Path) -> dict:
+    """Part A: ``rewrite_storm`` at S symbols and W bars (its own 112 ticks,
+    seed 29, chunks of 32) through ``run_spec``: the three drives' fired
+    sets equal, routing exactly {cold_start, rewrite} with rewrite >= 6 and
+    equal between the serial and the scanned drive, every invariant of the
+    runner green but the overflow script, which at this width is counted:
+    the scanned drive must overflow on the serial drive's overflowing ticks,
+    re-driving them. qtail calls per tick by path; each held against the
+    twin."""
+    import dataclasses
+
+    from binquant_tpu_torch.ops import quantile_tail as qt
+    from binquant_tpu_torch.sim import runner
+    from binquant_tpu_torch.sim.scenarios import SCENARIOS, Scenario
+
+    cuda = card == "cuda"
+    base = SCENARIOS[SCN_WIDE]
+    spec = dataclasses.replace(base.spec, n_symbols=S, capacity=S, window=W)
+    checks: list = []
+    qt.reset_launches()
+    with CorpusRecorder(cuda) as rec, _twin_checked(checks, on_host=True):
+        verdict = runner.run_spec(Scenario(spec=spec, build=base.build), workdir, device=card)
+    launches = qt.launches
+    by_site = _qtail_sites(cuda)
+    failed = sorted(k for k, v in verdict["checks"].items() if not v and k != "overflow_script")
+    if failed:
+        fail(f"[slice scenarios] {SCN_WIDE} at S={S} W={W}: checks failed: {failed}")
+    routing = verdict["routing"]
+    if set(routing) != {"cold_start", "rewrite"} or routing["rewrite"] < 6:
+        fail(f"[slice scenarios] {SCN_WIDE}: routing {routing}")
+    drives = {d["drive"]: d for d in rec.drives}
+    serial, scanned = drives["serial"]["engine"], drives["scanned"]["engine"]
+    over = {k: sorted(t["now_ms"] for t in d["engine"]["ticks"] if t["overflowed"])
+            for k, d in drives.items()}
+    if over["scanned"] != over["serial"]:
+        fail(f"[slice scenarios] {SCN_WIDE}: overflowing ticks, serial {over['serial']} vs the "
+             f"scanned drive's re-drives {over['scanned']}")
+    recorded = check_corpus_launches(rec, f"[slice scenarios] {SCN_WIDE}")
+    if recorded != by_site:
+        fail(f"[slice scenarios] {SCN_WIDE}: qtail calls {by_site}, the ticks' own {recorded}")
+    if cuda and (not checks or len(checks) != launches) or not all(eq for *_, eq in checks):
+        fail(f"[slice scenarios] {SCN_WIDE}: {launches} qtail launches, {len(checks)} held "
+             f"against the twin, {sum(not eq for *_, eq in checks)} differing")
+    per_drive = {}
+    for k, d in drives.items():
+        e = d["engine"]
+        sites: dict = {}
+        for t in e["ticks"]:
+            _add_sites(sites, t["sites"])
+        full = [t for t in e["ticks"] if t["path"] != "incremental"]
+        incr = [t for t in e["ticks"] if t["path"] == "incremental"]
+        per_drive[k] = {
+            "wall_s": d["wall_s"], "serial_ticks": _tick_stats(e["ticks"]),
+            "full_ticks": _tick_stats(full), "incremental_ticks": _tick_stats(incr),
+            "chunk_ms": [c["ms"] for c in e["chunks"]],
+            "chunk_ticks": [c["ticks"] for c in e["chunks"]],
+            "overflow_ticks": len(over[k]), "peak_above_bytes": d["peak_above_bytes"],
+            "launches_by_site": sites,
+        }
+    result = {
+        "launches": launches, "launches_by_site": by_site, "twin_checked": len(checks),
+        "signals": verdict["signals"], "routing": routing, "lines": verdict["lines"],
+        "gen_s": rec.gen_s, "parse_s": rec.parse_s, "drives": per_drive,
+        "checks": verdict["checks"],
+    }
+    sd = per_drive
+    print(f"[slice scenarios] {SCN_WIDE} at S={S} W={W}: {verdict['lines']} lines generated in "
+          f"{rec.gen_s[0]:.1f} s, parsed in {[round(x, 1) for x in rec.parse_s]} s (one per "
+          f"drive); {verdict['signals']} signals, the three fired sets equal; routing {routing} "
+          f"(serial = scanned); overflow ticks serial/scanned/classic "
+          f"{[sd[k]['overflow_ticks'] for k in ('serial', 'scanned', 'classic')]} (each re-driven "
+          f"by the scanned drive); every runner check green but the overflow script")
+    for k in ("serial", "scanned", "classic"):
+        d = sd[k]
+        print(f"[slice scenarios]   {k}: {d['wall_s']:.1f} s; serial ticks {d['serial_ticks']}; "
+              f"full {d['full_ticks']['p50_ms']}, incremental {d['incremental_ticks']['p50_ms']} "
+              f"ms p50; chunks {d['chunk_ticks']} in {[round(x, 1) for x in d['chunk_ms']]} ms; "
+              f"peak above the resident state {_mib(d['peak_above_bytes'])} MiB; qtail "
+              f"{d['launches_by_site']}")
+    print(f"[slice scenarios]   qtail {launches} launches {by_site}, each equal to its twin "
+          f"({len(checks)} checked)")
+    return result
+
+
+def scenario_corpus(card: str, workdir: Path) -> dict:
+    """Part B: the corpus at its own shapes (``run_corpus(include_slow=False,
+    chaos=True)``): every scenario's checks green and its signal set equal
+    to its pinned set but for flips inside the declared gate margins
+    (counted, printed); the three drills ok."""
+    from binquant_tpu_torch.ops import quantile_tail as qt
+    from binquant_tpu_torch.sim import runner
+
+    cuda = card == "cuda"
+    pinned = runner.load_pinned()
+    if pinned is None:
+        fail("[slice scenarios] the pinned corpus tests/fixtures/scenario_signals.json is missing")
+    checks: list = []
+    qt.reset_launches()
+    t0 = time.perf_counter()
+    with CorpusRecorder(cuda) as rec, _twin_checked(checks, on_host=True):
+        verdicts = runner.run_corpus(include_slow=False, chaos=True, workdir=workdir,
+                                     device=card)
+    wall = time.perf_counter() - t0
+    launches, by_site = qt.launches, _qtail_sites(cuda)
+    recorded = check_corpus_launches(rec, "[slice scenarios] corpus")
+    if recorded != by_site:
+        fail(f"[slice scenarios] corpus: qtail calls {by_site}, the ticks' own {recorded}")
+    if cuda and (not checks or len(checks) != launches) or not all(eq for *_, eq in checks):
+        fail(f"[slice scenarios] corpus: {launches} qtail launches, {len(checks)} held against "
+             f"the twin, {sum(not eq for *_, eq in checks)} differing")
+    flips_inside = 0
+    rows = []
+    for v in verdicts:
+        print(f"[slice scenarios] {runner.render_verdict(v)}")
+        name = v["scenario"]
+        if "signal_set" in v:
+            inside, outside = _flip_report(name, v["signal_set"], pinned[name]["signals"],
+                                           rec.indicators)
+            flips_inside += inside
+            if outside:
+                fail(f"[slice scenarios] {name}: signal set differs from the pins outside the "
+                     f"declared gate margins: {outside}")
+            failed = sorted(k for k, ok in v["checks"].items()
+                            if not ok and not (k == "pinned_signal_set" and inside))
+        else:
+            print(f"[slice scenarios]   {name} checks {v['checks']}")
+            failed = sorted(k for k, ok in v["checks"].items() if not ok)
+        if failed:
+            fail(f"[slice scenarios] {name}: checks failed: {failed}")
+        rows.append({k: v.get(k) for k in ("scenario", "ok", "signals", "ticks", "routing")})
+    result = {"launches": launches, "launches_by_site": by_site, "twin_checked": len(checks),
+              "wall_s": wall, "flips_inside_margins": flips_inside, "runs": rows,
+              "drive_wall_s": [round(d["wall_s"], 2) for d in rec.drives]}
+    print(f"[slice scenarios] corpus: {len(verdicts) - 3} scenarios x 3 drives and 3 drills in "
+          f"{wall:.1f} s, every signal set equal to its pins ({flips_inside} flips inside the "
+          f"gate margins); qtail {launches} launches {by_site}, each equal to its twin")
+    return result
+
+
+def scenario_soak(card: str, workdir: Path) -> dict:
+    """Part C: ``soak_drill(full=False)``: the verdict ok, every fault
+    window attributed and none vacuous, zero autotrade loss and no
+    duplicate ack across the kill, the resumed run's signals equal to the
+    oracle's. Prints the victim's wall time and the close→ack p99 per
+    sink."""
+    from binquant_tpu_torch.ops import quantile_tail as qt
+    from binquant_tpu_torch.soak import drill
+
+    cuda = card == "cuda"
+    checks: list = []
+    qt.reset_launches()
+    ext_sites: dict = {}
+    ext = drill._ext_parity
+
+    def counted_ext(*args, **kwargs):
+        before = _qtail_sites(cuda)
+        out = ext(*args, **kwargs)
+        _add_sites(ext_sites, _sites_since(before, cuda))
+        return out
+
+    drill._ext_parity = counted_ext
+    try:
+        with CorpusRecorder(cuda) as rec, _twin_checked(checks, on_host=True):
+            facts = drill.soak_drill(workdir=str(workdir), full=False, device=card)
+    finally:
+        drill._ext_parity = ext
+    launches, by_site = qt.launches, _qtail_sites(cuda)
+    recorded = check_corpus_launches(rec, "[slice scenarios] soak")
+    if _add_sites(dict(recorded), ext_sites) != by_site:
+        fail(f"[slice scenarios] soak: qtail calls {by_site}, the ticks' own {recorded} and the "
+             f"ext-parity backtests' {ext_sites}")
+    if cuda and (not checks or len(checks) != launches) or not all(eq for *_, eq in checks):
+        fail(f"[slice scenarios] soak: {launches} qtail launches, {len(checks)} held against "
+             f"the twin, {sum(not eq for *_, eq in checks)} differing")
+    verdict = facts["verdict"]
+    vacuous = verdict["non_vacuity_failures"]
+    untripped = [f["name"] for f in verdict["faults"] if not f["non_vacuous"]]
+    if not facts["ok"] or not verdict["ok"] or vacuous or untripped or verdict["unattributed"]:
+        fail(f"[slice scenarios] soak: ok {facts['ok']}, verdict {verdict['ok']}, checks "
+             f"{facts['checks']}, vacuous {vacuous}, unattributed {verdict['unattributed']}, "
+             f"burning {verdict['burning_at_end']}")
+    for k in ("zero_loss", "zero_duplicate", "signal_parity", "kill_left_unacked_wal",
+              "wal_replayed"):
+        if not facts["checks"][k]:
+            fail(f"[slice scenarios] soak: {k} failed")
+    result = {
+        "launches": launches, "launches_by_site": by_site, "twin_checked": len(checks),
+        "ext_parity_sites": ext_sites, "checks": facts["checks"],
+        "victim_wall_s": facts["victim_wall_s"], "resumed_wall_s": facts["resumed_wall_s"],
+        "victim_p99_ms": facts["victim_p99"], "resumed_p99_ms": facts.get("resumed_p99"),
+        "episodes": len(verdict["episodes"]), "faults": len(verdict["faults"]),
+        "unacked_at_kill": facts["unacked_at_kill"], "wal_replayed": facts["wal_replayed"],
+        "candles_per_s": facts["candles_per_s"],
+    }
+    print(f"[slice scenarios] soak: verdict ok, {len(verdict['faults'])} fault windows all "
+          f"attributed and non-vacuous, {len(verdict['episodes'])} episodes; zero autotrade loss, "
+          f"no duplicate ack across the kill ({facts['unacked_at_kill']} unacked at the kill, "
+          f"{facts['wal_replayed']} replayed); the resumed signals equal the oracle's; victim "
+          f"{facts['victim_wall_s']:.1f} s, resumed {facts['resumed_wall_s']:.1f} s; close→ack "
+          f"p99 ms victim {facts['victim_p99']}, resumed {facts.get('resumed_p99')}; qtail "
+          f"{launches} launches {by_site} (the ext-parity backtests {ext_sites}), each equal to "
+          f"its twin")
+    return result
+
+
+SCENARIO_PARTS = {"wide": scenario_wide, "corpus": scenario_corpus, "soak": scenario_soak}
+
+
+def check_scenarios(names: tuple, card: str = "cuda") -> dict:
+    """Phase 12 (``[slice scenarios]``): the named parts of A (``wide``), B
+    (``corpus``) and C (``soak``), in a temporary directory of their own.
+    Returns their results, the launches summed."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    parts = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for name in names:
+            t0 = time.perf_counter()
+            parts[name] = SCENARIO_PARTS[name](card, Path(tmp) / name)
+            parts[name]["seconds"] = time.perf_counter() - t0
+            shutil.rmtree(Path(tmp) / name, ignore_errors=True)
+            torch_empty_cache()
+    by_site: dict = {}
+    for p in parts.values():
+        _add_sites(by_site, p["launches_by_site"])
+    return {"launches": sum(p["launches"] for p in parts.values()), "launches_by_site": by_site,
+            **parts}
+
+
 def cold_boot(card: str = "cuda") -> dict:
     """``--cold-boot``: the time to the first signal after a cold boot of
     the service as a user starts it, the backfill at the production flush
@@ -5714,6 +6188,11 @@ def second_phases(lap: Laps) -> dict:
     lap("scanned")
     backtest = check_backtest()
     lap("backtest")
+    torch_empty_cache()
+    # phase 12's part C: here, where the two other processes' shares of the
+    # smoke leave the most room
+    soak = check_scenarios(("soak",))
+    lap("scenarios: soak")
     return {
         "classic": {k: v for k, v in classic.items()
                     if k not in ("fired", "indicators", "tick_times")},
@@ -5722,6 +6201,7 @@ def second_phases(lap: Laps) -> dict:
         "fanout": {k: v for k, v in fanout.items() if k != "paths"},
         "scanned": scanned,
         "backtest": backtest,
+        "scenario_soak": soak,
     }
 
 
@@ -5737,8 +6217,22 @@ def _die_with_parent() -> None:
         sys.exit(1)
 
 
-def start_second(out: Path) -> subprocess.Popen:
-    """Start ``chip_smoke.py --second out``: its standard output goes to
+def scenario_phases(lap: Laps) -> dict:
+    """Phase 12's parts A and B, the third process's share."""
+    scenarios = check_scenarios(("wide", "corpus"))
+    lap("scenarios: wide and corpus")
+    return {"scenarios": scenarios}
+
+
+# the processes main starts beside itself: flag -> (the phases it runs, their names)
+PARTS = {
+    "--second": (second_phases, "phases 3, 4, 9, 10 and 12 C"),
+    "--third": (scenario_phases, "phase 12 A and B"),
+}
+
+
+def start_part(flag: str, out: Path) -> subprocess.Popen:
+    """Start ``chip_smoke.py <flag> out``: its standard output goes to
     ``out.log``, its standard error to this process's, its temporary files
     to a directory of its own under ``build/``."""
     tmp = out.with_suffix(".tmp")
@@ -5746,20 +6240,20 @@ def start_second(out: Path) -> subprocess.Popen:
     env = dict(os.environ, TMPDIR=str(tmp), PYTHONUNBUFFERED="1")
     with open(out.with_suffix(".log"), "w") as log:
         return subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--second", str(out)],
+            [sys.executable, str(ROOT / "chip_smoke.py"), flag, str(out)],
             cwd=ROOT, env=env, stdout=log, stdin=subprocess.DEVNULL,
         )
 
 
-def finish_second(proc: subprocess.Popen, out: Path, wait: bool) -> dict | None:
-    """The second process's results once it has ended (``wait``: until it
+def finish_part(flag: str, proc: subprocess.Popen, out: Path, wait: bool) -> dict | None:
+    """A started process's results once it has ended (``wait``: until it
     has), its log printed here; None while it runs. Fails if it failed."""
     if not wait and proc.poll() is None:
         return None
     rc = proc.wait()
     print(out.with_suffix(".log").read_text(), end="", flush=True)
     if rc != 0:
-        fail(f"the second process (phases 3, 4, 9 and 10) exited with {rc}")
+        fail(f"the process of {PARTS[flag][1]} ({flag}) exited with {rc}")
     return json.loads(out.read_text())
 
 
@@ -5768,8 +6262,9 @@ def main() -> int:
         print("chip_smoke: run from a checkout holding binquant_tpu_torch/", file=sys.stderr)
         return 2
     args = sys.argv[1:]
-    second = Path(args[args.index("--second") + 1]) if "--second" in args else None
-    if second is not None:
+    part = next((flag for flag in PARTS if flag in args), None)
+    part_out = Path(args[args.index(part) + 1]) if part is not None else None
+    if part is not None:
         _die_with_parent()
     # the smoke needs one card: on a host with several, use the first only
     visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0")
@@ -5794,15 +6289,15 @@ def main() -> int:
 
     # phase 1: build (one nvcc per kernel source; the port has one)
     t0 = time.perf_counter()
-    lib, compile_s = qt.build(verbose=second is None)
+    lib, compile_s = qt.build(verbose=part is None)
     print(f"[build] {lib.name}: nvcc {compile_s:.2f} s (set-up {time.perf_counter() - t0:.2f} s)")
     lap = Laps()
     lap.t = t0
-    if second is not None:
-        slices = second_phases(lap)
-        tmp = second.with_name(second.name + ".part")
+    if part is not None:
+        slices = PARTS[part][0](lap)
+        tmp = part_out.with_name(part_out.name + ".part")
         tmp.write_text(json.dumps(slices))
-        tmp.replace(second)
+        tmp.replace(part_out)
         return 0
     if "--cold-boot" in args:
         print(json.dumps({"cold_boot": cold_boot()}))
@@ -5819,47 +6314,61 @@ def main() -> int:
 
     (ROOT / "build").mkdir(exist_ok=True)
     parts = Path(tempfile.mkdtemp(prefix="chip_smoke.", dir=ROOT / "build"))
-    out = parts / "second.json"
-    proc = start_second(out)
+    outs = {flag: parts / f"{flag.strip('-')}.json" for flag in PARTS}
+    procs = {flag: start_part(flag, out) for flag, out in outs.items()}
+    got: dict = {}
+
+    def collect(wait: bool = False) -> None:
+        """Read each started process that has ended (``wait``: wait for all)."""
+        for flag, proc in procs.items():
+            if flag not in got:
+                res = finish_part(flag, proc, outs[flag], wait)
+                if res is not None:
+                    got[flag] = res
+                    print(f"[time] the process of {PARTS[flag][1]} ended "
+                          f"{time.perf_counter() - t0:.1f} s after the start", flush=True)
+
     try:
-        got = None
         # phase 5: the production loop, on its own seeded market
         cm5, cm15 = make_crash_market(np.random.default_rng(SEED + 1))
         pipelined = check_pipelined(cm5, cm15)
         lap("pipelined")
-        got = got or finish_second(proc, out, wait=False)
+        collect()
         # phase 6: the service around the tick, on the same market's downtrend
         service = check_service(cm5, cm15)
         lap("service")
-        got = got or finish_second(proc, out, wait=False)
+        collect()
         # phase 7: the delivery plane and the real sinks, on phase 5's market
         delivery = check_delivery(cm5, cm15)
         lap("delivery")
-        got = got or finish_second(proc, out, wait=False)
+        collect()
         # phase 8: the tick's default observability, on phase 5's market
         observability = check_observability(cm5, cm15)
         lap("observability")
         torch_empty_cache()
-        got = got or finish_second(proc, out, wait=False)
+        collect()
         # phase 11: the port as a service, booted cold through run_live
         live = check_live()
         lap("live")
-        got = got or finish_second(proc, out, wait=True)
-        lap("the second process's end")
-        print(f"[time] all phases, both processes: {time.perf_counter() - t0:.1f} s")
+        collect(wait=True)
+        print(f"[time] all phases, all processes: {time.perf_counter() - t0:.1f} s")
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(parts, ignore_errors=True)
+    second = got["--second"]
     slices = {
-        **{k: got[k] for k in ("classic", "incremental", "dormant")},
+        **{k: second[k] for k in ("classic", "incremental", "dormant")},
         "pipelined": pipelined,
         "service": service,
         "delivery": delivery,
         "observability": {k: v for k, v in observability.items() if k != "paths"},
-        **{k: got[k] for k in ("fanout", "scanned", "backtest")},
+        **{k: second[k] for k in ("fanout", "scanned", "backtest")},
         "live": live,
+        "scenarios": got["--third"]["scenarios"],
+        "scenario_soak": second["scenario_soak"],
     }
     if "--profile" in args:
         m5, m15 = make_market(np.random.default_rng(SEED))

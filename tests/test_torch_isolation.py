@@ -46,6 +46,11 @@ def test_import_pulls_in_no_jax_and_no_reference_module():
         "import binquant_tpu_torch.__main__, binquant_tpu_torch.utils\n"
         "import binquant_tpu_torch.parallel, binquant_tpu_torch.parallel.mesh\n"
         "import binquant_tpu_torch.strategies.binance_report_ai\n"
+        "import binquant_tpu_torch.io.market_sim, binquant_tpu_torch.sim\n"
+        "import binquant_tpu_torch.sim.scenarios, binquant_tpu_torch.sim.runner\n"
+        "import binquant_tpu_torch.sim.chaos, binquant_tpu_torch.soak\n"
+        "import binquant_tpu_torch.soak.judge, binquant_tpu_torch.soak.stream\n"
+        "import binquant_tpu_torch.soak.drill\n"
         "import asyncio\n"
         "import torch.profiler\n"
         "made = []\n"
@@ -112,6 +117,10 @@ def test_sources_import_no_jax_and_no_reference_package():
         files)
     assert {PKG / "parallel" / "__init__.py", PKG / "parallel" / "mesh.py",
             PKG / "strategies" / "binance_report_ai.py"} <= set(files)
+    assert {PKG / "io" / "market_sim.py"} | {
+        PKG / "sim" / f for f in ("__init__.py", "scenarios.py", "runner.py", "chaos.py")
+    } | {PKG / "soak" / f for f in ("__init__.py", "judge.py", "stream.py", "drill.py")} <= set(
+        files)
     for path in files:
         roots = _imported_roots(path)
         assert not roots & {"jax", "jaxlib", "binquant_tpu", "pydantic"}, (path, roots)
