@@ -21,7 +21,10 @@ does, in the same order, with nothing of the JAX package:
 12. the consume loop beside the open-interest refresh.
 
 Offline modes, without network: ``--replay FILE`` (the serial drive, or
-``--scanned``), ``--backtest`` (the time-batched backend), ``--scenario
+``--scanned``), ``--backtest`` (the time-batched backend), ``--backend
+reference`` (the legacy per-symbol backend, on the host) and ``--backend
+ab`` (the engine and that backend on one replay, exit 1 when their signal
+sets differ: the port's strongest correctness drive), ``--scenario
 NAME|all|list`` (the scenario corpus and the chaos drills,
 ``sim/runner.py``), with ``main.py``'s argument checks; ``--replay-report`` is accepted as there,
 and the run's statistics are printed either way. ``--device`` (``cuda`` by
@@ -283,6 +286,14 @@ def build_parser() -> argparse.ArgumentParser:
         "verdicts also land in the event log (BQT_EVENT_LOG)",
     )
     parser.add_argument(
+        "--backend",
+        choices=("batch", "reference", "ab"),
+        default="batch",
+        help="the replay's backend: 'batch' (the batched engine), 'reference' "
+        "(the legacy per-symbol backend, on the host) or 'ab' (both on one "
+        "replay; exits 1 when their signal sets differ)",
+    )
+    parser.add_argument(
         "--device",
         default="cuda",
         help="the torch device to run on (default cuda; the command fails "
@@ -295,26 +306,46 @@ def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.scenario:
-        if args.replay or args.scanned or args.backtest:
+        if args.replay or args.scanned or args.backtest or args.backend != "batch":
             parser.error(
                 "--scenario runs the sim corpus on its own drives (serial "
                 "+ scanned + full-oracle); combining it with --replay/"
-                "--scanned/--backtest would be silently ignored"
+                "--backend/--scanned/--backtest would be silently ignored"
             )
         from binquant_tpu_torch.config import Config
         from binquant_tpu_torch.sim.runner import main_cli
 
         install_event_log(Config().event_log)
         return main_cli(args.scenario, device=args.device)
+    if args.backend != "batch" and not args.replay:
+        parser.error("--backend reference/ab requires --replay")
     if args.scanned and not args.replay:
         parser.error("--scanned requires --replay")
     if args.backtest and (not args.replay or args.scanned):
         parser.error("--backtest requires --replay and excludes --scanned")
+    if args.backtest and args.backend != "batch":
+        parser.error(
+            "--backtest drives the batched backend only (it would be silently "
+            "ignored with --backend reference/ab)"
+        )
 
     if args.replay:
         from binquant_tpu_torch.config import Config
 
         install_event_log(Config().event_log)
+        if args.backend == "reference":
+            from binquant_tpu_torch.io.replay import run_replay_oracle
+
+            signals = run_replay_oracle(args.replay)
+            print({"backend": "reference", "signals": len(signals)})
+            return 0
+        if args.backend == "ab":
+            from binquant_tpu_torch.io.replay import run_replay_ab
+
+            result = run_replay_ab(args.replay, scanned=args.scanned, device=args.device)
+            print(result)
+            print(f"match: {result['match']}")
+            return 0 if result["match"] else 1
         if args.backtest:
             from binquant_tpu_torch.backtest import run_backtest
 

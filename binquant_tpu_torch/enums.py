@@ -2,7 +2,8 @@
 
 The port's own copy of the parts of ``binquant_tpu/enums.py`` the classic
 tick and its emission read: every categorical is an int32 code on the device,
-and the string views are the wire vocabulary emitted payloads carry.
+and the string views (the ``*_label`` functions) are the wire vocabulary
+emitted payloads and the oracle's regime log carry.
 """
 
 from __future__ import annotations
@@ -52,6 +53,24 @@ class MicroTransitionCode(IntEnum):
     ENTERED_TREND_DOWN = 7
     ENTERED_RANGE = 8
     ENTERED_TRANSITIONAL = 9
+
+
+def market_regime_label(code: int) -> str:
+    return MarketRegimeCode(int(code)).name
+
+
+def micro_regime_label(code: int) -> str:
+    return MicroRegimeCode(int(code)).name
+
+
+def market_transition_label(code: int) -> str | None:
+    c = MarketTransitionCode(int(code))
+    return None if c == MarketTransitionCode.NONE else c.name
+
+
+def micro_transition_label(code: int) -> str | None:
+    c = MicroTransitionCode(int(code))
+    return None if c == MicroTransitionCode.NONE else c.name
 
 
 class MarketType(str, Enum):

@@ -13,6 +13,9 @@ identical streams: the reference's overflow drill
 (:func:`generate_dormant_replay`, :func:`generate_dormant_extended_replay`)
 and its signal-outcome stream (:func:`generate_outcome_replay`). The binbot
 backend is :class:`StubSession`, an in-memory fake behind the real client.
+The same streams drive the per-symbol oracle on the host
+(:func:`run_replay_oracle`, the ``--backend reference`` mode) and the A/B
+check that holds the engine to it (:func:`run_replay_ab`).
 """
 
 from __future__ import annotations
@@ -26,20 +29,25 @@ import os
 import re
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 from typing import Any
 
 import numpy as np
 
 from binquant_tpu_torch.config import Config
+from binquant_tpu_torch.enums import market_regime_label
 from binquant_tpu_torch.io.autotrade import AutotradeConsumer
 from binquant_tpu_torch.io.binbot import BinbotApi
-from binquant_tpu_torch.io.pipeline import SignalEngine
+from binquant_tpu_torch.io.pipeline import SignalEngine, breadth_scalars
 from binquant_tpu_torch.io.telegram import TelegramConsumer
 from binquant_tpu_torch.obs.events import get_event_log
+from binquant_tpu_torch.oracle import OracleEvaluator
 from binquant_tpu_torch.regime.context import ContextConfig
+from binquant_tpu_torch.regime.grid_policy import GridOnlyPolicy
 from binquant_tpu_torch.schemas import (
     AutotradeSettingsSchema,
+    MarketBreadthSeries,
     MarketType,
     TestAutotradeSettingsSchema,
 )
@@ -500,6 +508,136 @@ def run_replay(
         "scanned_ticks": engine.scanned_ticks,
         "scan_chunks": engine.scan_chunks,
         "scan_overflow_reruns": engine.scan_overflow_reruns,
+    }
+
+
+def drive_oracle(
+    evaluator: OracleEvaluator,
+    seq,
+    breadth: dict | None = None,
+    dominance_is_losers: bool = False,
+    market_domination_reversal: bool = False,
+    collect_regimes: list | None = None,
+) -> list[tuple]:
+    """Feed ``(now_ms, klines)`` ticks to the per-symbol oracle and return
+    the fired ``(tick_ms, strategy, symbol, direction, autotrade)`` tuples.
+    The host's breadth handling is the engine's: the adp scalars from the
+    (static) series by :func:`~binquant_tpu_torch.io.pipeline.breadth_scalars`,
+    and the grid-only policy resolved from the PREVIOUS tick's regime (the
+    engine reads last tick's policy and refreshes it after the evaluation).
+    ``collect_regimes`` (a list) gets ``(tick_ms, regime label or None,
+    transition strength)`` per tick."""
+    mb = MarketBreadthSeries(**breadth) if breadth else None
+    adp_latest, adp_prev, adp_diff, adp_diff_prev, _ = breadth_scalars(mb)
+    policy = GridOnlyPolicy.disabled("not_evaluated")
+    out: list[tuple] = []
+    for tick_ms, klines in seq:
+        for k in klines:
+            evaluator.ingest(k)
+        for strategy, sym, direction, autotrade in evaluator.evaluate(
+            tick_ms,
+            grid_policy_allows=policy.allow_grid_ladder,
+            adp_latest=adp_latest,
+            adp_prev=adp_prev,
+            adp_diff=adp_diff,
+            adp_diff_prev=adp_diff_prev,
+            dominance_is_losers=dominance_is_losers,
+            market_domination_reversal=market_domination_reversal,
+        ):
+            out.append((tick_ms, strategy, sym, direction, autotrade))
+        # next tick's policy from THIS tick's regime (None when invalid)
+        policy = GridOnlyPolicy.resolve(evaluator.last_regime, mb)
+        if collect_regimes is not None:
+            code = evaluator.last_regime
+            collect_regimes.append(
+                (tick_ms, market_regime_label(code) if code is not None else None,
+                 float(evaluator.last_strength))
+            )
+    return out
+
+
+def run_replay_oracle(
+    path: str | Path,
+    window: int = 200,
+    breadth: dict | None = None,
+    enabled_strategies: set | None = None,
+    dominance_is_losers: bool = False,
+    market_domination_reversal: bool = False,
+    collect_regimes: list | None = None,
+) -> list[tuple]:
+    """Replay a kline file through the legacy per-symbol backend
+    (``--backend reference``) on the host; returns the fired ``(tick_ms,
+    strategy, symbol, direction, autotrade)`` tuples. Its context gates are
+    the stub engine's (4 fresh symbols, half the tracked ones)."""
+    evaluator = OracleEvaluator(
+        window=window,
+        required_fresh_symbols=4,
+        min_coverage_ratio=0.5,
+        is_futures=True,
+        enabled_strategies=enabled_strategies,
+    )
+    return drive_oracle(
+        evaluator, tick_seq(path), breadth, dominance_is_losers,
+        market_domination_reversal, collect_regimes,
+    )
+
+
+def run_replay_ab(
+    path: str | Path,
+    capacity: int = 256,
+    window: int = 200,
+    breadth: dict | None = None,
+    enabled_strategies: set | None = None,
+    dominance_is_losers: bool = False,
+    market_domination_reversal: bool = False,
+    incremental: bool | None = None,
+    donate: bool | None = None,
+    scanned: bool = False,
+    oracle_signals: list | None = None,
+    device: str | None = None,
+) -> dict:
+    """A/B parity: the batched engine (on ``device``, the card by default)
+    and the per-symbol oracle (on the host) replay the same file and must
+    emit the same signal set. ``enabled_strategies`` sets the dispatch set
+    of both; the dominance flags script the host's market-dominance state
+    both read; ``scanned=True`` drives the engine through the scanned
+    multi-tick drive. ``oracle_signals`` is a precomputed
+    :func:`run_replay_oracle` run for these same arguments (several A/Bs of
+    one file share one). The result keeps the reference's keys: ``tpu_*``
+    name the batched engine's arm."""
+    engine_signals: list[tuple] = []
+    stats = run_replay(
+        path,
+        capacity=capacity,
+        window=window,
+        collect=engine_signals,
+        breadth=breadth,
+        enabled_strategies=enabled_strategies,
+        dominance_is_losers=dominance_is_losers,
+        market_domination_reversal=market_domination_reversal,
+        incremental=incremental,
+        donate=donate,
+        scanned=scanned,
+        device=device,
+    )
+    if oracle_signals is None:
+        oracle_signals = run_replay_oracle(
+            path, window=window, breadth=breadth,
+            enabled_strategies=enabled_strategies,
+            dominance_is_losers=dominance_is_losers,
+            market_domination_reversal=market_domination_reversal,
+        )
+    engine_set, oracle_set = set(engine_signals), set(oracle_signals)
+    per_tick = Counter(t for t, *_ in engine_set)
+    return {
+        "per_tick_max": max(per_tick.values()) if per_tick else 0,
+        "match": engine_set == oracle_set,
+        "tpu_count": len(engine_set),
+        "oracle_count": len(oracle_set),
+        "only_tpu": sorted(engine_set - oracle_set),
+        "only_oracle": sorted(oracle_set - engine_set),
+        "strategies": sorted({s for _, s, _, _, _ in engine_set}),
+        "tpu_stats": stats,
     }
 
 

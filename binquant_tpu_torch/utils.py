@@ -1,18 +1,34 @@
-"""Tensor math helpers, the host-edge formatting helpers emission uses, and
-Binance's request-weight guard.
+"""Scalar and tensor math helpers, the host-edge formatting helpers emission
+uses, and Binance's request-weight guard.
 
-``jsafe_div``/``jclamp``/``jnon_negative``/``jsafe_pct`` keep the reference
-package's names (``binquant_tpu/utils.py``) so the ported formulas read the
-same; they are plain functions on tensors.
+The scalar ``clamp``/``non_negative``/``safe_pct`` (python floats, the
+per-symbol oracle's) and the tensor ``jsafe_div``/``jclamp``/
+``jnon_negative``/``jsafe_pct`` keep the reference package's names
+(``binquant_tpu/utils.py``) so the ported formulas read the same.
 """
 
 from __future__ import annotations
 
 from datetime import datetime, timezone
+from typing import Any
 
 import torch
 
 UTC = timezone.utc
+
+
+def clamp(value: float, low: float = -1.0, high: float = 1.0) -> float:
+    return max(low, min(high, float(value)))
+
+
+def non_negative(value: float) -> float:
+    return max(0.0, float(value))
+
+
+def safe_pct(current: float, previous: float) -> float:
+    if previous == 0:
+        return 0.0
+    return (float(current) - float(previous)) / abs(float(previous))
 
 
 def jclamp(value: torch.Tensor, low: float = -1.0, high: float = 1.0) -> torch.Tensor:
@@ -40,14 +56,29 @@ def jsafe_div(
     return torch.where(ok, num / torch.where(ok, den, torch.ones_like(den)), default)
 
 
+def normalize_timestamp(value: Any) -> datetime:
+    """Coerce a ms-epoch int/float or a datetime into an aware UTC datetime."""
+    if isinstance(value, datetime):
+        if value.tzinfo is None:
+            return value.replace(tzinfo=UTC)
+        return value.astimezone(UTC)
+    return datetime.fromtimestamp(float(value) / 1000, tz=UTC)
+
+
+def safe_format(value: Any, spec: str = ".2f") -> str:
+    """Format a value numerically, falling back to str() on non-numerics."""
+    try:
+        return format(float(value), spec)
+    except (TypeError, ValueError):
+        return str(value)
+
+
 def round_numbers(value: float, decimals: int = 6) -> float:
     return float(round(float(value), decimals))
 
 
-def timestamp_to_datetime(value_ms: int) -> str:
-    return datetime.fromtimestamp(float(value_ms) / 1000, tz=UTC).strftime(
-        "%Y-%m-%d %H:%M:%S UTC"
-    )
+def timestamp_to_datetime(value: Any) -> str:
+    return normalize_timestamp(value).strftime("%Y-%m-%d %H:%M:%S UTC")
 
 
 def format_context_timestamp_line(timestamp_ms: int | None) -> str:

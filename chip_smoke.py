@@ -20,7 +20,8 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    block kernel) — at a short ``W < L+K-1`` input and at phase 12's
    32-row shapes (the corpus's and the soak's 32x120 tail; the soak's
    ``abp_core_batch`` chunks, 32x168 (K=52) on its 16-tick chunks, 32x159
-   (K=43) and 32x207 (K=91) on its two other chunk shapes).
+   (K=43) and 32x207 (K=91) on its two other chunk shapes) and at phase
+   13's A/B shapes (64x128, K=4; the spike detector's 64x200).
    Time the kernel on the device (200 wrapper calls captured in one CUDA
    graph, replayed between two events), the host-issued call loop, the
    card's launch floor (the same graph at S=1, K=1, L=1), the twin and a
@@ -294,13 +295,42 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    incremental tick, doubled plus ``detect_spikes`` on an overflow), the
    launches sum to the part's (the soak's ext-parity backtests aside), and
    each is held against the twin: as many twin checks as launches.
-13. Print the kernels line, the card's name and power limit, and the result.
+13. Drive the legacy per-symbol backend and the A/B check (``[slice
+   oracle]``, ``oracle/`` and ``io/replay.py``'s ``run_replay_ab``): the
+   oracle is the reference's control flow on the host (one symbol at a
+   time, float64 numpy, no pandas) and shares no code with the batched
+   path, so it is the one check on the card by an independent
+   implementation. A: ``run_replay_ab(device="cuda")`` on the reference's
+   four A/B fixtures at their 64 rows and 200 bars (the seed-7 replay with
+   the incremental engine and rings in place, without and with the
+   washed-out breadth; the dormant market with ``DORMANT_ORACLE_STRATEGIES``;
+   the extended dormant market with ``DORMANT_ORACLE_EXTENDED``, its rising
+   breadth and both dominance flags): every ``match`` true with signals
+   fired, the breadth run firing all five live strategies and each dormant
+   run its whole set, the seed-7 engines taking incremental ticks, and
+   every qtail call (``abp_core`` and ``abp_init_from_window``; the spike
+   detector's on the extended set) held against the twin. B: phase 3's
+   market at S symbols and W bars, the warm tick and 4 live ticks through
+   a classic card engine and through the oracle (window W, fed the warm
+   history as kline dicts of the values the rings hold): the fired sets
+   equal but for flips inside ``declared_gate_margins()``, each printed
+   (judged by the card's payload, or by the oracle's own RSI/MFI where only
+   the oracle fired), every qtail launch held against the twin. It prints
+   the oracle's ingest seconds for the warm history, its ms per tick and
+   per symbol-tick, and the card's classic tick p50 beside them. The
+   oracle's runs of A and B go to a worker process at the phase's start,
+   so they run while the card's engines do. C: every function of the
+   batched indicator library (``ops/indicators.py``) on the same market's
+   5m ring (S x W), on the card and on the CPU: NaN positions equal, values
+   within ``rtol=1e-4, atol=1e-5``, the supertrend's direction exactly; ms
+   per call on the card.
+14. Print the kernels line, the card's name and power limit, and the result.
 
 The drives are host-bound (the card is idle most of a tick), so after
 phase 2 the phases run in three processes on the one card at once: this
 one runs phases 5-8 and 11, a second one (``--second PATH``) phases 3, 4,
 9 and 10 and phase 12's part C, a third one (``--third PATH``) phase 12's
-parts A and B; each is started by this
+parts A and B and phase 13; each is started by this
 one and killed with it, writes its results to PATH and its standard
 output to ``PATH.log`` (printed here when it ends). Each process zeroes
 and reads its own launch counts around each of its drives; the kernels
@@ -480,6 +510,10 @@ def check_quantile_kernel() -> dict:
         ("scn_batch16", 32, 168, 80, 52, 0.92, 20),
         ("scn_batch43", 32, 159, 80, 43, 0.92, 20),
         ("scn_batch91", 32, 207, 80, 91, 0.92, 20),
+        # phase 13's A/B fixtures (64 rows, a 200-bar window): abp_core and
+        # abp_init_from_window, and detect_spikes on the extended dormant set
+        ("ab_abp", 64, 128, 80, 4, 0.92, 20),
+        ("ab_spike", 64, 200, 60, 1, 0.85, 20),
     ]
     # the card's launch floor: the same graph method on the least work
     one = torch.zeros((1, 1), dtype=torch.float32, device="cuda")
@@ -6021,6 +6055,406 @@ def check_scenarios(names: tuple, card: str = "cuda") -> dict:
             **parts}
 
 
+# --------------------------------------------------------------------------
+# phase 13: the per-symbol oracle and the A/B check
+# --------------------------------------------------------------------------
+
+AB_CAPACITY, AB_WINDOW = 64, 200  # the reference's A/B fixtures' engine shape
+# the seed-7 A/B fixture's washed-out breadth: LSP's LONG route and the
+# grid-only policy open, so all five live strategies fire
+WASHED_BREADTH = {
+    "timestamp": [1, 2, 3],
+    "market_breadth": [-0.50, -0.47, -0.44],
+    "market_breadth_ma": [-0.50, -0.46],
+}
+
+
+def ab_cases() -> dict:
+    """The reference's four A/B fixtures (``tests/test_ab_parity.py``): the
+    fixture file each replays and ``run_replay_ab``'s arguments."""
+    from binquant_tpu_torch.oracle import DORMANT_ORACLE_EXTENDED, DORMANT_ORACLE_STRATEGIES
+
+    return {
+        "seed7": ("replay", dict(incremental=True, donate=True)),
+        "seed7_washed": ("replay", dict(breadth=WASHED_BREADTH, incremental=True, donate=True)),
+        "dormant": ("dormant", dict(enabled_strategies=set(DORMANT_ORACLE_STRATEGIES))),
+        "dormant_extended": ("extended", dict(
+            enabled_strategies=set(DORMANT_ORACLE_EXTENDED), breadth=RISING_BREADTH,
+            dominance_is_losers=True, market_domination_reversal=True,
+        )),
+    }
+
+
+def ab_files(workdir: Path) -> dict:
+    """The three fixture files of :func:`ab_cases`, written to ``workdir``."""
+    from binquant_tpu_torch.io import replay
+
+    workdir.mkdir(parents=True, exist_ok=True)
+    files = {name: workdir / f"{name}.jsonl" for name in ("replay", "dormant", "extended")}
+    replay.generate_replay_file(files["replay"], n_symbols=24, n_ticks=120, seed=7)
+    replay.generate_dormant_replay(files["dormant"])
+    replay.generate_dormant_extended_replay(files["extended"])
+    return files
+
+
+def timed_oracle(path: Path, kw: dict) -> tuple[list, float]:
+    """One fixture through ``run_replay_oracle`` (the oracle arm's own
+    arguments of ``kw``) and its seconds."""
+    from binquant_tpu_torch.io import replay
+
+    t0 = time.perf_counter()
+    kw = {k: v for k, v in kw.items() if k not in ("incremental", "donate")}
+    return replay.run_replay_oracle(path, window=AB_WINDOW, **kw), time.perf_counter() - t0
+
+
+def oracle_ab(card: str, files: dict, oracles: dict) -> dict:
+    """Part A: ``run_replay_ab`` on the four A/B fixtures, the engine arm on
+    ``card`` at the fixtures' 64 rows and 200 bars, the oracle arm the
+    precomputed run in ``oracles`` (futures of :func:`timed_oracle`): the
+    sets equal and non-empty, the breadth run firing all five live
+    strategies and each dormant run its whole set, the seed-7 engines
+    taking incremental ticks, every qtail call held against the twin."""
+    from binquant_tpu_torch.io import replay
+    from binquant_tpu_torch.oracle import LIVE_STRATEGIES
+
+    cuda = card == "cuda"
+    out: dict = {}
+    by_site: dict = {}
+    for name, (file, kw) in ab_cases().items():
+        oracle, oracle_s = oracles[name].result()
+        checks: list = []
+        before = _qtail_sites(cuda)
+        t0 = time.perf_counter()
+        with _twin_checked(checks, on_host=True):
+            res = replay.run_replay_ab(files[file], capacity=AB_CAPACITY, window=AB_WINDOW,
+                                       oracle_signals=oracle, device=card, **kw)
+        engine_s = time.perf_counter() - t0
+        sites = _sites_since(before, cuda)
+        _add_sites(by_site, sites)
+        stats = res["tpu_stats"]
+        label = f"[slice oracle] A {name}"
+        if not res["match"]:
+            fail(f"{label}: the engine and the oracle differ: engine only "
+                 f"{res['only_tpu'][:5]}, oracle only {res['only_oracle'][:5]}")
+        if res["tpu_count"] == 0:
+            fail(f"{label}: nothing fired; the match would be vacuous")
+        # the breadth run fires the live set, each dormant run its whole set
+        want = (sorted(LIVE_STRATEGIES) if name == "seed7_washed"
+                else sorted(kw.get("enabled_strategies") or []) or None)
+        if want is not None and res["strategies"] != want:
+            fail(f"{label}: strategies fired {res['strategies']}, expected {want}")
+        if name.startswith("seed7") and stats["incremental_ticks"] == 0:
+            fail(f"{label}: the engine took no incremental tick")
+        need = {"detect_spikes"} if name == "dormant_extended" else (
+            {"abp_core", "abp_init_from_window"} if name.startswith("seed7") else set())
+        if not need <= set(sites):
+            fail(f"{label}: qtail calls by site {sites}, missing {sorted(need - set(sites))}")
+        if len(checks) != sum(sites.values()) or not all(c[3] for c in checks):
+            fail(f"{label}: {len(checks)} twin checks for {sum(sites.values())} qtail calls, "
+                 f"{sum(not c[3] for c in checks)} unequal")
+        out[name] = {
+            "signals": res["tpu_count"], "strategies": res["strategies"],
+            "ticks": stats["ticks"], "incremental_ticks": stats["incremental_ticks"],
+            "full_recompute_ticks": stats["full_recompute_ticks"],
+            "engine_s": engine_s, "engine_tick_p50_ms": stats["tick_p50_ms"],
+            "oracle_s": oracle_s, "qtail_by_site": sites, "twin_checks": len(checks),
+        }
+        print(f"{label}: match True, {res['tpu_count']} signals {res['strategies']}; engine "
+              f"{stats['ticks']} ticks ({stats['incremental_ticks']} incremental, "
+              f"{stats['full_recompute_ticks']} full) in {engine_s:.1f} s, tick p50 "
+              f"{stats['tick_p50_ms']:.1f} ms; oracle {oracle_s:.2f} s; qtail {sites}, each "
+              f"equal to its twin", flush=True)
+    return {"launches": sum(by_site.values()) if cuda else 0,
+            "launches_by_site": by_site if cuda else {}, "cases": out}
+
+
+def warm_klines(m5: dict, m15: dict):
+    """The warm history as the kline dicts the oracle reads, holding the
+    values the engine's rings hold (the float32 planes :func:`queue_warm`
+    adds): the 15m bars, then the 5m bars, bar by bar over the symbols."""
+    names = symbols()
+    n5 = min(3 * W, W)
+    for m, cols, interval, t0 in (
+        (m15, slice(0, W), 900, T_LIVE0 - 900 * W),
+        (m5, slice(3 * W - n5, 3 * W), 300, T_LIVE0 - 300 * n5),
+    ):
+        planes = bar_values(m, cols, interval)
+        for k in range(planes.shape[1]):
+            ts = t0 + interval * k
+            for name, v in zip(names, planes[:, k, :7].tolist()):
+                yield {
+                    "symbol": name, "open_time": ts * 1000,
+                    "close_time": (ts + interval) * 1000 - 1,
+                    "open": v[0], "high": v[1], "low": v[2], "close": v[3], "volume": v[4],
+                    "quote_asset_volume": v[5], "number_of_trades": v[6],
+                }
+
+
+def oracle_stream(s: int, w: int) -> dict:
+    """Part B's oracle arm: phase 3's market at ``s`` symbols and ``w`` bars
+    (made anew from the seed), its warm history ingested as kline dicts,
+    then the warm tick and CLASSIC_TICKS live ticks evaluated (window ``w``,
+    the engine's default context gates). Returns the fired tuples, the
+    ingest seconds and the ms of each tick."""
+    from binquant_tpu_torch.io.replay import drive_oracle
+    from binquant_tpu_torch.oracle import OracleEvaluator
+    from binquant_tpu_torch.regime.context import ContextConfig
+
+    global S, W
+    S, W = s, w  # this may run in a process of its own
+    m5, m15 = make_market(np.random.default_rng(SEED), live_ticks=CLASSIC_TICKS)
+    cc = ContextConfig()
+    oracle = OracleEvaluator(window=W, required_fresh_symbols=cc.required_fresh_symbols,
+                             min_coverage_ratio=cc.min_coverage_ratio, is_futures=True)
+    t0 = time.perf_counter()
+    n_warm = 0
+    for k in warm_klines(m5, m15):
+        oracle.ingest(k)
+        n_warm += 1
+    ingest_s = time.perf_counter() - t0
+    ticks = [(T_LIVE0 * 1000, [])] + live_ticks_of(m5, m15, CLASSIC_TICKS)
+    stamps: list = []
+
+    def timed(seq):
+        for tick in seq:
+            stamps.append(time.perf_counter())
+            yield tick
+        stamps.append(time.perf_counter())
+
+    fired = drive_oracle(oracle, timed(ticks))
+    return {"fired": fired, "warm_klines": n_warm, "ingest_s": ingest_s,
+            "tick_ms": (np.diff(stamps) * 1000.0).tolist()}
+
+
+def _oracle_gates(m5: dict, m15: dict, flip: tuple, ticks: list) -> dict:
+    """The gated RSI and MFI the oracle read for a row it fired and the card
+    did not (no card payload exists for it): rebuilt from the bars the
+    oracle held at that tick, by the oracle's own formulas."""
+    from types import SimpleNamespace
+
+    from binquant_tpu_torch.oracle import evaluator as ev
+    from binquant_tpu_torch.oracle import frame as F
+
+    tick = [t for t, _ in ticks].index(flip[0])
+    row = symbols().index(flip[2])
+    five = flip[1] in ("coinrule_price_tracker", "inverse_price_tracker")
+    m, interval, per = (m5, 300, 3) if five else (m15, 900, 1)
+    warm = bar_values(m, slice(per * W - W, per * W), interval)[row, :, :5].astype(np.float64)
+    live = np.stack([m[k][row, per * W: per * (W + tick)]
+                     for k in ("open", "high", "low", "close", "volume")], axis=1)
+    bars = np.concatenate([warm, live])[-W:]
+    frame = SimpleNamespace(open=bars[:, 0], high=bars[:, 1], low=bars[:, 2], close=bars[:, 3],
+                            volume=bars[:, 4])
+    if five:
+        return {"rsi": ev._rsi14_sma(frame.close), "mfi": ev._mfi14(frame)}
+    delta = F.diff(frame.close)
+    gain = F.ewm_mean(F.clip(delta, lower=0), alpha=1 / 14, min_periods=14)[-1]
+    loss = F.ewm_mean(F.clip(-delta, lower=0), alpha=1 / 14, min_periods=14)[-1]
+    return {"rsi": 100.0 * gain / (gain + loss) if gain + loss != 0 else 50.0}
+
+
+def oracle_wide(card: str, stream) -> dict:
+    """Part B: phase 3's market at S symbols and W bars, the warm tick and
+    CLASSIC_TICKS live ticks through a classic card engine, against the
+    oracle's run of the same stream (``stream``, a future of
+    :func:`oracle_stream`): the fired sets equal but for flips inside
+    ``declared_gate_margins()``, judged by the card's payload where the card
+    fired (as phase 4 judges them) and by the oracle's own indicators where
+    only the oracle did, each printed."""
+    from binquant_tpu_torch.strategies.params import declared_gate_margins
+
+    cuda = card == "cuda"
+    m5, m15 = make_market(np.random.default_rng(SEED), live_ticks=CLASSIC_TICKS)
+    checks: list = []
+    before = _qtail_sites(cuda)
+    with _twin_checked(checks, on_host=True):
+        gpu = drive(card, m5, m15, incremental=False, live_ticks=CLASSIC_TICKS)
+    sites = _sites_since(before, cuda)
+    if len(checks) != sum(sites.values()) or not all(c[3] for c in checks):
+        fail(f"[slice oracle] B: {len(checks)} twin checks for {sum(sites.values())} qtail "
+             f"calls, {sum(not c[3] for c in checks)} unequal")
+    if sites != {"abp_core": gpu["ticks"]}:
+        fail(f"[slice oracle] B: qtail calls by site {sites}, expected abp_core once a tick")
+    run = stream.result()
+    fired, tick_ms = run["fired"], run["tick_ms"]
+    if not gpu["fired"] or not fired:
+        fail(f"[slice oracle] B: {len(gpu['fired'])} card and {len(fired)} oracle signals")
+    margins = declared_gate_margins()
+    ticks = [(t, []) for t in gpu["tick_times"]]
+    flips = sorted(set(gpu["fired"]) ^ set(fired))
+    for f in flips:
+        card_side = f in gpu["indicators"]
+        ind = gpu["indicators"][f] if card_side else _oracle_gates(m5, m15, f, ticks)
+        print(f"[slice oracle] B: flip {f} fired by the {'card' if card_side else 'oracle'} "
+              f"only, gated indicators {{rsi: {ind.get('rsi')}, mfi: {ind.get('mfi')}}}")
+        if not _gated_flip_ok(f, ind, margins):
+            fail(f"[slice oracle] B: the card and the oracle differ outside the declared gate "
+                 f"margins: {f}")
+    live = np.asarray(gpu["tick_ms"][1:])
+    per_sym = np.asarray(tick_ms) / S
+    result = {
+        "ticks": gpu["ticks"], "launches": sum(sites.values()) if cuda else 0,
+        "launches_by_site": sites if cuda else {}, "twin_checks": len(checks),
+        "signals_card": len(gpu["fired"]), "signals_oracle": len(fired),
+        "signals_by_strategy": _by_strategy(gpu["fired"]), "flips": flips,
+        "oracle_warm_klines": run["warm_klines"], "oracle_ingest_s": run["ingest_s"],
+        "oracle_tick_ms": tick_ms, "oracle_ms_per_symbol_tick": per_sym.tolist(),
+        "oracle_tick_p50_ms": float(np.percentile(tick_ms, 50)),
+        "card_tick_p50_ms": float(np.percentile(live, 50)),
+        "card_warm_tick_ms": gpu["tick_ms"][0],
+    }
+    print(
+        f"[slice oracle] B: S={S} W={W}, {gpu['ticks']} classic ticks (1 warm + {CLASSIC_TICKS} "
+        f"live): card {len(gpu['fired'])} signals {result['signals_by_strategy']}, oracle "
+        f"{len(fired)}, {len(flips)} flips (inside the gate margins); oracle ingest "
+        f"{run['ingest_s']:.1f} s for {run['warm_klines']} warm klines, evaluate ms per tick "
+        f"{[round(t, 1) for t in tick_ms]} ({np.median(per_sym):.3f} ms per symbol-tick), "
+        f"card classic tick p50 {result['card_tick_p50_ms']:.2f} ms (warm "
+        f"{result['card_warm_tick_ms']:.1f} ms); qtail {sites}, each equal to its twin",
+        flush=True,
+    )
+    return result
+
+
+def indicator_cases(ind) -> dict:
+    """The batched indicator library's calls on a ring's (S, W) planes."""
+    return {
+        "sma": lambda m: ind.sma(m["close"], 20),
+        "ema": lambda m: ind.ema(m["close"], 20),
+        "typical_price": lambda m: ind.typical_price(m["high"], m["low"], m["close"]),
+        "true_range": lambda m: ind.true_range(m["high"], m["low"], m["close"]),
+        "atr": lambda m: ind.atr(m["high"], m["low"], m["close"], 14),
+        "atr_wilder": lambda m: ind.atr_wilder(m["high"], m["low"], m["close"], 14),
+        "rsi_wilder": lambda m: ind.rsi_wilder(m["close"], 14),
+        "rsi_sma": lambda m: ind.rsi_sma(m["close"], 14),
+        "macd": lambda m: ind.macd(m["close"]),
+        "mfi": lambda m: ind.mfi(m["high"], m["low"], m["close"], m["volume"], 14),
+        "bollinger": lambda m: ind.bollinger(m["close"], 20),
+        "twap": lambda m: ind.twap(m["open"], m["high"], m["low"], m["close"], 20),
+        "supertrend": lambda m: ind.supertrend(m["high"], m["low"], m["close"], 10, 3.0),
+        "adx": lambda m: ind.adx(m["high"], m["low"], m["close"], 14),
+        "connors_rsi": lambda m: ind.connors_rsi(m["close"]),
+        "zscore": lambda m: ind.zscore(m["close"], 20),
+        "log_returns": lambda m: ind.log_returns(m["close"]),
+        "rolling_beta_corr": lambda m: ind.rolling_beta_corr(
+            ind.log_returns(m["close"]), ind.log_returns(m["close"][:1]), 50),
+        "ma_spreads": lambda m: ind.ma_spreads(m["close"]),
+        "bb_spreads": lambda m: ind.bb_spreads(ind.bollinger(m["close"], 20)),
+    }
+
+
+def cancelling_scales(close: np.ndarray) -> dict:
+    """The functions that return a small difference of two larger terms,
+    and the sum of those terms' magnitudes, per element: the wire contract
+    (rtol 1e-4 of each term) bounds them at rtol times it. The MACD line,
+    its signal and histogram: two to four price-scale EMAs; the z-score:
+    the price and its mean over the 20-bar std; the MA and band spreads:
+    two averages (or bands) over one of them."""
+    win = np.lib.stride_tricks.sliding_window_view(close, 20, axis=1)
+    std = np.concatenate([np.full((close.shape[0], 19), np.nan), win.std(axis=-1)], axis=1)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        z = np.nan_to_num(2 * np.abs(close) / std, nan=0.0, posinf=0.0)
+    return {"macd": 4 * np.abs(close), "zscore": z, "ma_spreads": 2.0, "bb_spreads": 2.0}
+
+
+def check_indicators(card: str) -> dict:
+    """Part C: the batched indicator library (``ops/indicators.py``) on
+    phase 3's 5m ring (S symbols, its W warm bars), every function on
+    ``card`` and on the CPU: NaN positions equal, values within the wire
+    contract (``rtol=1e-4, atol=1e-5``; a difference of larger terms at the
+    contract of those terms, :func:`cancelling_scales`), the supertrend's
+    direction exactly. It prints each function's largest difference and ms
+    per call on ``card`` (host clock around a synchronised call, the best
+    of three)."""
+    import torch
+
+    from binquant_tpu_torch.ops import indicators as ind
+
+    m5, _ = make_market(np.random.default_rng(SEED), live_ticks=CLASSIC_TICKS)
+    ring = bar_values(m5, slice(2 * W, 3 * W), 300)  # (S, W, 10), the 5m ring's warm bars
+    host = {k: torch.from_numpy(np.ascontiguousarray(ring[:, :, i]))
+            for i, k in enumerate(("open", "high", "low", "close", "volume"))}
+    dev = {k: v.to(card) for k, v in host.items()}
+    scales = cancelling_scales(host["close"].numpy().astype(np.float64))
+
+    def sync() -> None:
+        if card == "cuda":
+            torch.cuda.synchronize()
+
+    out: dict = {}
+    for name, fn in indicator_cases(ind).items():
+        got, want = fn(dev), fn(host)
+        times = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            fn(dev)
+            sync()
+            times.append((time.perf_counter() - t0) * 1000.0)
+        pairs = zip(got, want) if isinstance(want, tuple) else [(got, want)]
+        atol = 1e-4 * scales[name] if name in scales else 1e-5
+        err = 0.0
+        for a, b in pairs:
+            a, b = a.cpu().numpy(), b.numpy()
+            if not np.array_equal(np.isnan(a), np.isnan(b)):
+                fail(f"[slice oracle] C: {name}: NaN positions differ between the card and the CPU")
+            ok = np.isclose(a, b, rtol=1e-4, atol=atol, equal_nan=True)
+            if not ok.all():
+                bad = np.flatnonzero(~ok)[:5]
+                fail(f"[slice oracle] C: {name}: card and CPU differ at {bad.tolist()}: "
+                     f"{a.flat[bad]} vs {b.flat[bad]}")
+            fin = np.isfinite(a) & np.isfinite(b)
+            err = max(err, float(np.abs(a[fin] - b[fin]).max()) if fin.any() else 0.0)
+        if name == "supertrend" and not np.array_equal(
+            np.nan_to_num(got.direction.cpu().numpy(), nan=0.0),
+            np.nan_to_num(want.direction.numpy(), nan=0.0),
+        ):
+            fail("[slice oracle] C: the supertrend's direction differs between the card and the CPU")
+        out[name] = {"ms": min(times), "max_abs_err": err}
+    errs = ", ".join(f"{k} {v['max_abs_err']:.3g}" for k, v in out.items())
+    ms = ", ".join(f"{k} {v['ms']:.3f}" for k, v in out.items())
+    print(f"[slice oracle] C: the indicator library on the {S}x{W} 5m ring, card vs CPU within "
+          f"the wire contract; largest difference: {errs}; ms per call: {ms}", flush=True)
+    return out
+
+
+def check_oracle(card: str = "cuda") -> dict:
+    """Phase 13 (``[slice oracle]``): part A, the A/B fixtures, then part B,
+    the full-width market, then part C, the indicator library card against
+    CPU. The oracle arm of A and B runs on the host in a
+    worker process of its own (spawned, killed with this one), its five
+    runs queued at the start, so it works while the card's engines run;
+    its times are taken beside them. Returns both parts, the launches
+    summed."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    spawn = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp, ProcessPoolExecutor(
+        1, mp_context=spawn, initializer=_die_with_parent
+    ) as pool:
+        files = ab_files(Path(tmp))
+        oracles = {name: pool.submit(timed_oracle, files[file], kw)
+                   for name, (file, kw) in ab_cases().items()}
+        stream = pool.submit(oracle_stream, S, W)
+        t0 = time.perf_counter()
+        ab = oracle_ab(card, files, oracles)
+        ab["seconds"] = time.perf_counter() - t0
+        torch_empty_cache()
+        t0 = time.perf_counter()
+        wide = oracle_wide(card, stream)
+        wide["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    indicators = check_indicators(card)
+    indicators_s = time.perf_counter() - t0
+    by_site: dict = {}
+    for p in (ab, wide):
+        _add_sites(by_site, p["launches_by_site"])
+    return {"launches": ab["launches"] + wide["launches"], "launches_by_site": by_site,
+            "ab": ab, "wide": wide, "indicators": indicators, "indicators_s": indicators_s}
+
+
 def cold_boot(card: str = "cuda") -> dict:
     """``--cold-boot``: the time to the first signal after a cold boot of
     the service as a user starts it, the backfill at the production flush
@@ -6217,17 +6651,20 @@ def _die_with_parent() -> None:
         sys.exit(1)
 
 
-def scenario_phases(lap: Laps) -> dict:
-    """Phase 12's parts A and B, the third process's share."""
+def third_phases(lap: Laps) -> dict:
+    """Phase 12's parts A and B, then phase 13: the third process's share."""
     scenarios = check_scenarios(("wide", "corpus"))
     lap("scenarios: wide and corpus")
-    return {"scenarios": scenarios}
+    torch_empty_cache()
+    oracle = check_oracle()
+    lap("oracle")
+    return {"scenarios": scenarios, "oracle": oracle}
 
 
 # the processes main starts beside itself: flag -> (the phases it runs, their names)
 PARTS = {
     "--second": (second_phases, "phases 3, 4, 9, 10 and 12 C"),
-    "--third": (scenario_phases, "phase 12 A and B"),
+    "--third": (third_phases, "phases 12 A and B and 13"),
 }
 
 
@@ -6369,6 +6806,7 @@ def main() -> int:
         "live": live,
         "scenarios": got["--third"]["scenarios"],
         "scenario_soak": second["scenario_soak"],
+        "oracle": got["--third"]["oracle"],
     }
     if "--profile" in args:
         m5, m15 = make_market(np.random.default_rng(SEED))

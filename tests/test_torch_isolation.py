@@ -1,5 +1,6 @@
 """The port stands alone: no JAX, nothing of the reference package, no
-pydantic, ``httpx`` only where a network client is built without a session
+pydantic, no pandas (and its per-symbol oracle nothing of the batched
+path), ``httpx`` only where a network client is built without a session
 or transport (and then only at its first request, but for the binbot
 client), ``websockets`` only where a connector is built without a
 connection factory, ``urllib.request`` only in the AI report's default
@@ -51,6 +52,9 @@ def test_import_pulls_in_no_jax_and_no_reference_module():
         "import binquant_tpu_torch.sim.chaos, binquant_tpu_torch.soak\n"
         "import binquant_tpu_torch.soak.judge, binquant_tpu_torch.soak.stream\n"
         "import binquant_tpu_torch.soak.drill\n"
+        "import binquant_tpu_torch.oracle, binquant_tpu_torch.oracle.frame\n"
+        "import binquant_tpu_torch.oracle.evaluator, binquant_tpu_torch.ops.indicators\n"
+        "import binquant_tpu_torch.regime.routing, binquant_tpu_torch.regime.time_filter\n"
         "import asyncio\n"
         "import torch.profiler\n"
         "made = []\n"
@@ -87,7 +91,7 @@ def test_import_pulls_in_no_jax_and_no_reference_module():
         "asyncio.run(window())\n"
         "assert ctl.closed.is_set() and made == [1] and ctl.last_trace is not None\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'binquant_tpu', 'httpx', 'pydantic', 'websockets'))\n"
+        "('jax', 'jaxlib', 'binquant_tpu', 'httpx', 'pydantic', 'websockets', 'pandas'))\n"
         "print(','.join(bad))\n"
     )
     proc = subprocess.run(
@@ -121,9 +125,10 @@ def test_sources_import_no_jax_and_no_reference_package():
         PKG / "sim" / f for f in ("__init__.py", "scenarios.py", "runner.py", "chaos.py")
     } | {PKG / "soak" / f for f in ("__init__.py", "judge.py", "stream.py", "drill.py")} <= set(
         files)
+    assert {PKG / "oracle" / f for f in ("__init__.py", "frame.py", "evaluator.py")} <= set(files)
     for path in files:
         roots = _imported_roots(path)
-        assert not roots & {"jax", "jaxlib", "binquant_tpu", "pydantic"}, (path, roots)
+        assert not roots & {"jax", "jaxlib", "binquant_tpu", "pydantic", "pandas"}, (path, roots)
         # nothing that opens a connection is imported when a module loads
         top = set()
         for node in ast.parse(path.read_text()).body:
@@ -132,6 +137,35 @@ def test_sources_import_no_jax_and_no_reference_package():
             elif isinstance(node, ast.ImportFrom) and node.module:
                 top.add(node.module.split(".")[0])
         assert not top & {"websockets", "httpx"}, (path, top)
+
+
+def test_oracle_shares_nothing_with_the_batched_path():
+    """The per-symbol oracle is the batched engine's independent check: no
+    module of ``oracle/`` imports the port's ``ops``, ``strategies`` or
+    ``engine``, directly or through what it imports, and none imports
+    pandas (the card's machine has none)."""
+    batched = ("binquant_tpu_torch.ops", "binquant_tpu_torch.strategies",
+               "binquant_tpu_torch.engine")
+    for path in sorted((PKG / "oracle").glob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            names = (
+                [a.name for a in node.names] if isinstance(node, ast.Import)
+                else [node.module or ""] if isinstance(node, ast.ImportFrom) else []
+            )
+            for name in names:
+                assert not name.startswith(batched), (path, name)
+    code = (
+        "import sys\n"
+        "import binquant_tpu_torch.oracle.evaluator\n"
+        f"print(','.join(sorted(m for m in sys.modules if m.startswith({batched!r}) "
+        "or m.split('.')[0] in ('pandas', 'jax', 'binquant_tpu'))))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == ""
 
 
 def test_report_ai_reaches_the_network_only_in_its_default_fetch():
@@ -210,11 +244,13 @@ def test_httpx_is_imported_only_where_no_session_is_given():
 
 
 @pytest.mark.parametrize(
-    "entry", ["make_stub_engine", "SignalEngine", "run_replay", "run_backtest", "run_param_sweep"]
+    "entry", ["make_stub_engine", "SignalEngine", "run_replay", "run_backtest", "run_param_sweep",
+              "run_replay_ab", "backend_ab"]
 )
 def test_entry_points_raise_without_cuda_unless_cpu_requested(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible; the no-CUDA refusal cannot be shown")
+    from binquant_tpu_torch import __main__ as tmain
     from binquant_tpu_torch.backtest import run_backtest, run_param_sweep
     from binquant_tpu_torch.config import Config
     from binquant_tpu_torch.io import pipeline, replay
@@ -242,6 +278,12 @@ def test_entry_points_raise_without_cuda_unless_cpu_requested(entry, tmp_path):
         "run_backtest": lambda **kw: run_backtest(tmp_path / "empty.jsonl", **kw),
         "run_param_sweep": lambda **kw: run_param_sweep(
             tmp_path / "empty.jsonl", {"pt.rsi_oversold": [25.0, 30.0]}, **kw
+        ),
+        "run_replay_ab": lambda **kw: replay.run_replay_ab(tmp_path / "empty.jsonl", **kw),
+        # the command line: ``--backend ab`` without ``--device cpu``
+        "backend_ab": lambda **kw: tmain.main(
+            ["--replay", str(tmp_path / "empty.jsonl"), "--backend", "ab"]
+            + (["--device", kw["device"]] if kw else [])
         ),
     }
     (tmp_path / "empty.jsonl").write_text("")
