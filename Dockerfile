@@ -10,6 +10,7 @@ ARG EXTRAS=""
 
 COPY pyproject.toml README.md ./
 COPY binquant_tpu ./binquant_tpu
+COPY binquant_tpu_torch ./binquant_tpu_torch
 RUN pip install --no-cache-dir ".${EXTRAS:+[$EXTRAS]}"
 
 COPY main.py healthcheck.py bench.py __graft_entry__.py ./

@@ -33,6 +33,14 @@ torch.set_float32_matmul_precision("highest")
 
 __version__ = "0.1.0"
 
+from binquant_tpu_torch.config import Config  # noqa: E402,F401
+from binquant_tpu_torch.enums import (  # noqa: E402,F401
+    Direction,
+    KlineInterval,
+    MarketRegimeCode,
+    MicroRegimeCode,
+)
+
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller asks

@@ -30,7 +30,12 @@ NAME|all|list`` (the scenario corpus and the chaos drills,
 and the run's statistics are printed either way. ``--device`` (``cuda`` by
 default) picks the card; without one the command fails, and it runs on the
 CPU only when asked (``--device cpu``). The settings are ``Config``'s,
-read from the reference's environment variables.
+read from the reference's environment variables, and validated where the
+reference validates them: the live service builds its ``Config()`` first
+and, outside ``ENV=CI``, fails with ``ConfigurationError`` before any
+client is built when a required variable is missing; the offline modes
+validate inside the stub engines they build, which read an unset ``ENV``
+as ``CI`` as the reference's stub does.
 
 :func:`run_live` takes keyword seams for every client that leaves the
 process (the binbot backend's session, the Telegram transport, the futures
@@ -45,6 +50,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
+import os
 import sys
 from collections.abc import Callable
 from typing import Any
@@ -64,6 +70,12 @@ def install_event_log(path: str) -> None:
         from binquant_tpu_torch.obs.events import EventLog, set_event_log
 
         set_event_log(EventLog(path))
+
+
+def _event_log_path() -> str:
+    """``BQT_EVENT_LOG`` for the offline modes, read without building a
+    ``Config``: the stub engines those modes build validate the settings."""
+    return os.environ.get("BQT_EVENT_LOG", "")
 
 
 async def run_live(
@@ -312,10 +324,9 @@ def main(argv: list[str] | None = None) -> int:
                 "+ scanned + full-oracle); combining it with --replay/"
                 "--backend/--scanned/--backtest would be silently ignored"
             )
-        from binquant_tpu_torch.config import Config
         from binquant_tpu_torch.sim.runner import main_cli
 
-        install_event_log(Config().event_log)
+        install_event_log(_event_log_path())
         return main_cli(args.scenario, device=args.device)
     if args.backend != "batch" and not args.replay:
         parser.error("--backend reference/ab requires --replay")
@@ -330,9 +341,7 @@ def main(argv: list[str] | None = None) -> int:
         )
 
     if args.replay:
-        from binquant_tpu_torch.config import Config
-
-        install_event_log(Config().event_log)
+        install_event_log(_event_log_path())
         if args.backend == "reference":
             from binquant_tpu_torch.io.replay import run_replay_oracle
 

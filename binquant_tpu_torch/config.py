@@ -2,7 +2,20 @@
 
 The port's own copy of the fields of ``binquant_tpu/config.py`` the ported
 slices use, as one small dataclass built explicitly by the caller (no
-environment parsing at import time). Defaults are the production shape:
+environment parsing at import time).
+
+Building one validates the environment as the reference's ``Config()``
+does: outside ``ENV=CI`` each of the 17 variables of
+:data:`REQUIRED_VARS` must be set and non-empty, or the constructor raises
+:class:`~binquant_tpu_torch.exceptions.ConfigurationError` naming the
+missing ones (a production deploy that forgets ``ENV`` fails loudly rather
+than sliding into the CI bypass). ``env`` is the ``ENV`` the check reads;
+a caller may pass it, as the stub engines do with ``ENV``'s value or
+``"CI"`` when it is unset. The credentials and switches read from the same
+variables: ``autotrade_enabled`` (``AUTOTRADE`` of 1/true/yes), the
+Binance and KuCoin keys, and ``postgres_dsn`` (from ``POSTGRES_*``).
+
+Defaults are the production shape:
 2048 symbol rows, a 400-bar ring per interval, the incremental tick
 (carried indicator state, resynced by a full recompute every
 ``carry_audit_every_ticks`` ticks; 0 disables the audit), and the
@@ -127,10 +140,45 @@ import os
 import tempfile
 from dataclasses import dataclass, field
 
+from binquant_tpu_torch.exceptions import ConfigurationError
+
+REQUIRED_VARS = (
+    "ENV",
+    "BINBOT_API_URL",
+    "TELEGRAM_BOT_TOKEN",
+    "TELEGRAM_USER_ID",
+    "BINANCE_API_KEY",
+    "BINANCE_API_SECRET",
+    "KUCOIN_API_KEY",
+    "KUCOIN_API_SECRET",
+    "KUCOIN_API_PASSPHRASE",
+    "POSTGRES_HOST",
+    "POSTGRES_PORT",
+    "POSTGRES_DB",
+    "POSTGRES_USER",
+    "POSTGRES_PASSWORD",
+    "BINANCE_KEY_ID",
+    "AUTOTRADE",
+    "LOG_LEVEL",
+)
+
 
 def _env_int(name: str, default: int) -> int:
     """An integer knob from the environment; unset or empty is ``default``."""
     return int(os.environ.get(name, "") or default)
+
+
+def _env_str(name: str, default: str = "") -> str:
+    return os.environ.get(name, default)
+
+
+def _postgres_dsn() -> str:
+    host = _env_str("POSTGRES_HOST", "localhost")
+    port = _env_str("POSTGRES_PORT", "5432")
+    db = _env_str("POSTGRES_DB", "binquant")
+    user = _env_str("POSTGRES_USER", "postgres")
+    pwd = _env_str("POSTGRES_PASSWORD", "")
+    return f"postgresql://{user}:{pwd}@{host}:{port}/{db}"
 
 
 @dataclass
@@ -229,7 +277,30 @@ class Config:
     profile_remote_ok: bool = field(
         default_factory=lambda: os.environ.get("BQT_PROFILE_REMOTE", "0") == "1"
     )
+    autotrade_enabled: bool = field(
+        default_factory=lambda: _env_str("AUTOTRADE", "false").lower() in {"1", "true", "yes"}
+    )
+    binance_api_key: str = field(default_factory=lambda: _env_str("BINANCE_API_KEY"))
+    binance_api_secret: str = field(default_factory=lambda: _env_str("BINANCE_API_SECRET"))
+    kucoin_api_key: str = field(default_factory=lambda: _env_str("KUCOIN_API_KEY"))
+    kucoin_api_secret: str = field(default_factory=lambda: _env_str("KUCOIN_API_SECRET"))
+    kucoin_api_passphrase: str = field(
+        default_factory=lambda: _env_str("KUCOIN_API_PASSPHRASE")
+    )
+    postgres_dsn: str = field(default_factory=_postgres_dsn)
     env: str = field(default_factory=lambda: os.environ.get("ENV", ""))
+
+    def __post_init__(self) -> None:
+        if self.is_ci:
+            return
+        missing = [
+            v for v in REQUIRED_VARS
+            if not (self.env if v == "ENV" else os.environ.get(v))
+        ]
+        if missing:
+            raise ConfigurationError(
+                f"Missing required environment variables: {', '.join(sorted(missing))}"
+            )
 
     @property
     def is_ci(self) -> bool:

@@ -18,6 +18,10 @@ one batched scatter per candle sub-batch.
   on ``mode="drop"`` scatters, which torch indexing does not have), and a row
   repeated within one batch keeps its LAST entry.
 
+:func:`apply_updates_shift` is the reference's original shift-append update
+on the canonical layout, kept as the cursor ring's bit-equality oracle in
+the tests, never a live path.
+
 The functions are functional: they return new tensors and leave their inputs
 untouched, so a caller can keep the pre-update state (tests compare it). The
 one exception is the in-place form of :func:`apply_updates_routed` /
@@ -60,11 +64,18 @@ class Field(IntEnum):
     DURATION_S = 9
 
 
+FIELDS: tuple[str, ...] = tuple(f.name.lower() for f in Field)
 NUM_FIELDS = len(Field)
 
 
 def ms_to_s(ts_ms: int) -> int:
     return int(ts_ms) // 1000
+
+
+def s_to_ms(ts_s: int | np.ndarray) -> np.ndarray | int:
+    if isinstance(ts_s, np.ndarray):
+        return ts_s.astype(np.int64) * 1000
+    return int(ts_s) * 1000
 
 
 class MarketBuffer(NamedTuple):
@@ -80,6 +91,10 @@ class MarketBuffer(NamedTuple):
     @property
     def window(self) -> int:
         return self.times.shape[1]
+
+    @property
+    def latest_times(self) -> torch.Tensor:
+        return ring_latest_times(self)
 
 
 def empty_buffer(
@@ -218,6 +233,36 @@ def apply_updates(
     return apply_updates_routed(buf, r, upd_vals, inplace)
 
 
+def apply_updates_shift(
+    buf: MarketBuffer,
+    row_idx: torch.Tensor,
+    ts: torch.Tensor,
+    vals: torch.Tensor,
+) -> MarketBuffer:
+    """The reference's original shift-append update, canonical layout only
+    (``cursor`` all zeros, and it stays zero): an append shifts the row
+    left by one bar and writes the new bar at ``W-1``, a rewrite overwrites
+    the bar holding its timestamp. The bit-equality oracle for the cursor
+    ring (``materialize`` of :func:`apply_updates`'s ring equals it); not a
+    live path."""
+    W = buf.times.shape[1]
+    r, upd_vals = _scatter_updates(buf, row_idx, ts, vals)
+    app_times = torch.cat([buf.times[:, 1:], r.upd_ts[:, None]], dim=1)
+    app_vals = torch.cat([buf.values[:, 1:, :], upd_vals[:, None, :]], dim=1)
+    rw_vals = torch.where(
+        (r.is_rewrite[:, None] & r.slot_match)[..., None],
+        upd_vals[:, None, :],
+        buf.values,
+    )
+    sel_a = r.is_append[:, None]
+    times = torch.where(sel_a, app_times, buf.times)
+    values = torch.where(sel_a[..., None], app_vals, rw_vals)
+    filled = torch.where(
+        r.is_append, torch.clamp(buf.filled + 1, max=W), buf.filled
+    ).to(torch.int32)
+    return MarketBuffer(times=times, values=values, filled=filled, cursor=buf.cursor)
+
+
 def materialize_tail(buf: MarketBuffer, width: int) -> MarketBuffer:
     """Right-aligned view of each symbol's newest ``width`` bars (empties at
     the -1/NaN sentinels); ``filled`` stays the true count."""
@@ -247,6 +292,11 @@ def fresh_mask(buf: MarketBuffer, timestamp_s: torch.Tensor) -> torch.Tensor:
 def valid_mask(buf: MarketBuffer) -> torch.Tensor:
     """(S, W) bool — True where a real bar is stored."""
     return buf.times >= 0
+
+
+def field(buf: MarketBuffer, f: Field) -> torch.Tensor:
+    """(S, W) view of one OHLCV field."""
+    return buf.values[:, :, int(f)]
 
 
 def reset_rows(buf: MarketBuffer, rows: torch.Tensor) -> MarketBuffer:
@@ -302,6 +352,18 @@ class SymbolRegistry:
 
     def name_of(self, row: int) -> str | None:
         return self._row_to_name.get(row)
+
+    def rows_for(self, symbols: list[str], add_missing: bool = True) -> np.ndarray:
+        """(N,) int32 rows of ``symbols``, claiming rows for new ones
+        (``add_missing``) or -1 for unknown ones."""
+        out = np.empty(len(symbols), dtype=np.int32)
+        for i, s in enumerate(symbols):
+            if add_missing:
+                out[i] = self.add(s)
+            else:
+                row = self.row_of(s)
+                out[i] = -1 if row is None else row
+        return out
 
     @property
     def names(self) -> list[str]:

@@ -106,6 +106,9 @@ class StubSession:
             return self._breadth_payload()
         return self._Resp({"data": {}})
 
+    def get(self, url, params=None):
+        return self.request("GET", url, params=params)
+
 
 def make_stub_engine(
     capacity: int = 256,

@@ -89,13 +89,35 @@ def read_breadth_momentum(
 
 
 class GridOnlyPolicy(NamedTuple):
+    """Immutable verdict of the grid-only decision ladder."""
+
     allow_grid_ladder: bool = False
     block_standard_bots: bool = False
     reason: str = "not_evaluated"
+    direction: str | None = None
+    source: str | None = None
+    latest: float | None = None
+    previous: float | None = None
+    momentum_points: float | None = None
 
     @classmethod
     def disabled(cls, reason: str) -> "GridOnlyPolicy":
         return cls(reason=reason)
+
+    @classmethod
+    def active(
+        cls, *, direction: str, source: str, latest: float, previous: float
+    ) -> "GridOnlyPolicy":
+        return cls(
+            allow_grid_ladder=True,
+            block_standard_bots=True,
+            reason=f"breadth_momentum_{direction}_{source}",
+            direction=direction,
+            source=source,
+            latest=latest,
+            previous=previous,
+            momentum_points=(latest - previous) * 100,
+        )
 
     @classmethod
     def resolve(
@@ -115,8 +137,9 @@ class GridOnlyPolicy(NamedTuple):
             return cls.disabled("breadth_momentum_unavailable")
         if momentum.leaning == "flat":
             return cls.disabled("breadth_momentum_flat")
-        return cls(
-            allow_grid_ladder=True,
-            block_standard_bots=True,
-            reason=f"breadth_momentum_{momentum.leaning}_{momentum.source}",
+        return cls.active(
+            direction=momentum.leaning,
+            source=momentum.source,
+            latest=momentum.latest,
+            previous=momentum.previous,
         )

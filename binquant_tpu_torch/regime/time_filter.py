@@ -11,8 +11,9 @@ and a suppressed activation's Telegram block is
 
 London local time is computed from the UK civil-time rule (GMT, and BST =
 UTC+1 from 01:00 UTC on the last Sunday of March to 01:00 UTC on the last
-Sunday of October) instead of a time-zone database, so the filter needs no
-tz data on the host it runs on.
+Sunday of October) instead of a time-zone database, so the filter's
+decision does not hang on the host's tz data. :data:`LONDON` is the
+reference's zone, ``ZoneInfo("Europe/London")``, for callers that want it.
 """
 
 from __future__ import annotations
@@ -21,8 +22,11 @@ import calendar
 import os
 from datetime import datetime, timedelta, timezone
 from typing import NamedTuple
+from zoneinfo import ZoneInfo
 
 from binquant_tpu_torch.enums import MarketRegimeCode, MarketTransitionCode
+
+LONDON = ZoneInfo("Europe/London")
 
 QUIET_START_HOUR = 20
 QUIET_END_HOUR = 23

@@ -6,7 +6,8 @@ Port of ``binquant_tpu/strategies/features.py``: the full-window pack
 :class:`FeatureCarry` built from the window by every full recompute
 (:func:`init_feature_carry`), advanced by one bar per clean append
 (:func:`advance_feature_carry`) and read out as the same pack
-(:func:`feature_pack_from_carry`). Variant pins match the reference:
+(:func:`feature_pack_from_carry`); :func:`compute_feature_pack_incremental`
+does both in one call. Variant pins match the reference:
 ``rsi`` is the simple-rolling-mean RSI, ``rsi_wilder`` the Wilder/EWM RSI,
 ``atr`` the SMA of true range, Bollinger 20/2σ with ddof=0. For the
 backtest's extension-invariant chunk, :func:`compute_feature_pack_ext`
@@ -557,6 +558,15 @@ def feature_pack_from_carry(
         filled=buf.filled,
         valid=buf.filled > 0,
     )
+
+
+def compute_feature_pack_incremental(
+    buf: MarketBuffer, carry: FeatureCarry
+) -> tuple[FeaturePack, FeatureCarry]:
+    """One-bar advance and readout: the pack of the newest bar from the
+    carry, and the advanced carry."""
+    new_carry, stale = advance_feature_carry(buf, carry)
+    return feature_pack_from_carry(buf, new_carry, stale), new_carry
 
 
 # ---------------------------------------------------------------------------

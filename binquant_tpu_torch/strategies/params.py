@@ -1,7 +1,7 @@
 """Strategy parameters: every live threshold in one NamedTuple.
 
 Port of ``binquant_tpu/strategies/params.py``: ``StrategyParams``,
-``resolve_params``, ``declared_gate_margins`` and the sweep's grid helpers
+``default_strategy_params``, ``resolve_params``, ``declared_gate_margins`` and the sweep's grid helpers
 (:func:`sweepable_axes`, :func:`make_param_grid`, :func:`param_axes`,
 :func:`grid_size`, and :func:`grid_combo`, which slices one combo out of a
 grid). The port runs eagerly, so the parameters are plain Python values;
@@ -36,6 +36,10 @@ class StrategyParams(NamedTuple):
     lsp: LSPParams = LSPParams()
     mrf: MRFParams = MRFParams()
     ladder: LadderParams = LadderParams()
+
+
+def default_strategy_params() -> StrategyParams:
+    return StrategyParams()
 
 
 def resolve_params(params: StrategyParams | None) -> StrategyParams:

@@ -324,18 +324,40 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    5m ring (S x W), on the card and on the CPU: NaN positions equal, values
    within ``rtol=1e-4, atol=1e-5``, the supertrend's direction exactly; ms
    per call on the card.
-14. Print the kernels line, the card's name and power limit, and the result.
+14. Profile the tick stage by stage (``[slice stages]``,
+   ``binquant_tpu_torch/tools/``): ``profile_stages.run`` on the card at S
+   symbols and W bars (the reference profiler's stages, market and seed),
+   its table printed (p50 and max wall ms of a synchronized call, device
+   ms between CUDA events, host-issue ms, device busy ms and operations per
+   call from ``torch.profiler``, qtail launches by site at ``abp``,
+   ``detect_spikes`` and the full ``tick_step``: 1, 1 and 3); it fails if
+   the profiler lost any stage's device operations. The full and
+   the incremental ``tick_step`` on the same market once more on the card
+   and on the CPU: wires at the contract (the fired block exact, floats
+   ``rtol=1e-4, atol=1e-5``), signals fired. ``sweep_report --demo`` on the
+   card and on the CPU over two values of one of its axes (the demo's
+   stream; its default 64-combo grid takes minutes on either): fire counts
+   per combo and strategy equal. The CPU's side runs in a worker process
+   (spawned at the phase's start, killed with this one) beside the card's.
+   Every qtail launch of the phase is held against the twin, as many
+   checks as launches (the profiled calls write nothing in place, so their
+   tensors are held by reference: the timed calls carry no copies). It
+   prints the card's name and power limit.
+15. Print the kernels line, the card's name and power limit, and the result.
 
 The drives are host-bound (the card is idle most of a tick), so after
 phase 2 the phases run in three processes on the one card at once: this
-one runs phases 5-8 and 11, a second one (``--second PATH``) phases 3, 4,
-9 and 10 and phase 12's part C, a third one (``--third PATH``) phase 12's
+one runs phases 5-8 and 11 and phase 12's part C, a second one (``--second
+PATH``) phases 3, 4, 9, 10 and 14, a third one (``--third PATH``) phase 12's
 parts A and B and phase 13; each is started by this
 one and killed with it, writes its results to PATH and its standard
 output to ``PATH.log`` (printed here when it ends). Each process zeroes
 and reads its own launch counts around each of its drives; the kernels
 line sums all three. Host times of any process are taken while the others
-run. All run OpenMP with ``OMP_WAIT_POLICY=PASSIVE`` (unless set): the
+run. Phase 14 runs in the second process because its profiler session
+counts the card's activities in full only in a process that has opened no
+profiler before (phase 8 opens one in this process; here the counts came
+short). All run OpenMP with ``OMP_WAIT_POLICY=PASSIVE`` (unless set): the
 CPU engines' threads sleep between parallel regions instead of spinning
 on the shared cores.
 
@@ -363,6 +385,11 @@ through the per-pair loop (:func:`fold_ab`), and prints no result.
 
 It exits nonzero without printing a result when CUDA is unavailable or when
 run outside a checkout that holds the ``binquant_tpu_torch`` package.
+
+The smoke runs as CI: it sets ``ENV=CI`` in its own environment (the
+processes it starts inherit it), as the test suite does, so the ``Config``
+every stub engine builds inside the port skips the production check of the
+deployment's environment variables.
 """
 
 from __future__ import annotations
@@ -4586,7 +4613,7 @@ def check_scanned(m5, m15, serial: dict, cm5, cm15, card: str = "cuda") -> dict:
 
 
 @contextlib.contextmanager
-def _twin_checked(checks: list, on_host: bool = False):
+def _twin_checked(checks: list, on_host: bool = False, by_reference: bool = False):
     """Hold every qtail call ActivityBurstPump and the spike detector make
     inside the block against the twin on the same input, bit for bit, once
     the block has ended: each call's input and output are cloned as it is
@@ -4594,7 +4621,9 @@ def _twin_checked(checks: list, on_host: bool = False):
     ``checks`` gets one ``(site, shape, num_out, equal)`` entry a call. The
     copies stay on the device, or with ``on_host`` go to pinned host memory
     by an asynchronous copy on the compute stream, so that the device memory
-    a drive reports holds none of them."""
+    a drive reports holds none of them. ``by_reference`` keeps each call's
+    own tensors instead, for a block that writes nothing in place, so that
+    its timed calls carry no copies."""
     import torch
 
     from binquant_tpu_torch.ops import quantile_tail as qt
@@ -4605,6 +4634,8 @@ def _twin_checked(checks: list, on_host: bool = False):
     saved: list = []
 
     def keep(t):
+        if by_reference:
+            return t
         if on_host and t.is_cuda:
             return t.to("cpu", non_blocking=True)  # pinned, ordered after the launch
         return t.clone()
@@ -6455,6 +6486,162 @@ def check_oracle(card: str = "cuda") -> dict:
             "ab": ab, "wide": wide, "indicators": indicators, "indicators_s": indicators_s}
 
 
+# phase 14's sweep: the demo's stream over two values of one of its axes
+STAGES_SWEEP_ARGS = ("--demo", "--axis", "pt.rsi_oversold=15,45")
+# qtail launches of one call of each profiled stage that reaches the kernel
+STAGES_QTAIL = {
+    "abp": {"abp_core": 1},
+    "detect_spikes": {"detect_spikes": 1},
+    "tick_step (device-resident inputs)": {
+        "abp_core": 1, "abp_init_from_window": 1, "detect_spikes": 1},
+}
+
+
+def stage_ticks(device: str, symbols: int, window: int) -> dict:
+    """The profiler market's full and incremental ``tick_step`` on
+    ``device``: each wire on the host, and the signals each fired."""
+    from binquant_tpu_torch.engine.step import init_indicator_carry, tick_step
+    from binquant_tpu_torch.regime.context import ContextConfig
+    from binquant_tpu_torch.tools import profile_stages as ps
+
+    market = ps.make_market(symbols, window)
+    state = ps.fill_rings(market, device)
+    upd = ps.to_device(market.upd, device)
+    inputs = ps.to_device(ps.host_inputs(market), device)
+    full = tick_step(state, upd, upd, inputs, ContextConfig())[1]
+    synced = state._replace(
+        indicator_carry=init_indicator_carry(state.buf5, state.buf15, inputs.btc_row))
+    incr = tick_step(synced, upd, upd, inputs, ContextConfig(), incremental=True)[1]
+    return {kind: {"wire": out.wire.cpu().numpy(),
+                   "fired": int(out.summary.trigger.sum())}
+            for kind, out in (("full", full), ("incremental", incr))}
+
+
+def stage_sweep(device: str, path: str) -> tuple[int, dict | None]:
+    """``sweep_report`` over phase 14's grid on ``device``: its exit code and
+    its JSON result."""
+    from binquant_tpu_torch.tools import sweep_report
+
+    rc = sweep_report.main([*STAGES_SWEEP_ARGS, "--device", device, "--json", path])
+    return rc, json.loads(Path(path).read_text()) if rc == 0 else None
+
+
+def stage_cpu_side(tmp: str, symbols: int, window: int) -> tuple[dict, tuple]:
+    """Phase 14's CPU side (a worker process's job): the ticks, the sweep."""
+    return stage_ticks("cpu", symbols, window), stage_sweep("cpu", f"{tmp}/cpu.json")
+
+
+def check_stages(card: str = "cuda") -> dict:
+    """Phase 14 (``[slice stages]``): the per-stage profile of the tick on
+    the card, its ``tick_step`` rows against the CPU, the sweep report's
+    demo against the CPU (that side in a worker process); every qtail
+    launch held against the twin."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    spawn = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp, ProcessPoolExecutor(
+        1, mp_context=spawn, initializer=_die_with_parent
+    ) as pool:
+        return _check_stages(card, tmp, pool.submit(stage_cpu_side, tmp, S, W))
+
+
+def _check_stages(card: str, tmp: str, cpu_side) -> dict:
+    from binquant_tpu_torch.engine.step import WIRE_FIRED_COUNT_OFF, WIRE_MAX_FIRED
+    from binquant_tpu_torch.ops import quantile_tail as qt
+    from binquant_tpu_torch.tools import profile_stages as ps
+
+    t_phase = time.perf_counter()
+    checks: list = []
+    qt.reset_launches()
+    with _twin_checked(checks, by_reference=True):
+        prof = ps.run(S, W, card, out=sys.stdout)
+    profile_s = time.perf_counter() - t_phase
+    if [r["name"] for r in prof["rows"]] != list(ps.STAGES):
+        fail("[slice stages] the profile's rows are not the reference's stages in order")
+    by_name = {r["name"]: r for r in prof["rows"]}
+    if card == "cuda":
+        for name, sites in STAGES_QTAIL.items():
+            if by_name[name]["qtail"] != sites:
+                fail(f"[slice stages] {name}: qtail launches {by_name[name]['qtail']}, "
+                     f"expected {sites}")
+        unmeasured = [r["name"] for r in prof["rows"] if r["device_ops"] is None]
+        if unmeasured:
+            fail(f"[slice stages] torch.profiler lost the device operations of {unmeasured}")
+
+    # the tick_step rows' outputs, card against CPU, on the same market
+    t0 = time.perf_counter()
+    with _twin_checked(checks):
+        got = stage_ticks(card, S, W)
+    ticks_s = time.perf_counter() - t0
+    # the sweep report's demo on the card
+    t0 = time.perf_counter()
+    with _twin_checked(checks):
+        rc, sweep_card = stage_sweep(card, f"{tmp}/card.json")
+    sweep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref, (rc_cpu, sweep_cpu) = cpu_side.result()
+    wait_s = time.perf_counter() - t0
+    off, K = WIRE_FIRED_COUNT_OFF, WIRE_MAX_FIRED
+    wire_err = {}
+    for kind in ("full", "incremental"):
+        wg, wc = got[kind]["wire"], ref[kind]["wire"]
+        if got[kind]["fired"] != ref[kind]["fired"] or not got[kind]["fired"]:
+            fail(f"[slice stages] {kind} tick_step: {got[kind]['fired']} signals on the "
+                 f"card, {ref[kind]['fired']} on the CPU")
+        if wg[off] != wc[off] or not np.array_equal(wg[off: off + 1 + 4 * K],
+                                                     wc[off: off + 1 + 4 * K]):
+            fail(f"[slice stages] {kind} tick_step: fired blocks differ from the CPU's")
+        if not np.isclose(wg, wc, rtol=1e-4, atol=1e-5, equal_nan=True).all():
+            bad = np.flatnonzero(~np.isclose(wg, wc, rtol=1e-4, atol=1e-5, equal_nan=True))
+            fail(f"[slice stages] {kind} tick_step: wire floats differ at {bad[:5].tolist()}")
+        fin = np.isfinite(wg) & np.isfinite(wc)
+        wire_err[kind] = float(np.abs(wg[fin] - wc[fin]).max())
+    if rc or rc_cpu:
+        fail(f"[slice stages] sweep_report --demo exited {rc} on the card, {rc_cpu} on the CPU")
+    if sweep_card["trig_counts"] != sweep_cpu["trig_counts"]:
+        fail(f"[slice stages] sweep fire counts differ: {sweep_card['total_fired']} on the "
+             f"card, {sweep_cpu['total_fired']} on the CPU")
+    if not any(sweep_card["total_fired"]):
+        fail("[slice stages] the sweep's demo fired nothing")
+
+    launches, by_site = qt.launches, dict(qt.launches_by_site)
+    shapes = sorted({f"{site} {'x'.join(map(str, shape))} K={k}"
+                     for site, shape, k, _ in checks})
+    if card == "cuda" and (len(checks) != launches or not launches):
+        fail(f"[slice stages] {len(checks)} twin checks for {launches} qtail launches")
+    if not all(c[3] for c in checks):
+        fail(f"[slice stages] qtail differs from its twin: {[c for c in checks if not c[3]][:3]}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30,
+    ) if card == "cuda" else None
+    card_line = smi.stdout.strip() if smi is not None and smi.stdout.strip() else "n/a"
+    totals = prof["totals"]
+    seconds = time.perf_counter() - t_phase
+    print(f"[slice stages] S={S} W={W} on {card_line}: {len(prof['rows'])} stages; the "
+          f"compute stages {totals['sum_of_compute_stages_ms']:.1f} ms of p50, "
+          f"{totals.get('stage_ops')} of the full tick's {totals.get('full_tick_ops')} device "
+          f"operations ({totals.get('stage_ops_share')}); full vs incremental "
+          f"{totals.get('full_vs_incremental', 0):.2f}x; tick_step card vs CPU: "
+          f"{got['full']['fired']} / {got['incremental']['fired']} signals, wire max error "
+          f"{wire_err}; sweep demo (P={sweep_card['P']}) fires {sweep_card['total_fired']} "
+          f"equal to the CPU's, {sweep_card['wall_s']} s on the card, "
+          f"{sweep_cpu['wall_s']} s on the CPU; qtail {launches} launches {by_site} at "
+          f"{shapes}, "
+          f"{len(checks)} twin checks, all equal; profile {profile_s:.1f} s, ticks "
+          f"{ticks_s:.1f} s, sweep {sweep_s:.1f} s, then {wait_s:.1f} s waiting for the "
+          f"CPU's side; phase {seconds:.1f} s")
+    return {"launches": launches, "launches_by_site": by_site, "card": card_line,
+            "rows": prof["rows"], "totals": totals, "wire_max_err": wire_err,
+            "fired": {k: got[k]["fired"] for k in got},
+            "sweep": {k: sweep_card[k] for k in ("P", "total_fired", "wall_s", "dispatches")},
+            "sweep_cpu_wall_s": sweep_cpu["wall_s"], "twin_checks": len(checks),
+            "qtail_shapes": shapes,
+            "seconds": seconds}
+
+
 def cold_boot(card: str = "cuda") -> dict:
     """``--cold-boot``: the time to the first signal after a cold boot of
     the service as a user starts it, the backfill at the production flush
@@ -6598,8 +6785,8 @@ class Laps:
 
 
 def second_phases(lap: Laps) -> dict:
-    """Phases 3, 4, 9 and 10, the second process's share: their results by
-    slice, as the first process puts them in the slice line."""
+    """Phases 3, 4, 9, 10 and 14, the second process's share: their results
+    by slice, as the first process puts them in the slice line."""
     m5, m15 = make_market(np.random.default_rng(SEED))
     # phase 3: the classic and the incremental live paths
     classic = check_classic(m5, m15)
@@ -6623,10 +6810,11 @@ def second_phases(lap: Laps) -> dict:
     backtest = check_backtest()
     lap("backtest")
     torch_empty_cache()
-    # phase 12's part C: here, where the two other processes' shares of the
-    # smoke leave the most room
-    soak = check_scenarios(("soak",))
-    lap("scenarios: soak")
+    # phase 14: the per-stage profile of the tick and the tools, here: its
+    # profiler sessions count what the card ran only in a process that has
+    # opened no profiler before (phase 8 opens one in the first process)
+    stages = check_stages()
+    lap("stages")
     return {
         "classic": {k: v for k, v in classic.items()
                     if k not in ("fired", "indicators", "tick_times")},
@@ -6635,7 +6823,7 @@ def second_phases(lap: Laps) -> dict:
         "fanout": {k: v for k, v in fanout.items() if k != "paths"},
         "scanned": scanned,
         "backtest": backtest,
-        "scenario_soak": soak,
+        "stages": {k: v for k, v in stages.items() if k != "rows"},
     }
 
 
@@ -6663,7 +6851,7 @@ def third_phases(lap: Laps) -> dict:
 
 # the processes main starts beside itself: flag -> (the phases it runs, their names)
 PARTS = {
-    "--second": (second_phases, "phases 3, 4, 9, 10 and 12 C"),
+    "--second": (second_phases, "phases 3, 4, 9, 10 and 14"),
     "--third": (third_phases, "phases 12 A and B and 13"),
 }
 
@@ -6703,6 +6891,9 @@ def main() -> int:
     part_out = Path(args[args.index(part) + 1]) if part is not None else None
     if part is not None:
         _die_with_parent()
+    # a CI run: the stub engines' Config skips the production check of the
+    # deployment's variables (the processes started below inherit it)
+    os.environ["ENV"] = "CI"
     # the smoke needs one card: on a host with several, use the first only
     visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0")
     os.environ["CUDA_VISIBLE_DEVICES"] = visible.split(",")[0].strip()
@@ -6787,6 +6978,12 @@ def main() -> int:
         # phase 11: the port as a service, booted cold through run_live
         live = check_live()
         lap("live")
+        torch_empty_cache()
+        collect()
+        # phase 12's part C: here, where the two other processes' shares of
+        # the smoke leave the most room
+        soak = check_scenarios(("soak",))
+        lap("scenarios: soak")
         collect(wait=True)
         print(f"[time] all phases, all processes: {time.perf_counter() - t0:.1f} s")
     finally:
@@ -6805,8 +7002,9 @@ def main() -> int:
         **{k: second[k] for k in ("fanout", "scanned", "backtest")},
         "live": live,
         "scenarios": got["--third"]["scenarios"],
-        "scenario_soak": second["scenario_soak"],
+        "scenario_soak": soak,
         "oracle": got["--third"]["oracle"],
+        "stages": second["stages"],
     }
     if "--profile" in args:
         m5, m15 = make_market(np.random.default_rng(SEED))

@@ -55,6 +55,9 @@ def test_import_pulls_in_no_jax_and_no_reference_module():
         "import binquant_tpu_torch.oracle, binquant_tpu_torch.oracle.frame\n"
         "import binquant_tpu_torch.oracle.evaluator, binquant_tpu_torch.ops.indicators\n"
         "import binquant_tpu_torch.regime.routing, binquant_tpu_torch.regime.time_filter\n"
+        "import binquant_tpu_torch.tools, binquant_tpu_torch.tools.profile_stages\n"
+        "import binquant_tpu_torch.tools.sweep_report, binquant_tpu_torch.tools.scenario_report\n"
+        "import binquant_tpu_torch.tools.outcome_report\n"
         "import asyncio\n"
         "import torch.profiler\n"
         "made = []\n"
@@ -126,6 +129,8 @@ def test_sources_import_no_jax_and_no_reference_package():
     } | {PKG / "soak" / f for f in ("__init__.py", "judge.py", "stream.py", "drill.py")} <= set(
         files)
     assert {PKG / "oracle" / f for f in ("__init__.py", "frame.py", "evaluator.py")} <= set(files)
+    assert {PKG / "tools" / f for f in ("__init__.py", "profile_stages.py", "sweep_report.py",
+                                        "scenario_report.py", "outcome_report.py")} <= set(files)
     for path in files:
         roots = _imported_roots(path)
         assert not roots & {"jax", "jaxlib", "binquant_tpu", "pydantic", "pandas"}, (path, roots)
@@ -245,7 +250,7 @@ def test_httpx_is_imported_only_where_no_session_is_given():
 
 @pytest.mark.parametrize(
     "entry", ["make_stub_engine", "SignalEngine", "run_replay", "run_backtest", "run_param_sweep",
-              "run_replay_ab", "backend_ab"]
+              "run_replay_ab", "backend_ab", "profile_stages", "sweep_report"]
 )
 def test_entry_points_raise_without_cuda_unless_cpu_requested(entry, tmp_path):
     if torch.cuda.is_available():
@@ -260,6 +265,7 @@ def test_entry_points_raise_without_cuda_unless_cpu_requested(entry, tmp_path):
         AutotradeSettingsSchema,
         TestAutotradeSettingsSchema,
     )
+    from binquant_tpu_torch.tools import profile_stages, sweep_report
 
     def engine(**kw):
         consumer = AutotradeConsumer(
@@ -283,6 +289,14 @@ def test_entry_points_raise_without_cuda_unless_cpu_requested(entry, tmp_path):
         # the command line: ``--backend ab`` without ``--device cpu``
         "backend_ab": lambda **kw: tmain.main(
             ["--replay", str(tmp_path / "empty.jsonl"), "--backend", "ab"]
+            + (["--device", kw["device"]] if kw else [])
+        ),
+        # the tools: without ``--device`` they take the card
+        "profile_stages": lambda **kw: profile_stages.run(
+            8, 96, iters=1, warmup=0, **({"device": kw["device"]} if kw else {})
+        ),
+        "sweep_report": lambda **kw: sweep_report.main(
+            [str(tmp_path / "empty.jsonl"), "--axis", "pt.rsi_oversold=25,30"]
             + (["--device", kw["device"]] if kw else [])
         ),
     }
