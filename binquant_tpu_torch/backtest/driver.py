@@ -154,7 +154,7 @@ async def _flush_backtest_plan(engine, plan: dict, params) -> list:
     ticks = plan["ticks"]
     if not ticks:
         return []
-    if len(ticks) < engine._SCAN_MIN_TICKS:
+    if len(ticks) < engine._SCAN_MIN_TICKS or engine.mesh is not None:
         return await engine._redrive_serial(plan)
     fired_all: list = await engine.flush_pending()
     engine._refuse_while_held("a backtest chunk")
@@ -261,7 +261,8 @@ async def drive_ticks_backtest(engine, ticks, params=None, chunk=None) -> list:
             t_plan0 = time.perf_counter()
             batches5, batches15, churn, ingest_mono = engine._drain_for_plan(feed)
             clean = engine._note_applied(batches5, batches15, commit=False)
-            if not clean or churn:
+            # a sharded engine runs every tick serially, as the reference's
+            if not clean or churn or engine.mesh is not None:
                 if plan is not None:
                     fired_all.extend(await _flush_backtest_plan(engine, plan, params))
                     plan = None

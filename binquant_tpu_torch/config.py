@@ -42,12 +42,12 @@ pipelined production loop:
 * ``checkpoint_path`` — where :class:`CheckpointManager` snapshots the
   engine every ``checkpoint_every_ticks`` ticks (empty: no checkpoints);
   ``ckpt_shards`` above 1 writes that many per-shard archives (0: the
-  mesh size, 1 since the port runs unsharded; a restore reads any count,
-  ``io/checkpoint.py``);
+  mesh size, 1 unsharded; a restore reads any count, ``io/checkpoint.py``);
 * ``mesh_devices`` (``BQT_MESH_DEVICES``, read when the Config is built) —
-  shard the symbol axis over this many cards (0 or 1: one card). The port
-  has no multi-card tick: with fewer cards visible it warns and runs on
-  one, with that many it raises (``parallel/mesh.py``);
+  shard the symbol axis over this many cards (0 or 1: unsharded): a CUDA
+  engine over ``cuda:0 .. cuda:N-1``, a CPU engine over N shards on the
+  CPU; with fewer cards visible, or a capacity the count does not divide,
+  it warns and runs unsharded (``parallel/mesh.py``);
 * ``binbot_timeout_s``, ``binbot_retry_max``, ``binbot_retry_backoff_s`` —
   the binbot REST client's deadline per request and its bounded, jittered
   retries (``io/binbot.py``);

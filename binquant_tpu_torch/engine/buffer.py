@@ -316,6 +316,43 @@ def reset_rows(buf: MarketBuffer, rows: torch.Tensor) -> MarketBuffer:
     )
 
 
+def split_updates(rows, ts, vals, capacity: int, n_shards: int) -> list[tuple]:
+    """Route one host update batch ``(rows (..., U), ts (..., U), vals (...,
+    U, F))`` to the shards that own its rows (``parallel/mesh.py``
+    ``shard_bounds``), each row rebased to its shard's local index: a list
+    of per-shard host batches. Leading slot axes (a stacked batch) are
+    kept: a slot's entries of one shard move to its front, in their order
+    (so a repeated row still keeps its last entry), padded with rows -1 to
+    that shard's widest slot. An entry no shard owns (a -1 pad, an
+    out-of-range row) goes nowhere; the apply drops it either way."""
+    rows = np.asarray(rows, dtype=np.int32)
+    ts = np.asarray(ts, dtype=np.int32)
+    vals = np.asarray(vals, dtype=np.float32)
+    lead, width = rows.shape[:-1], rows.shape[-1]
+    n_slots = int(np.prod(lead, dtype=np.int64))
+    r2 = rows.reshape(n_slots, width)
+    t2 = ts.reshape(n_slots, width)
+    v2 = vals.reshape(n_slots, width, vals.shape[-1])
+    block = capacity // n_shards
+    out = []
+    for k in range(n_shards):
+        lo = k * block
+        own = (r2 >= lo) & (r2 < lo + block)
+        counts = own.sum(axis=1)
+        w = int(counts.max()) if len(counts) else 0
+        rk = np.full((len(r2), w), -1, np.int32)
+        tk = np.full((len(r2), w), -1, np.int32)
+        vk = np.zeros((len(r2), w, v2.shape[-1]), np.float32)
+        for i in range(len(r2)):
+            sel = own[i]
+            n = int(counts[i])
+            rk[i, :n] = r2[i, sel] - lo
+            tk[i, :n] = t2[i, sel]
+            vk[i, :n] = v2[i, sel]
+        out.append((rk.reshape(*lead, w), tk.reshape(*lead, w), vk.reshape(*lead, w, v2.shape[-1])))
+    return out
+
+
 class FrozenRows:
     """Point-in-time row→name mapping (see SymbolRegistry.frozen_rows)."""
 

@@ -98,6 +98,7 @@ from binquant_tpu_torch.ops.incremental import (
     tree_where,
 )
 from binquant_tpu_torch.ops.indicators import log_returns, rolling_beta_corr
+from binquant_tpu_torch.parallel.mesh import ShardedState
 from binquant_tpu_torch.regime.context import (
     ContextConfig,
     MarketContext,
@@ -164,6 +165,16 @@ from binquant_tpu_torch.strategies.spike_hunter import SpikeSignal, detect_spike
 
 I32 = torch.int32
 F32 = torch.float32
+
+
+def _sharded():
+    """The sharded tick (``parallel/step.py``), which every public step
+    function here hands a :class:`~binquant_tpu_torch.parallel.mesh.ShardedState`
+    to: the same call on a placed state, as a jitted JAX function takes
+    sharded arrays."""
+    from binquant_tpu_torch.parallel import step
+
+    return step
 
 # data sufficiency: strategies are masked where filled < 100
 MIN_BARS = 100
@@ -400,11 +411,24 @@ def initial_engine_state(
     )
 
 
-def _btc_row_mask(btc_row: torch.Tensor, num_symbols: int):
-    """(onehot (S,), ok scalar) for the masked-reduction BTC row extract."""
-    safe = torch.clamp(btc_row, 0, num_symbols - 1)
-    ok = (btc_row >= 0) & (btc_row < num_symbols)
-    return torch.arange(num_symbols, device=btc_row.device) == safe, ok
+def _btc_row_mask(btc_row: torch.Tensor, num_symbols: int, comm=None):
+    """(onehot over the ``num_symbols`` rows held here, ok scalar) for the
+    masked-reduction BTC row extract. Under a sharded tick (``comm``) the
+    rows are this shard's, ``[lo, hi)`` of the whole capacity."""
+    S = num_symbols if comm is None else comm.capacity
+    lo = 0 if comm is None else comm.lo
+    safe = torch.clamp(btc_row, 0, S - 1)
+    ok = (btc_row >= 0) & (btc_row < S)
+    rows = torch.arange(lo, lo + num_symbols, device=btc_row.device)
+    return rows == safe, ok
+
+
+def _from_btc(comm, fn):
+    """``fn()``, a masked reduction over the BTC row: computed here, or under
+    a sharded tick by the shard that owns the row and handed to every shard
+    (a ``(W,)`` row or a few scalars cross shards, never an ``(S, W)``
+    field)."""
+    return fn() if comm is None else comm.from_owner(fn)
 
 
 def _ret_at(buf: MarketBuffer, pos: int) -> torch.Tensor:
@@ -423,6 +447,7 @@ def init_indicator_carry(
     btc_row: torch.Tensor,
     params=None,
     site: str = "abp_init_from_window",
+    comm=None,
 ) -> IndicatorCarry:
     """The carry rebuilt from both windows (what every full tick emits).
     A ``btc_row`` of -1 leaves the beta/corr pair sums empty (readouts 0,
@@ -432,9 +457,11 @@ def init_indicator_carry(
     S = buf15.capacity
     dev = buf15.times.device
     rets = log_returns(buf15.values[:, :, Field.CLOSE])
-    onehot, btc_ok = _btc_row_mask(torch.as_tensor(btc_row, dtype=I32, device=dev), S)
+    onehot, btc_ok = _btc_row_mask(torch.as_tensor(btc_row, dtype=I32, device=dev), S, comm)
     btc_rets = torch.where(
-        btc_ok, torch.where(onehot[:, None], rets, 0.0).sum(dim=0), float("nan")
+        btc_ok,
+        _from_btc(comm, lambda: torch.where(onehot[:, None], rets, 0.0).sum(dim=0)),
+        float("nan"),
     )
     W5 = buf5.times.shape[1]
     # the dormant strategy's dropna'd-frame seed: the series starts
@@ -521,6 +548,7 @@ def advance_indicator_carry(
     carry: IndicatorCarry,
     btc_row: torch.Tensor,
     params=None,
+    comm=None,
 ) -> tuple[IndicatorCarry, torch.Tensor, torch.Tensor]:
     """One-bar advance of EVERY carried family under the shared clean-append
     masks. Returns ``(carry', stale5, stale15)``: stale rows kept their
@@ -552,13 +580,21 @@ def advance_indicator_carry(
 
     # beta/corr pairs positionally: only rows advancing in step with the
     # BTC row slide their window; the others go dirty
-    onehot, btc_ok = _btc_row_mask(btc_row, S)
-    btc_adv = (onehot & adv15).any() & btc_ok
+    onehot, btc_ok = _btc_row_mask(btc_row, S, comm)
     ret_new = _ret_at(buf15, -1)
     ret_old = _ret_at(buf15, -(BC_WINDOW + 1))
+    btc_adv_any, y_new_sum, y_old_sum = _from_btc(
+        comm,
+        lambda: (
+            (onehot & adv15).any(),
+            torch.where(onehot, ret_new, 0.0).sum(),
+            torch.where(onehot, ret_old, 0.0).sum(),
+        ),
+    )
+    btc_adv = btc_adv_any & btc_ok
     nan = float("nan")
-    y_new = torch.where(btc_ok, torch.where(onehot, ret_new, 0.0).sum(), nan)
-    y_old = torch.where(btc_ok, torch.where(onehot, ret_old, 0.0).sum(), nan)
+    y_new = torch.where(btc_ok, y_new_sum, nan)
+    y_old = torch.where(btc_ok, y_old_sum, nan)
     bc_new = beta_corr_advance(carry.bc15, ret_new, y_new, ret_old, y_old)
     bc15 = tree_where(adv15 & btc_adv, bc_new, carry.bc15)
     bc_dirty = carry.bc_dirty | ((adv15 != btc_adv) & (buf15.filled > 0))
@@ -664,6 +700,18 @@ NUMERIC_DIGEST_WIDTH = (
     + len(STRATEGY_ORDER)
     + 1
 )
+
+
+def numeric_digest_ops() -> tuple[str, ...]:
+    """How a sharded tick combines its shards' numeric digest blocks,
+    position by position (``parallel/collectives.py`` ``combine_blocks``):
+    counts sum, series extremes and gate margins min/max, the regime-score
+    spread (from the replicated context) is shard 0's. Every entry is an
+    exact count or an extreme, so the combined block is the unsharded one."""
+    ops = ["sum"] * (2 * len(NUMERIC_STAGES) + 2 * len(STRATEGY_ORDER))
+    ops += ["min", "max", "max"] * len(NUMERIC_SERIES)
+    ops += ["min"] * len(STRATEGY_ORDER)
+    return (*ops, "first")
 
 
 def numeric_digest_layout() -> list[str]:
@@ -881,6 +929,15 @@ INGEST_DIGEST_WIDTH = 1 + len(INGEST_INTERVALS) * (
 )
 
 
+def ingest_digest_ops() -> tuple[str, ...]:
+    """The ingest digest's combination across shards: every entry a count
+    (summed) but ``max_age_s`` (the largest, NaN where no shard covers a
+    row)."""
+    per_interval = ["max" if f == "max_age_s" else "sum" for f in INGEST_STAT_FIELDS]
+    per_interval += ["sum"] * len(INGEST_COUNT_FIELDS)
+    return ("sum", *(per_interval * len(INGEST_INTERVALS)))
+
+
 def ingest_digest_layout() -> list[str]:
     """Field names of the ingest digest block, in wire order."""
     names = ["tracked"]
@@ -1005,6 +1062,75 @@ def _counted_fold_bufs(state: EngineState, upd5, upd15, counts, inplace: bool = 
     return buf5, buf15, counts
 
 
+def _slot_values(
+    context: MarketContext,
+    strategies: dict[str, StrategyOutputs],
+    summary: TriggerSummary,
+    pack5: FeaturePack,
+    pack15: FeaturePack,
+    btc_beta: torch.Tensor,
+    btc_corr: torch.Tensor,
+    wire_enabled: tuple[str, ...],
+    si: torch.Tensor,
+    row: torch.Tensor,
+) -> torch.Tensor:
+    """The ``(K, 4 + B + D)`` float32 values of K fired slots at strategy
+    ``si`` and row ``row`` of the rows held here: autotrade, direction,
+    score and stop loss, then the emission payload (the base features and
+    the firing strategy's diagnostics). Records the emission layout for
+    ``wire_enabled``."""
+    S = summary.trigger.shape[1]
+    dev = summary.trigger.device
+
+    def gather(arr):
+        return arr[si, row].to(F32)
+
+    layout: dict[str, list[tuple[str, str]]] = {}
+    diag_mats = []
+    for name in STRATEGY_ORDER:
+        entries: list[tuple[str, str]] = []
+        rows = []
+        for dkey, arr in strategies[name].diagnostics.items():
+            if arr.dim() == 0:
+                arr = torch.broadcast_to(arr, (S,))
+            entries.append((dkey, _diag_kind(arr)))
+            rows.append(arr.to(F32))
+        if len(entries) > EMISSION_DIAG_WIDTH:
+            raise ValueError(f"{name}: {len(entries)} diagnostics > {EMISSION_DIAG_WIDTH}")
+        rows += [torch.zeros((S,), dtype=F32, device=dev)] * (
+            EMISSION_DIAG_WIDTH - len(rows)
+        )
+        layout[name] = entries
+        diag_mats.append(torch.stack(rows))
+    EMISSION_LAYOUTS[tuple(wire_enabled)] = layout
+    diag_all = torch.stack(diag_mats)  # (N, D, S)
+    base_feats = torch.stack(
+        [
+            pack5.close, pack5.volume, pack5.bb_upper, pack5.bb_mid, pack5.bb_lower,
+            pack15.close, pack15.volume, pack15.bb_upper, pack15.bb_mid,
+            pack15.bb_lower,
+            context.features.micro_regime.to(F32),
+            context.features.micro_transition.to(F32),
+            btc_beta.to(F32),
+            btc_corr.to(F32),
+        ]
+    )  # (len(EMISSION_BASE_FIELDS), S)
+    return torch.cat(
+        [
+            torch.stack(
+                [
+                    gather(summary.autotrade), gather(summary.direction),
+                    gather(summary.score), gather(summary.stop_loss_pct),
+                ],
+                dim=1,
+            ),
+            base_feats[:, row].T,  # (K, B)
+            diag_all[si, :, row],  # (K, D)
+        ],
+        dim=1,
+    )
+
+
 def pack_wire(
     context: MarketContext,
     strategies: dict[str, StrategyOutputs],
@@ -1018,12 +1144,18 @@ def pack_wire(
     wire_enabled: tuple[str, ...],
     digest: torch.Tensor | None = None,
     ingest: torch.Tensor | None = None,
-) -> torch.Tensor:
+    comm=None,
+) -> torch.Tensor | None:
     """Pack one tick's evaluation into the single float32 wire: context
     scalars + fired compaction + per-slot emission payload + the (3, S)
     calibration block, then the numeric ``digest`` and the ``ingest``
-    digest where given. Records the emission layout for ``wire_enabled``."""
-    S = summary.trigger.shape[1]
+    digest where given. Records the emission layout for ``wire_enabled``.
+
+    Under a sharded tick (``comm``) every shard passes its own rows: the
+    trigger bits and the calibration rows are gathered in global row order,
+    shard 0 compacts the fired entries, each slot's values come from the
+    shard owning its row, and shard 0 packs the wire, the unsharded layout
+    bit for bit (every other shard returns None)."""
     dev = summary.trigger.device
     scalar_values = {
         "valid": context.valid,
@@ -1061,79 +1193,55 @@ def pack_wire(
         ]
     )
 
-    # fired (strategy, row) compaction, strategy-major, enabled set only
+    # fired (strategy, row) compaction, strategy-major, enabled set only;
+    # sharded, the trigger bits are gathered in row order and shard 0
+    # compacts them, and every slot's values come from the shard that owns
+    # its row
     K = WIRE_MAX_FIRED
-    enabled_mask = enabled_strategy_mask(wire_enabled, dev)
-    flat_trig = (summary.trigger & enabled_mask[:, None]).reshape(-1)
-    n_fired = flat_trig.sum().to(F32)
-    idx = _compact_fired(flat_trig, K)
+    S_here = summary.trigger.shape[1]
+    trig = summary.trigger & enabled_strategy_mask(wire_enabled, dev)[:, None]
+    if comm is None:
+        lo, S = 0, S_here
+        n_fired = trig.sum()
+        idx = _compact_fired(trig.reshape(-1), K)
+    else:
+        lo, S = comm.lo, comm.capacity
+        full = comm.gather_rows(trig.T, kind="fired")  # (S, N) on shard 0
+        n_fired = None if full is None else full.sum()
+        idx = None if full is None else _compact_fired(full.T.reshape(-1), K)
+        idx = comm.broadcast(idx, 0, kind="fired")
     valid_idx = idx >= 0
     safe = torch.clamp(idx, min=0)
     si = torch.div(safe, S, rounding_mode="floor")
     row = torch.remainder(safe, S)
-
-    def gather(arr):
-        return arr.reshape(-1)[safe].to(F32)
-
+    own = valid_idx & (row >= lo) & (row < lo + S_here)
+    values = _slot_values(
+        context, strategies, summary, pack5, pack15, btc_beta, btc_corr,
+        tuple(wire_enabled), si, torch.clamp(row - lo, 0, S_here - 1),
+    )
+    feats = context.features
+    calib = (feats.valid.to(F32), feats.close.to(F32), feats.atr_pct.to(F32))
+    if comm is not None:
+        values = comm.select_rows(values, own, kind="fired")
+        calib = comm.gather_rows(calib, kind="calib")
+        if values is None:
+            return None
     zero = torch.zeros((), dtype=F32, device=dev)
     fired_block = torch.stack(
         [
             torch.where(valid_idx, si.to(F32), -1.0),
             torch.where(valid_idx, row.to(F32), -1.0),
-            torch.where(valid_idx, gather(summary.autotrade), zero),
-            torch.where(valid_idx, gather(summary.direction), zero),
-            torch.where(valid_idx, gather(summary.score), zero),
-            torch.where(valid_idx, gather(summary.stop_loss_pct), zero),
+            torch.where(valid_idx, values[:, 0], zero),
+            torch.where(valid_idx, values[:, 1], zero),
+            torch.where(valid_idx, values[:, 2], zero),
+            torch.where(valid_idx, values[:, 3], zero),
         ]
     )  # (6, K)
-
-    # per-slot emission payload: features + the firing strategy's diagnostics
-    layout: dict[str, list[tuple[str, str]]] = {}
-    diag_mats = []
-    for name in STRATEGY_ORDER:
-        entries: list[tuple[str, str]] = []
-        rows = []
-        for key, arr in strategies[name].diagnostics.items():
-            if arr.dim() == 0:
-                arr = torch.broadcast_to(arr, (S,))
-            entries.append((key, _diag_kind(arr)))
-            rows.append(arr.to(F32))
-        if len(entries) > EMISSION_DIAG_WIDTH:
-            raise ValueError(f"{name}: {len(entries)} diagnostics > {EMISSION_DIAG_WIDTH}")
-        rows += [torch.zeros((S,), dtype=F32, device=dev)] * (
-            EMISSION_DIAG_WIDTH - len(rows)
-        )
-        layout[name] = entries
-        diag_mats.append(torch.stack(rows))
-    EMISSION_LAYOUTS[tuple(wire_enabled)] = layout
-    diag_all = torch.stack(diag_mats)  # (N, D, S)
-    base_feats = torch.stack(
-        [
-            pack5.close, pack5.volume, pack5.bb_upper, pack5.bb_mid, pack5.bb_lower,
-            pack15.close, pack15.volume, pack15.bb_upper, pack15.bb_mid,
-            pack15.bb_lower,
-            context.features.micro_regime.to(F32),
-            context.features.micro_transition.to(F32),
-            btc_beta.to(F32),
-            btc_corr.to(F32),
-        ]
-    )  # (len(EMISSION_BASE_FIELDS), S)
-    slot_base = base_feats[:, row].T  # (K, B)
-    slot_diag = diag_all[si, :, row]  # (K, D)
-    slot_payload = torch.where(
-        valid_idx[:, None], torch.cat([slot_base, slot_diag], dim=1), zero
-    )
-
-    calib_block = torch.stack(
-        [
-            context.features.valid.to(F32),
-            context.features.close.to(F32),
-            context.features.atr_pct.to(F32),
-        ]
-    )  # (3, S)
+    slot_payload = torch.where(valid_idx[:, None], values[:, 4:], zero)
+    calib_block = torch.stack(calib)  # (3, S)
     parts = [
         scalars,
-        n_fired[None],
+        n_fired.to(F32)[None],
         fired_block.reshape(-1),
         slot_payload.reshape(-1),
         calib_block.reshape(-1),
@@ -1160,6 +1268,7 @@ def _tick_step_impl(
     ingest_fold_counts: torch.Tensor | None = None,
     inplace: bool = False,
     compute_all: bool = False,
+    comm=None,
 ) -> tuple[EngineState, TickOutputs]:
     """One tick: apply the (row_idx, ts_s, vals) update batches, evaluate,
     pack the wire.
@@ -1184,7 +1293,13 @@ def _tick_step_impl(
     ``ingest_fold_counts`` ((8,) float32 or None) carries the counts of the
     fold sub-batches the caller applied before this batch, so the ingest
     digest covers the whole drain. ``inplace`` writes the input state's ring
-    planes instead of cloning them (see the module docstring)."""
+    planes instead of cloning them (see the module docstring).
+
+    ``comm`` runs the tick as one shard's program of a sharded tick
+    (``parallel/step.py``): ``state``, the updates and ``inputs`` are this
+    shard's rows, and every read across rows (the BTC row, the market
+    context, the digests' counts, the wire) goes through the collectives.
+    The returned wire is shard 0's (None on the other shards)."""
     sp = resolve_params(params)
     if ingest_digest:
         # one routing per ring feeds both the digest's counts and the apply
@@ -1219,7 +1334,7 @@ def _tick_step_impl(
     fresh15 = fresh_mask(buf15, inputs.timestamp_s)
     if incremental:
         indicator_carry, stale5, stale15 = advance_indicator_carry(
-            buf5, buf15, state.indicator_carry, inputs.btc_row, params
+            buf5, buf15, state.indicator_carry, inputs.btc_row, params, comm
         )
         pack5 = feature_pack_from_carry(buf5, indicator_carry.pack5, stale5)
         pack15 = feature_pack_from_carry(buf15, indicator_carry.pack15, stale15)
@@ -1232,14 +1347,14 @@ def _tick_step_impl(
         feats15 = None
         stale5 = stale15 = None
         indicator_carry = (
-            init_indicator_carry(buf5, buf15, inputs.btc_row, params)
+            init_indicator_carry(buf5, buf15, inputs.btc_row, params, comm=comm)
             if maintain_carry
             else state.indicator_carry
         )
 
     context, regime_carry = compute_market_context(
         buf15, fresh15, inputs.tracked, inputs.btc_row, inputs.timestamp_s,
-        state.regime_carry, cfg, feats=feats15,
+        state.regime_carry, cfg, feats=feats15, comm=comm,
     )
     long_gate = allows_long_autotrade_mask(context)
 
@@ -1248,7 +1363,7 @@ def _tick_step_impl(
     W = buf15.window
     dev = buf15.times.device
     nan = float("nan")
-    onehot_rows, btc_ok = _btc_row_mask(inputs.btc_row, S)
+    onehot_rows, btc_ok = _btc_row_mask(inputs.btc_row, S, comm)
     if incremental:
         # carried beta/corr; the BTC closes come from single columns
         beta, corr = beta_corr_value(indicator_carry.bc15, BC_WINDOW)
@@ -1262,15 +1377,24 @@ def _tick_step_impl(
         btc_corr = torch.where(
             dirty, nan, torch.where(torch.isfinite(corr) & bc_ok, corr, 0.0)
         )
-        bc_dirty_rows = dirty.sum().to(F32)
+        n_dirty = dirty.sum()
+        if comm is not None:
+            n_dirty = comm.count_sum(n_dirty)
+        bc_dirty_rows = n_dirty.to(F32)
 
-        def pick(pos):
-            col = buf15.values[:, pos, Field.CLOSE]
-            return torch.where(btc_ok, torch.where(onehot_rows, col, 0.0).sum(), nan)
-
-        btc_last, btc_prev = pick(-1), pick(-2)
+        # the BTC closes at -1, -2 and -97 (one broadcast from the owner)
+        positions = (-1, -2, -97) if W > 96 else (-1, -2)
+        closes = _from_btc(
+            comm,
+            lambda: torch.stack([
+                torch.where(onehot_rows, buf15.values[:, pos, Field.CLOSE], 0.0).sum()
+                for pos in positions
+            ]),
+        )
+        picked = [torch.where(btc_ok, closes[i], nan) for i in range(len(positions))]
+        btc_last, btc_prev = picked[0], picked[1]
         if W > 96:
-            btc_change_96 = _btc_change_96(btc_last, pick(-97), btc_ok)
+            btc_change_96 = _btc_change_96(btc_last, picked[2], btc_ok)
         else:
             btc_change_96 = torch.zeros((), dtype=F32, device=dev)
         btc_mom = _btc_momentum_pair(btc_last, btc_prev)
@@ -1278,8 +1402,13 @@ def _tick_step_impl(
         close15 = buf15.values[:, :, Field.CLOSE]
         rets = log_returns(close15)
         btc_onehot = onehot_rows[:, None]
-        btc_rets_row = torch.where(btc_onehot, rets, 0.0).sum(dim=0)
-        btc_close_row = torch.where(btc_onehot, close15, 0.0).sum(dim=0)
+        btc_rets_row, btc_close_row = _from_btc(
+            comm,
+            lambda: (
+                torch.where(btc_onehot, rets, 0.0).sum(dim=0),
+                torch.where(btc_onehot, close15, 0.0).sum(dim=0),
+            ),
+        )
         btc_rets = torch.where(btc_ok, btc_rets_row, nan)
         bc = rolling_beta_corr(rets, btc_rets[None, :], window=BC_WINDOW)
         btc_beta = torch.where(torch.isfinite(bc.beta[:, -1]), bc.beta[:, -1], 0.0)
@@ -1424,6 +1553,8 @@ def _tick_step_impl(
             sp=sp,
             context=context,
         )
+        if comm is not None:
+            digest = comm.reduce_blocks(digest, numeric_digest_ops(), kind="digest")
     if ingest_digest:
         ingest_block = _ingest_digest_block(
             inputs.tracked,
@@ -1438,10 +1569,12 @@ def _tick_step_impl(
             icnt5,
             icnt15,
         )
+        if comm is not None:
+            ingest_block = comm.reduce_blocks(ingest_block, ingest_digest_ops(), kind="digest")
     wire = pack_wire(
         context, strategies, summary, pack5, pack15,
         btc_beta, btc_corr, btc_change_96, bc_dirty_rows, tuple(wire_enabled),
-        digest=digest, ingest=ingest_block,
+        digest=digest, ingest=ingest_block, comm=comm,
     )
     new_state = EngineState(
         buf5=ring5,
@@ -1488,6 +1621,12 @@ def tick_step(
     default it evaluates every strategy (``compute_all``), as the
     reference's full-outputs step does; the wire's fired block still
     carries the ``wire_enabled`` set only."""
+    if isinstance(state, ShardedState):
+        return _sharded().tick_step(
+            state, upd5, upd15, inputs, cfg, wire_enabled, incremental,
+            maintain_carry, params, numeric_digest, ingest_digest, ingest_fold_counts,
+            compute_all=compute_all,
+        )
     return _tick_step_impl(
         state, upd5, upd15, inputs, cfg, wire_enabled, incremental,
         maintain_carry, params, numeric_digest, ingest_digest, ingest_fold_counts,
@@ -1511,6 +1650,11 @@ def tick_step_wire(
 ) -> tuple[EngineState, torch.Tensor]:
     """The live engine's copying step: the same evaluation, only the wire
     returned; the input state is left untouched."""
+    if isinstance(state, ShardedState):
+        return _sharded().tick_step_wire(
+            state, upd5, upd15, inputs, cfg, wire_enabled, incremental,
+            maintain_carry, params, numeric_digest, ingest_digest, ingest_fold_counts,
+        )
     new_state, outputs = _tick_step_impl(
         state, upd5, upd15, inputs, cfg, wire_enabled, incremental,
         maintain_carry, params, numeric_digest, ingest_digest, ingest_fold_counts,
@@ -1538,6 +1682,12 @@ def tick_step_wire_inplace(
     full tick gathers them canonically. The caller must not read the input
     state's rings as pre-tick data afterwards; the small carries (regime,
     dedupe, indicator) are produced functionally and stay readable."""
+    if isinstance(state, ShardedState):
+        return _sharded().tick_step_wire(
+            state, upd5, upd15, inputs, cfg, wire_enabled, incremental,
+            maintain_carry, params, numeric_digest, ingest_digest, ingest_fold_counts,
+            inplace=True,
+        )
     new_state, outputs = _tick_step_impl(
         state, upd5, upd15, inputs, cfg, wire_enabled, incremental,
         maintain_carry, params, numeric_digest, ingest_digest, ingest_fold_counts,
@@ -1559,12 +1709,16 @@ class RingSlot(NamedTuple):
 
 
 def ring_slot_of(state: EngineState) -> RingSlot:
+    if isinstance(state, ShardedState):
+        return _sharded().ring_slot_of(state)
     return RingSlot(state.buf5.times, state.buf5.values, state.buf15.times, state.buf15.values)
 
 
 def empty_ring_slot(state: EngineState) -> RingSlot:
     """A fresh slot shaped like ``state``'s rings (uninitialized: the slot
     is always overwritten whole before it is read)."""
+    if isinstance(state, ShardedState):
+        return _sharded().empty_ring_slot(state)
     return RingSlot(*(torch.empty_like(p) for p in ring_slot_of(state)))
 
 
@@ -1576,6 +1730,8 @@ def into_ring_slot(state: EngineState, slot: RingSlot) -> EngineState:
     caller keeps every read of ``state`` and every write of ``slot`` on one
     stream, so a later write into ``state``'s planes (once they are a slot
     themselves) follows this copy's read."""
+    if isinstance(state, ShardedState):
+        return _sharded().into_ring_slot(state, slot)
     for src, dst in zip(ring_slot_of(state), slot, strict=True):
         dst.copy_(src)
     return state._replace(
@@ -1585,8 +1741,16 @@ def into_ring_slot(state: EngineState, slot: RingSlot) -> EngineState:
 
 
 def slot_storages(slot: RingSlot) -> set[int]:
-    """The storage addresses of a slot's planes."""
-    return {p.untyped_storage().data_ptr() for p in slot}
+    """The storage addresses of a slot's planes (every shard's, for a
+    sharded slot)."""
+    return {p.untyped_storage().data_ptr() for p in slot_planes(slot)}
+
+
+def slot_planes(slot) -> list[torch.Tensor]:
+    """A slot's ring planes: its four, or every shard slot's four."""
+    if isinstance(slot[0], RingSlot):
+        return [p for sub in slot for p in sub]
+    return list(slot)
 
 
 def slot_is_free_of(slot: RingSlot, state: EngineState) -> bool:
@@ -1594,14 +1758,39 @@ def slot_is_free_of(slot: RingSlot, state: EngineState) -> bool:
     True when the slot's four planes use four storages of their own, none
     of them one of ``state``'s ring planes'."""
     own = slot_storages(slot)
-    return len(own) == len(slot) and not own & slot_storages(ring_slot_of(state))
+    return len(own) == len(slot_planes(slot)) and not own & slot_storages(ring_slot_of(state))
 
 
 def canonicalize_state(state: EngineState) -> EngineState:
     """Both rings materialized to the canonical right-aligned layout
     (cursor 0), new tensors that no later in-place tick writes: what a
     checkpoint persists. Every other leaf passes through."""
+    if isinstance(state, ShardedState):
+        return _sharded().canonicalize_state(state)
     return state._replace(buf5=materialize(state.buf5), buf15=materialize(state.buf15))
+
+
+def small_carries_of(state: EngineState):
+    """Everything of a state but its rings (regime, dedupe and indicator
+    carries), which every step produces functionally: what an in-place
+    tick's fallback re-attaches to the post-tick rings."""
+    if isinstance(state, ShardedState):
+        return tuple(small_carries_of(s) for s in state.shards)
+    return (state.regime_carry, state.mrf_last_emitted, state.pt_last_signal_close,
+            state.indicator_carry)
+
+
+def with_small_carries(state: EngineState, small) -> EngineState:
+    """``state``'s rings with the small carries :func:`small_carries_of`
+    took."""
+    if isinstance(state, ShardedState):
+        return state.with_shards(
+            [with_small_carries(s, c) for s, c in zip(state.shards, small, strict=True)]
+        )
+    return state._replace(
+        regime_carry=small[0], mrf_last_emitted=small[1],
+        pt_last_signal_close=small[2], indicator_carry=small[3],
+    )
 
 
 def apply_updates_step(
@@ -1610,13 +1799,15 @@ def apply_updates_step(
     """Update-only fold of one sub-batch pair (no evaluation). Leaves the
     indicator carry untouched: an incremental engine folds with
     :func:`apply_updates_carry_step` or marks the carry desynced."""
+    if isinstance(state, ShardedState):
+        return _sharded().apply_updates_step(state, upd5, upd15, inplace)
     return state._replace(
         buf5=apply_updates(state.buf5, *upd5, inplace=inplace),
         buf15=apply_updates(state.buf15, *upd15, inplace=inplace),
     )
 
 
-def _advance_folded(state: EngineState, buf5, buf15, btc_row) -> EngineState:
+def _advance_folded(state: EngineState, buf5, buf15, btc_row, comm=None) -> EngineState:
     """The folded rings with the carry advanced by their newest bar."""
     row = torch.as_tensor(
         -1 if btc_row is None else btc_row, dtype=I32, device=buf15.times.device
@@ -1626,6 +1817,7 @@ def _advance_folded(state: EngineState, buf5, buf15, btc_row) -> EngineState:
         materialize_tail(buf15, min(buf15.window, INCR_TAIL_WINDOW)),
         state.indicator_carry,
         row,
+        comm=comm,
     )
     return state._replace(buf5=buf5, buf15=buf15, indicator_carry=carry)
 
@@ -1641,6 +1833,8 @@ def apply_updates_carry_step(
     multi-bar drain of clean appends (three 5m bars in one 15m tick) stays
     on the incremental path. ``btc_row`` keeps the beta/corr pairing
     advancing through the folds; None marks those rows dirty instead."""
+    if isinstance(state, ShardedState):
+        return _sharded().apply_updates_carry_step(state, upd5, upd15, btc_row, inplace)
     buf5 = apply_updates(state.buf5, *upd5, inplace=inplace)
     buf15 = apply_updates(state.buf15, *upd15, inplace=inplace)
     return _advance_folded(state, buf5, buf15, btc_row)
@@ -1652,6 +1846,8 @@ def apply_updates_step_counted(
     """Counted twin of :func:`apply_updates_step`: also adds the sub-batch
     pair's (8,) ingest counts, classified against the pre-fold rings, to
     ``counts``."""
+    if isinstance(state, ShardedState):
+        return _sharded().apply_updates_step_counted(state, upd5, upd15, counts, inplace)
     buf5, buf15, counts = _counted_fold_bufs(state, upd5, upd15, counts, inplace)
     return state._replace(buf5=buf5, buf15=buf15), counts
 
@@ -1666,6 +1862,10 @@ def apply_updates_carry_step_counted(
 ) -> tuple[EngineState, torch.Tensor]:
     """Counted twin of :func:`apply_updates_carry_step` (``counts`` None
     starts from zeros)."""
+    if isinstance(state, ShardedState):
+        return _sharded().apply_updates_carry_step_counted(
+            state, upd5, upd15, btc_row, counts, inplace
+        )
     if counts is None:
         counts = torch.zeros((8,), dtype=F32, device=state.buf15.times.device)
     buf5, buf15, counts = _counted_fold_bufs(state, upd5, upd15, counts, inplace)
@@ -1689,6 +1889,8 @@ def apply_updates_scan(
     :func:`apply_updates_step` folds (backfill and restore catch-up). Padding
     slots (rows -1) are exact no-ops. The indicator carry is left untouched
     (the caller marks it desynced)."""
+    if isinstance(state, ShardedState):
+        return _sharded().apply_updates_scan(state, upd5_seq, upd15_seq, inplace)
     for t in range(upd5_seq[0].shape[0]):
         state = apply_updates_step(
             state, tuple(x[t] for x in upd5_seq), tuple(x[t] for x in upd15_seq),
@@ -1702,6 +1904,8 @@ def apply_updates_scan_counted(
 ) -> tuple[EngineState, torch.Tensor]:
     """Counted twin of :func:`apply_updates_scan`: the (8,) ingest counts of
     every folded slot accumulate into ``counts``."""
+    if isinstance(state, ShardedState):
+        return _sharded().apply_updates_scan_counted(state, upd5_seq, upd15_seq, counts, inplace)
     for t in range(upd5_seq[0].shape[0]):
         state, counts = apply_updates_step_counted(
             state, tuple(x[t] for x in upd5_seq), tuple(x[t] for x in upd15_seq),
@@ -1853,36 +2057,57 @@ def _ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(same_sign, exact, crossed)
 
 
-def _drift_of(pairs) -> dict[str, torch.Tensor]:
-    """Max-abs, scale-normalized and max-ULP drift over (carried, fresh,
-    mask) triples; only positions finite on BOTH sides compare. ``max_rel``
-    (what the alarm judges) is each leaf's max-abs drift over that leaf's
-    largest compared magnitude, maxed over the family's leaves."""
-    dev = pairs[0][0].device
-    zero = torch.zeros((), dtype=F32, device=dev)
-    max_abs, max_rel, max_ulp = zero, zero, zero
-    compared = torch.zeros((), dtype=I32, device=dev)
+def _leaf_stats(pairs) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per (carried, fresh, mask) leaf, over the positions finite on BOTH
+    sides: ``(L, 3)`` float32 (max abs difference, largest compared
+    magnitude, max ULP distance) and ``(L,)`` int32 compared counts. Each is
+    an extreme or a count, so a sharded tick combines its shards' stats
+    exactly (max, max, max, sum) before :func:`_family_drift` reads them."""
+    stats, counts = [], []
     for c, f, m in pairs:
         both = torch.broadcast_to(m, c.shape) & torch.isfinite(c) & torch.isfinite(f)
         cf, ff = c.to(F32), f.to(F32)
-        leaf_abs = torch.where(both, torch.abs(cf - ff), 0.0).max()
-        max_abs = torch.maximum(max_abs, leaf_abs)
         mag = torch.maximum(torch.abs(cf), torch.abs(ff))
-        leaf_scale = torch.where(both, mag, 0.0).max()
-        max_rel = torch.maximum(max_rel, leaf_abs / torch.clamp(leaf_scale, min=1e-30))
-        max_ulp = torch.maximum(max_ulp, torch.where(both, _ulp_distance(c, f), 0.0).max())
-        compared = compared + both.sum(dtype=I32)
-    return {"max_abs": max_abs, "max_rel": max_rel, "max_ulp": max_ulp, "compared": compared}
+        stats.append(torch.stack([
+            torch.where(both, torch.abs(cf - ff), 0.0).max(),
+            torch.where(both, mag, 0.0).max(),
+            torch.where(both, _ulp_distance(c, f), 0.0).max(),
+        ]))
+        counts.append(both.sum(dtype=I32))
+    return torch.stack(stats), torch.stack(counts)
+
+
+def _drift_of(pairs) -> dict[str, torch.Tensor]:
+    """Max-abs, scale-normalized and max-ULP drift over (carried, fresh,
+    mask) triples; only positions finite on BOTH sides compare."""
+    return _family_drift(*_leaf_stats(pairs))
+
+
+def _family_drift(stats: torch.Tensor, counts: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Max-abs, scale-normalized and max-ULP drift of one family from its
+    leaves' :func:`_leaf_stats`. ``max_rel`` (what the alarm judges) is each
+    leaf's max-abs drift over that leaf's largest compared magnitude, maxed
+    over the family's leaves."""
+    zero = torch.zeros((), dtype=F32, device=stats.device)
+    leaf_abs, leaf_scale, leaf_ulp = stats.unbind(dim=1)
+    return {
+        "max_abs": torch.maximum(zero, leaf_abs.max()),
+        "max_rel": torch.maximum(zero, (leaf_abs / torch.clamp(leaf_scale, min=1e-30)).max()),
+        "max_ulp": torch.maximum(zero, leaf_ulp.max()),
+        "compared": counts.sum(dtype=I32),
+    }
 
 
 def _carry_drift_impl(
-    state: EngineState, upd5, upd15, btc_row: torch.Tensor, params=None
-) -> dict[str, dict[str, torch.Tensor]]:
+    state: EngineState, upd5, upd15, btc_row: torch.Tensor, params=None, comm=None
+) -> dict[str, dict[str, torch.Tensor]] | None:
     """Per-family drift between the carried state advanced by this tick's
     updates and a fresh init from the post-update windows. Rows the advance
     marked stale, dirty beta/corr rows and dirty ABP rows are left out:
     their divergence is documented behaviour, not drift. The updates apply
-    through the COPYING form: the meter never writes the live rings."""
+    through the COPYING form: the meter never writes the live rings. Under
+    a sharded tick (``comm``) each shard measures its rows and shard 0
+    combines the leaves' stats (None on the other shards)."""
     buf5 = materialize(apply_updates(state.buf5, *upd5))
     buf15 = materialize(apply_updates(state.buf15, *upd15))
 
@@ -1897,9 +2122,9 @@ def _carry_drift_impl(
     tail = _advance_tail_floor(params)
     carried, stale5, stale15 = advance_indicator_carry(
         canonical_tail(buf5, tail), canonical_tail(buf15, tail),
-        state.indicator_carry, btc_row, params,
+        state.indicator_carry, btc_row, params, comm,
     )
-    fresh = init_indicator_carry(buf5, buf15, btc_row, params, site="carry_drift")
+    fresh = init_indicator_carry(buf5, buf15, btc_row, params, site="carry_drift", comm=comm)
     live5 = ~stale5 & (buf5.filled > 0)
     live15 = ~stale15 & (buf15.filled > 0)
 
@@ -1953,15 +2178,20 @@ def _carry_drift_impl(
         ),
         (lspc.prev_raw, lspf.prev_raw, live15),
     ]
-    return {
-        "ewm": _drift_of(ewm_pairs),
-        "sums": _drift_of(sum_pairs),
-        "moments": _drift_of(moment_pairs),
-        "supertrend": _drift_of(st_pairs),
-        "beta_corr": _drift_of(bc_pairs),
-        "abp_sorted": _drift_of(abp_pairs),
-        "lsp_sorted": _drift_of(lsp_pairs),
-    }
+    families = (ewm_pairs, sum_pairs, moment_pairs, st_pairs, bc_pairs, abp_pairs, lsp_pairs)
+    stats = [_leaf_stats(pairs) for pairs in families]
+    if comm is not None:
+        parts = comm.gather(tuple(stats), kind="drift")
+        if parts is None:
+            return None
+        stats = [
+            (
+                torch.stack([p[i][0] for p in parts]).amax(dim=0),
+                torch.stack([p[i][1] for p in parts]).sum(dim=0, dtype=I32),
+            )
+            for i in range(len(families))
+        ]
+    return {fam: _family_drift(*st) for fam, st in zip(DRIFT_FAMILIES, stats, strict=True)}
 
 
 _DRIFT_FIELDS = ("max_abs", "max_rel", "max_ulp", "compared")
@@ -1972,10 +2202,17 @@ def measure_carry_drift(state: EngineState, upd5, upd15, btc_row, params=None) -
     float, "max_ulp": int, "compared": int}}`` for every
     :data:`DRIFT_FAMILIES` entry. The 28 scalars land in ONE device-to-host
     copy (``compared`` rides bit for bit as int32 in the float32 vector)."""
-    dev = state.buf15.times.device
-    out = _carry_drift_impl(
-        state, upd5, upd15, torch.as_tensor(btc_row, dtype=I32, device=dev), params
-    )
+    if isinstance(state, ShardedState):
+        out = _sharded().carry_drift(state, upd5, upd15, btc_row, params)
+    else:
+        dev = state.buf15.times.device
+        out = _carry_drift_impl(
+            state, upd5, upd15, torch.as_tensor(btc_row, dtype=I32, device=dev), params
+        )
+    return _drift_to_host(out)
+
+
+def _drift_to_host(out: dict) -> dict:
     flat = torch.stack(
         [
             out[fam][k] if k != "compared" else out[fam][k].reshape(1).view(F32)[0]

@@ -50,10 +50,15 @@ import numpy as np
 import torch
 
 from binquant_tpu_torch.engine.buffer import MarketBuffer
-from binquant_tpu_torch.engine.step import EngineState, canonicalize_state
+from binquant_tpu_torch.engine.step import EngineState, canonicalize_state, initial_engine_state
 from binquant_tpu_torch.obs.events import get_event_log
 from binquant_tpu_torch.obs.instruments import CHECKPOINT_SAVES
-from binquant_tpu_torch.parallel.mesh import shard_bounds
+from binquant_tpu_torch.parallel.mesh import (
+    ShardedState,
+    shard_bounds,
+    shard_engine_state,
+    unshard_state,
+)
 
 CKPT_VERSION = 4
 
@@ -114,6 +119,14 @@ def _archive_leaves(state: EngineState) -> list[torch.Tensor]:
     return _flatten(_sans_cursor(state))
 
 
+def _canonical_whole(state) -> EngineState:
+    """The state a save writes: rings canonical, and a state placed on a
+    symbol mesh gathered whole on the host (off the tick path: the engine
+    is held while a save reads it)."""
+    state = canonicalize_state(state)
+    return unshard_state(state) if isinstance(state, ShardedState) else state
+
+
 def _host_leaf(leaf: torch.Tensor) -> np.ndarray:
     """One leaf on the host with the reference's dtype (int32, float32 or
     bool): a wider dtype would restore into the reference and fail later."""
@@ -130,7 +143,7 @@ def save_state(
 ) -> None:
     """Atomically write the engine snapshot, rings canonicalized and
     cursors stripped."""
-    leaves = _archive_leaves(canonicalize_state(state))
+    leaves = _archive_leaves(_canonical_whole(state))
     arrays = {f"leaf_{i}": _host_leaf(leaf) for i, leaf in enumerate(leaves)}
     meta = {
         "version": CKPT_VERSION,
@@ -168,7 +181,8 @@ def save_state_sharded(
     n_shards = int(n_shards)
     if n_shards <= 1:
         return save_state(path, state, registry, host_carries=host_carries)
-    leaves = _archive_leaves(canonicalize_state(state))
+    state = _canonical_whole(state)
+    leaves = _archive_leaves(state)
     capacity = int(state.buf15.filled.shape[0])
     flags = _symbol_leaf_flags(leaves, capacity)
     bounds = shard_bounds(capacity, n_shards)
@@ -354,9 +368,12 @@ class CheckpointManager:
     @staticmethod
     def shard_count_for(engine) -> int:
         """The archives a save writes: the config's ``ckpt_shards`` when
-        set, else the mesh size, which is 1: the port's engine runs
-        unsharded (``parallel/mesh.py``). A restore reads any saved count."""
-        return int(getattr(engine.config, "ckpt_shards", 0) or 0) or 1
+        set, else the engine's mesh size (1 unsharded). A restore reads any
+        saved count."""
+        mesh = getattr(engine, "mesh", None)
+        return int(getattr(engine.config, "ckpt_shards", 0) or 0) or (
+            mesh.size if mesh is not None else 1
+        )
 
     def try_restore(self, engine) -> bool:
         """Restore the engine from the archive; False (a cold start) when
@@ -364,11 +381,21 @@ class CheckpointManager:
         if not self.path.exists():
             return False
         t0 = time.perf_counter()
+        mesh = getattr(engine, "mesh", None)
+        # a sharded engine loads whole on the host, then places the state on
+        # its own mesh, whatever shard count saved it
+        template = (
+            engine.state
+            if mesh is None
+            else initial_engine_state(engine.capacity, engine.window, device="cpu")
+        )
         try:
-            state, carries = load_state(self.path, engine.state, engine.registry)
+            state, carries = load_state(self.path, template, engine.registry)
         except Exception:
             logging.exception("checkpoint restore failed; starting cold")
             return False
+        if mesh is not None:
+            state = shard_engine_state(state, mesh)
         engine.state = state
         # a restored state is a new lineage: no ring slot of the old one
         # may be written into it

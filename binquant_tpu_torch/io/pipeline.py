@@ -200,13 +200,16 @@ from binquant_tpu_torch.engine.step import (
     measure_carry_drift,
     ring_slot_of,
     slot_is_free_of,
+    slot_planes,
     slot_storages,
+    small_carries_of,
     tick_step,
     tick_step_scan,
     tick_step_wire,
     tick_step_wire_inplace,
     unpack_wire,
     unpack_wire_block,
+    with_small_carries,
 )
 from binquant_tpu_torch.fanout.plane import FanoutPlane, FanoutSink
 from binquant_tpu_torch.io.autotrade import AutotradeConsumer
@@ -249,7 +252,16 @@ from binquant_tpu_torch.obs.tracing import (
     profiler_window_active,
     step_annotation,
 )
-from binquant_tpu_torch.parallel.mesh import resolve_mesh
+from binquant_tpu_torch.parallel.mesh import (
+    Mesh,
+    ShardedInputs,
+    assemble_sharded,
+    resolve_mesh,
+    shard_bounds,
+    shard_engine_state,
+)
+from binquant_tpu_torch.parallel.step import reset_rows as reset_sharded_rows
+from binquant_tpu_torch.parallel.step import route_batch
 from binquant_tpu_torch.regime.context import ContextConfig
 from binquant_tpu_torch.regime.grid_policy import GridOnlyPolicy, read_breadth_momentum
 from binquant_tpu_torch.regime.time_filter import is_quiet_hours
@@ -547,9 +559,11 @@ class SignalEngine:
         self._state_generation = 0
         self._deferred_spare: tuple[RingSlot, int] | None = None
         self.fresh_slots = 0
-        # the symbol mesh: the port runs unsharded (mesh_devices > 1 warns
-        # or raises, parallel/mesh.py)
-        self.mesh = resolve_mesh(int(self.config.mesh_devices or 0), self.capacity)
+        # the symbol mesh (BQT_MESH_DEVICES > 1): the state placed over it
+        # once; every step keeps it placed, and each tick's inputs and
+        # update batches are placed per shard at the ingest boundary
+        self.mesh: Mesh | None = None
+        self.place_on_mesh()
         self.market_breadth: MarketBreadthSeries | None = None
         self._last_breadth_bucket = -1
         self.grid_only_policy = GridOnlyPolicy.disabled("not_evaluated")
@@ -702,7 +716,9 @@ class SignalEngine:
                 outbox_path=cfg.fanout_outbox_path or None,
                 outbox_cap=int(cfg.fanout_outbox_cap),
                 conn_queue_max=int(cfg.fanout_conn_queue),
-                outbox_shards=int(cfg.fanout_outbox_shards or 0) or 1,
+                # the explicit knob, else one partition per mesh shard
+                outbox_shards=int(cfg.fanout_outbox_shards or 0)
+                or (self.mesh.size if self.mesh is not None else 1),
                 snapshot_path=cfg.fanout_snapshot_path or None,
                 snapshot_shards=int(cfg.fanout_snapshot_shards or 0),
                 compact_frac=float(cfg.fanout_compact_frac or 0.0),
@@ -747,6 +763,67 @@ class SignalEngine:
                     "delivery_breakers_closed", self.delivery.breakers_closed_invariant
                 )
 
+    # -- the symbol mesh ------------------------------------------------------
+
+    def place_on_mesh(self, mesh: Mesh | None = None) -> None:
+        """Shard the engine over a symbol mesh: ``mesh`` when given (shards
+        may share a device), else the one ``Config.mesh_devices`` resolves
+        to (``parallel/mesh.py`` ``resolve_mesh``; None runs unsharded).
+        The constructor calls it; call it again only on an engine with no
+        tick in flight. A CUDA engine never places a shard on the CPU."""
+        if self._pending:
+            raise RuntimeError("place_on_mesh with a tick in flight: flush_pending() first")
+        if mesh is None:
+            mesh = resolve_mesh(int(self.config.mesh_devices or 0), self.capacity, self.device)
+        if mesh is not None:
+            if any(d.type != self.device.type for d in mesh.devices):
+                raise ValueError(f"a {self.device.type} engine cannot shard over {mesh}")
+            self.state = shard_engine_state(self.state, mesh)
+        self.mesh = mesh
+        self._tracked_cache = None
+        self._nan_oi = None
+        self._empty = None
+        # no tick is in flight: only the pooled slots hold the old placement
+        self._spare_slots.clear()
+        self._deferred_spare = None
+
+    def _fresh_state(self):
+        """A cold empty state with the engine's placement (sharded over the
+        mesh when there is one, built on the host and placed per shard)."""
+        if self.mesh is None:
+            return initial_engine_state(self.capacity, self.window, device=self.device)
+        cold = initial_engine_state(self.capacity, self.window, device="cpu")
+        return shard_engine_state(cold, self.mesh)
+
+    def _place_symbol_array(self, arr: np.ndarray):
+        """A host ``(S,)`` array on the engine's device, or split over the
+        mesh: each shard's slice goes straight to its own device."""
+        if self.mesh is None:
+            return torch.from_numpy(arr).to(self.device)
+        return assemble_sharded(self.mesh, arr)
+
+    def _mesh_snapshot(self) -> dict:
+        """The /healthz mesh section: geometry and each shard's tracked
+        rows, read from the registry on the host (no device read)."""
+        if self.mesh is None:
+            return {"enabled": False}
+        n = self.mesh.size
+        active = self.registry.active_rows
+        return {
+            "enabled": True,
+            "devices": n,
+            "shards": [
+                {"shard": k, "rows": [lo, hi], "tracked_rows": int(active[lo:hi].sum())}
+                for k, (lo, hi) in enumerate(shard_bounds(self.registry.capacity, n))
+            ],
+            "state_generation": self._state_generation,
+            "outbox_shards": (
+                getattr(self.fanout, "outbox_shards", None)
+                if self.fanout is not None
+                else None
+            ),
+        }
+
     # -- ingest ---------------------------------------------------------------
 
     def ingest(self, kline: dict) -> None:
@@ -769,6 +846,10 @@ class SignalEngine:
             )
 
     def _to_device(self, batch) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        if self.mesh is not None:
+            # the shard-local ingest boundary: each shard's rows (rebased)
+            # go straight to its device
+            return route_batch(self.mesh, self.capacity, batch)
         rows, ts, vals = batch
         return (
             torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int32)).to(self.device),
@@ -862,10 +943,10 @@ class SignalEngine:
         for start in range(0, total, chunk):
             stop = min(start + chunk, total)
             part5, part15 = prefix5[start:stop], prefix15[start:stop]
-            upd5 = self._stack_slots([[b] for b in part5], stop - start, 1, _max_rows(part5))
-            upd15 = self._stack_slots([[b] for b in part15], stop - start, 1, _max_rows(part15))
-            upd5 = tuple(x[:, 0] for x in upd5)
-            upd15 = tuple(x[:, 0] for x in upd15)
+            upd5 = self._stack_host([[b] for b in part5], stop - start, 1, _max_rows(part5))
+            upd15 = self._stack_host([[b] for b in part15], stop - start, 1, _max_rows(part15))
+            upd5 = self._to_device(tuple(x[:, 0] for x in upd5))
+            upd15 = self._to_device(tuple(x[:, 0] for x in upd15))
             if self.ingest_digest:
                 self.state, self._ingest_fold_counts = apply_updates_scan_counted(
                     self.state, upd5, upd15, self._ingest_fold_acc(), inplace=inplace
@@ -879,6 +960,10 @@ class SignalEngine:
         its ``depth`` slots (front-padded with empty ones, so its last slot
         is the evaluated one), each batch padded to ``rows`` with rows -1.
         Ticks past ``len(per_tick)`` are all padding."""
+        return self._to_device(self._stack_host(per_tick, T, depth, rows))
+
+    def _stack_host(self, per_tick: list[list], T: int, depth: int, rows: int):
+        """:meth:`_stack_slots`'s arrays, on the host."""
         r = np.full((T, depth, rows), -1, np.int32)
         ts = np.full((T, depth, rows), -1, np.int32)
         v = np.zeros((T, depth, rows, NUM_FIELDS), np.float32)
@@ -889,7 +974,7 @@ class SignalEngine:
                 r[i, off + d, :k] = br
                 ts[i, off + d, :k] = bt
                 v[i, off + d, :k] = bv
-        return self._to_device((r, ts, v))
+        return r, ts, v
 
     def _ingest_fold_acc(self) -> torch.Tensor:
         """The running (8,) fold-count accumulator (zeros before this
@@ -977,11 +1062,14 @@ class SignalEngine:
         for sym, _ in stale:
             self.registry.remove(sym)
         rows_np = np.array([row for _, row in stale], np.int32)
-        rows = torch.from_numpy(rows_np).to(self.device)
-        self.state = self.state._replace(
-            buf5=reset_rows(self.state.buf5, rows),
-            buf15=reset_rows(self.state.buf15, rows),
-        )
+        if self.mesh is not None:
+            self.state = reset_sharded_rows(self.state, rows_np)
+        else:
+            rows = torch.from_numpy(rows_np).to(self.device)
+            self.state = self.state._replace(
+                buf5=reset_rows(self.state.buf5, rows),
+                buf15=reset_rows(self.state.buf15, rows),
+            )
         for latest in self._host_latest.values():
             latest[rows_np] = -1
         self._mark_carry_desynced("churn")
@@ -1134,11 +1222,11 @@ class SignalEngine:
     def _tracked_mask(self) -> torch.Tensor:
         if self._tracked_override is not None:
             # a serial re-drive dispatches with the occupancy its plan saw
-            return torch.from_numpy(self._tracked_override).to(self.device)
+            return self._place_symbol_array(self._tracked_override)
         cached = self._tracked_cache
         if cached is not None and cached[0] == self.registry.version:
             return cached[1]
-        mask = torch.from_numpy(self.registry.active_rows).to(self.device)
+        mask = self._place_symbol_array(self.registry.active_rows)
         self._tracked_cache = (self.registry.version, mask)
         return mask
 
@@ -1168,8 +1256,8 @@ class SignalEngine:
         f = torch.tensor(
             [adp_latest, adp_prev, adp_diff, adp_diff_prev, momentum],
             dtype=torch.float32,
-        ).to(self.device)
-        i = torch.tensor([btc_row, ts15, ts5], dtype=torch.int32).to(self.device)
+        )
+        i = torch.tensor([btc_row, ts15, ts5], dtype=torch.int32)
         at = self.at_consumer
         market_type = at.autotrade_settings.market_type
         b = torch.tensor(
@@ -1181,13 +1269,30 @@ class SignalEngine:
                 bool(at.market_domination_reversal),
             ],
             dtype=torch.bool,
-        ).to(self.device)
+        )
+        tracked, oi_dev = self._tracked_mask(), self._oi_device(oi)
+        if self.mesh is None:
+            return self._inputs_on(self.device, f, i, b, tracked, oi_dev)
+        # every shard gets its rows of the (S,) fields and its own copy of
+        # the scalars (three small copies per shard)
+        return ShardedInputs(
+            [
+                self._inputs_on(dev, f, i, b, tracked.pieces[k], oi_dev.pieces[k])
+                for k, dev in enumerate(self.mesh.devices)
+            ],
+            self.mesh,
+            btc_row,
+        )
+
+    @staticmethod
+    def _inputs_on(device, f, i, b, tracked, oi) -> HostInputs:
+        f, i, b = f.to(device), i.to(device), b.to(device)
         return HostInputs(
-            tracked=self._tracked_mask(),
+            tracked=tracked,
             btc_row=i[0],
             timestamp_s=i[1],
             timestamp5_s=i[2],
-            oi_growth=self._oi_device(oi),
+            oi_growth=oi,
             adp_latest=f[0],
             adp_prev=f[1],
             adp_diff=f[2],
@@ -1202,10 +1307,10 @@ class SignalEngine:
 
     def _oi_device(self, oi: np.ndarray | None) -> torch.Tensor:
         if oi is not None:
-            return torch.from_numpy(oi).to(self.device)
+            return self._place_symbol_array(oi)
         if self._nan_oi is None:
-            self._nan_oi = torch.full(
-                (self.capacity,), float("nan"), dtype=torch.float32, device=self.device
+            self._nan_oi = self._place_symbol_array(
+                np.full((self.capacity,), np.nan, dtype=np.float32)
             )
         return self._nan_oi
 
@@ -1343,6 +1448,7 @@ class SignalEngine:
             )
             scannable = (
                 self.incremental
+                and self.mesh is None
                 and clean
                 and not churn
                 and self._carry_desync_reason is None
@@ -1529,7 +1635,7 @@ class SignalEngine:
         ticks = plan["ticks"]
         if not ticks:
             return []
-        if len(ticks) < self._SCAN_MIN_TICKS:
+        if len(ticks) < self._SCAN_MIN_TICKS or self.mesh is not None:
             return await self._redrive_serial(plan)
         # a depth >= 1 engine's still-pending serial ticks come first
         fired_all: list = await self.flush_pending()
@@ -1722,8 +1828,7 @@ class SignalEngine:
             self._deferred_spare = (slot, gen)
 
     def _ring_planes(self) -> list[torch.Tensor]:
-        st = self.state
-        return [st.buf5.times, st.buf5.values, st.buf15.times, st.buf15.values]
+        return slot_planes(ring_slot_of(self.state))
 
     def _reset_state_cold(self, why: str) -> None:
         """Replace an unusable engine state with a cold empty one: the
@@ -1733,7 +1838,7 @@ class SignalEngine:
         logging.error(
             "%s; resetting the engine state cold (reset #%d)", why, self.state_resets
         )
-        self.state = initial_engine_state(self.capacity, self.window, device=self.device)
+        self.state = self._fresh_state()
         # the slots may alias buffers of the failed lineage
         self._invalidate_spares(f"cold reset: {why}")
         for latest in self._host_latest.values():
@@ -1947,16 +2052,12 @@ class SignalEngine:
             # replace self.state before this tick finalizes; at depth <= 1
             # none writes them before then), with empty batches and the
             # pre-tick small carries, which the step left untouched
-            small = (pre.regime_carry, pre.mrf_last_emitted, pre.pt_last_signal_close,
-                     pre.indicator_carry)
+            small = small_carries_of(pre)
             empty = self._empty_updates()
 
             def fallback(_args=(self.state, small, inputs, cfg, key, flags, empty)):
                 post, small_, inp, cfg_, key_, flags_, emp = _args
-                st = post._replace(
-                    regime_carry=small_[0], mrf_last_emitted=small_[1],
-                    pt_last_signal_close=small_[2], indicator_carry=small_[3],
-                )
+                st = with_small_carries(post, small_)
                 _, full = tick_step(st, emp, emp, inp, cfg_, wire_enabled=key_, **flags_)
                 return full
         else:
@@ -2242,7 +2343,9 @@ class SignalEngine:
                     tick_seq=signal.tick_seq,
                     tick_ms=pending.ts_ms,
                 )
-            self.outcomes.on_tick(ts5, self.state.buf5)
+            self.outcomes.on_tick(
+                ts5, self.state if self.mesh is not None else self.state.buf5
+            )
         self.host_phase.record(drive, "emit", (time.perf_counter() - t_emit_phase0) * 1000.0)
         return fired
 
@@ -2367,19 +2470,28 @@ class SignalEngine:
         archive of a classic engine, or of an older version, holds none
         that match): otherwise the first tick recomputes in full
         (``cold_start``)."""
-        st = self.state
-        ic = st.indicator_carry
-        latest = torch.stack([ring_latest_times(st.buf5), ring_latest_times(st.buf15)])
-        carry_ts = (
-            None if ic is None else torch.stack([ic.pack5.last_ts, ic.pack15.last_ts])
+        shards = self.state.shards if self.mesh is not None else (self.state,)
+        latest = np.concatenate(
+            [
+                torch.stack([ring_latest_times(st.buf5), ring_latest_times(st.buf15)])
+                .cpu().numpy().astype(np.int64)
+                for st in shards
+            ],
+            axis=1,
         )
-        latest = latest.cpu().numpy().astype(np.int64)
+        carry_ts = None
+        if all(st.indicator_carry is not None for st in shards):
+            carry_ts = np.concatenate(
+                [
+                    torch.stack([st.indicator_carry.pack5.last_ts,
+                                 st.indicator_carry.pack15.last_ts])
+                    .cpu().numpy().astype(np.int64)
+                    for st in shards
+                ],
+                axis=1,
+            )
         self._host_latest = {"5m": latest[0].copy(), "15m": latest[1].copy()}
-        synced = (
-            not migrated
-            and carry_ts is not None
-            and np.array_equal(carry_ts.cpu().numpy().astype(np.int64), latest)
-        )
+        synced = not migrated and carry_ts is not None and np.array_equal(carry_ts, latest)
         self._carry_desync_reason = None if synced else "cold_start"
 
     def recover_if_state_poisoned(self) -> None:
@@ -2388,7 +2500,9 @@ class SignalEngine:
         with a synchronizing copy and reset the engine cold if the probe
         fails. A healthy state passes in microseconds."""
         try:
-            self.state.mrf_last_emitted[:1].cpu()
+            shards = self.state.shards if self.mesh is not None else (self.state,)
+            for st in shards:
+                st.mrf_last_emitted[:1].cpu()
             return
         except Exception:
             pass
@@ -2545,7 +2659,7 @@ class SignalEngine:
                 "last_drift": self.drift.last,
             },
             "ingest": ingest,
-            "mesh": {"enabled": False},
+            "mesh": self._mesh_snapshot(),
             "eventlog_dropped": get_event_log().dropped,
             "last_tick_trace": self.tracer.last_tick_trace(),
             "latency": {

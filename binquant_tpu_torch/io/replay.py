@@ -144,6 +144,7 @@ def make_stub_engine(
     scan_chunk: int | None = None,
     backtest_chunk: int | None = None,
     ext_invariant: bool | None = None,
+    mesh_devices: int | None = None,
 ) -> SignalEngine:
     """A SignalEngine wired to stubs (no network): a binbot client over
     ``session`` (a :class:`StubSession` serving ``breadth`` by default), a
@@ -186,7 +187,10 @@ def make_stub_engine(
     meter, the outcome tracker and the delivery plane on, the incremental
     path with an audit every 256 ticks. ``scan_chunk``, ``backtest_chunk``
     and ``ext_invariant`` set the multi-tick drives' knobs (``Config``'s,
-    read from the environment by default)."""
+    read from the environment by default). ``mesh_devices`` shards the
+    engine over a symbol mesh (``Config.mesh_devices``, read from
+    ``BQT_MESH_DEVICES`` by default; a CPU engine gets that many shards on
+    the CPU)."""
     config = Config(
         max_symbols=capacity, window_bars=window, env=os.environ.get("ENV", "CI")
     )
@@ -210,6 +214,7 @@ def make_stub_engine(
         "scan_chunk": scan_chunk,
         "backtest_chunk": backtest_chunk,
         "ext_invariant": ext_invariant,
+        "mesh_devices": mesh_devices,
     }
     for name, value in overrides.items():
         if value is not None:

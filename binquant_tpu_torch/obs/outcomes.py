@@ -44,6 +44,7 @@ from binquant_tpu_torch.obs.instruments import (
     SIGNAL_MAE,
     SIGNAL_MFE,
 )
+from binquant_tpu_torch.parallel.mesh import ShardedState
 
 #: Maturation horizons in 5m bars: next bar, ~20 min, ~80 min, ~8 h.
 DEFAULT_HORIZONS: tuple[int, ...] = (1, 4, 16, 96)
@@ -112,6 +113,24 @@ def _gather_on_device(times, values, rows, entry_ts, horizon_ts):
     ])
     b = torch.from_numpy(bounds).to(times.device)
     return _outcome_gather_impl(times, values, b[0], b[1], b[2])
+
+
+def _gather_sharded(state: ShardedState, rows, entry_ts, horizon_ts):
+    """The maturation gather over a state placed on a symbol mesh: each
+    shard gathers the pairs whose rows it owns (rebased; the others padded
+    to -1), and each pair's result is taken from its owner on the host."""
+    rows = np.asarray(rows, np.int32)
+    floats = ints = None
+    for st, (lo, hi) in zip(state.shards, state.bounds, strict=True):
+        own = (rows >= lo) & (rows < hi)
+        local = np.where(own, rows - lo, -1).astype(np.int32)
+        f, i = _gather_on_device(st.buf5.times, st.buf5.values, local, entry_ts, horizon_ts)
+        f, i = f.cpu().numpy(), i.cpu().numpy()
+        if floats is None:
+            floats, ints = f.copy(), i.copy()
+        else:
+            floats[:, own], ints[:, own] = f[:, own], i[:, own]
+    return floats, ints
 
 
 def outcome_gather(times, values, rows, entry_ts, horizon_ts):
@@ -282,8 +301,9 @@ class OutcomeTracker:
 
     def on_tick(self, now_ts5: int, buf5) -> list[tuple]:
         """Mature everything due at this tick against the live 5m ring
-        (``buf5.times`` / ``buf5.values``). Returns the newly matured
-        comparison tuples, also kept in ``recent``."""
+        (``buf5.times`` / ``buf5.values``, or every shard's of a state placed
+        on a symbol mesh). Returns the newly matured comparison tuples,
+        also kept in ``recent``."""
         if not self.enabled or not self._open:
             return []
         pairs = self.due_pairs(int(now_ts5))
@@ -298,10 +318,14 @@ class OutcomeTracker:
             entry[i] = slot["entry_ts"]
             horizon[i] = slot["entry_ts"] + h * FIVE_MIN_S
         t0 = time.perf_counter()
-        floats_d, ints_d = _gather_on_device(buf5.times, buf5.values, rows, entry, horizon)
-        t1 = time.perf_counter()
-        floats, ints = floats_d.cpu().numpy(), ints_d.cpu().numpy()
-        t2 = time.perf_counter()
+        if isinstance(buf5, ShardedState):
+            floats, ints = _gather_sharded(buf5, rows, entry, horizon)
+            t1 = t2 = time.perf_counter()
+        else:
+            floats_d, ints_d = _gather_on_device(buf5.times, buf5.values, rows, entry, horizon)
+            t1 = time.perf_counter()
+            floats, ints = floats_d.cpu().numpy(), ints_d.cpu().numpy()
+            t2 = time.perf_counter()
         matured = self._fold(pairs, floats, ints)
         self.timings.append({
             "pairs": len(pairs),

@@ -19,7 +19,9 @@ that its main path went through the kernel; ``launches_by_site`` splits the
 same count by the caller's ``site`` label (``abp_core`` on every full tick,
 ``abp_init_from_window`` on every carry resync); ``twin_calls_by_site``
 counts the calls the twin served, so a CPU drive's count can be held
-against a card drive's launches. Inside an open profiler window
+against a card drive's launches; ``launches_by_shard`` counts the launches
+made inside a sharded tick's shard programs (``parallel/collectives.py``)
+by shard. Inside an open profiler window
 (``obs/tracing.py``) each launch runs in a ``qtail_launch[<site>]`` range. The first use records
 the build in the kernel-build ledger (``obs/ledger.py``, ``qt.build``).
 
@@ -43,6 +45,7 @@ import torch
 
 from binquant_tpu_torch.obs.ledger import LEDGER
 from binquant_tpu_torch.obs.tracing import profiler_window_active
+from binquant_tpu_torch.parallel.collectives import current_shard
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCE = _PKG_DIR / "csrc" / "qtail.cu"
@@ -55,6 +58,7 @@ NVCC_FLAGS = (
 launches = 0  # kernel launches since import (or the caller's last reset)
 launches_by_site: dict[str, int] = {}  # the same launches by call site
 twin_calls_by_site: dict[str, int] = {}  # calls the twin served (CPU tensors), by site
+launches_by_shard: dict[int, int] = {}  # a sharded tick's launches, by shard
 _lib: ctypes.CDLL | None = None
 _max_span: int | None = None  # the largest window + num_out - 1 the kernel takes
 
@@ -64,6 +68,7 @@ def reset_launches() -> None:
     launches = 0
     launches_by_site.clear()
     twin_calls_by_site.clear()
+    launches_by_shard.clear()
 
 
 def _nvcc() -> str:
@@ -261,4 +266,7 @@ def rolling_quantile_tail(
         raise RuntimeError(f"qtail kernel launch failed: cudaError {err}")
     launches += 1
     launches_by_site[site] = launches_by_site.get(site, 0) + 1
+    shard = current_shard()
+    if shard is not None:
+        launches_by_shard[shard] = launches_by_shard.get(shard, 0) + 1
     return out

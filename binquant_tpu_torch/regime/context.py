@@ -484,26 +484,43 @@ def _annotate_micro_regimes(
 # ---------------------------------------------------------------------------
 
 
-def compute_market_context(
-    buf: MarketBuffer,
-    fresh: torch.Tensor,  # (S,) bool — latest bar == evaluated tick
-    tracked: torch.Tensor,  # (S,) bool — registry-occupied rows
-    btc_row: torch.Tensor,  # int32 scalar; -1 when BTC untracked
-    timestamp: torch.Tensor,  # int32 seconds, the tick being evaluated
+class MarketColumns(NamedTuple):
+    """The ``(S,)`` columns the market-wide scalars read: what a sharded
+    tick gathers in row order for :func:`market_scalars`."""
+
+    filled: torch.Tensor
+    tracked: torch.Tensor
+    valid: torch.Tensor
+    return_pct: torch.Tensor
+    above_ema20: torch.Tensor
+    above_ema50: torch.Tensor
+    trend_score: torch.Tensor
+    atr_pct: torch.Tensor
+    bb_width: torch.Tensor
+
+
+# the RegimeCarry fields that are one scalar (or score vector) per market
+MARKET_CARRY_FIELDS: tuple[str, ...] = (
+    "has_prev", "market_regime", "market_scores", "stable_since",
+    "stage_ts", "stage_valid", "stage_regime", "stage_scores", "stage_stable_since",
+)
+
+
+def market_scalars(
+    cols: MarketColumns,
+    btc_row: torch.Tensor,
+    timestamp: torch.Tensor,
     carry: RegimeCarry,
     cfg: ContextConfig = ContextConfig(),
-    feats: SymbolFeatureArrays | None = None,
-) -> tuple[MarketContext, RegimeCarry]:
-    """One tick's market context for the whole universe + updated carry.
-    When the coverage gates fail ``context.valid`` is False and only the
-    stage bookkeeping moves. ``feats`` passes in symbol features read from
-    the carried indicator state (:func:`symbol_features_from_carry`, the
-    incremental tick); None computes them from the window."""
-    S = buf.capacity
-    dev = buf.times.device
-    if feats is None:
-        feats = compute_symbol_features(buf, fresh & tracked)
-
+) -> dict[str, torch.Tensor]:
+    """Every market-wide scalar of one tick from the universe's columns:
+    the BTC row's features, the coverage gates, the masked aggregates and
+    scores, the macro regime with its transition, and the new carry's
+    market fields (``carry.<field>`` for :data:`MARKET_CARRY_FIELDS`). Also
+    ``newer`` (a strictly newer timestamp) and ``safe_btc`` (the clamped BTC
+    row) for the per-row half. Reads only ``carry``'s market fields."""
+    S = cols.valid.shape[0]
+    dev = cols.valid.device
     # BTC features come from its row even when BTC itself is not fresh
     btc_ok = (btc_row >= 0) & (btc_row < S)
     safe_btc = torch.clamp(btc_row, 0, S - 1).long()
@@ -512,32 +529,31 @@ def compute_market_context(
         # a gather, not an index by a 0-d tensor (which reads it on the host)
         return x.index_select(0, safe_btc.reshape(1))[0]
 
-    btc_present = btc_ok & (at_btc(buf.filled) >= 2)
-    btc_return = torch.where(btc_present, at_btc(feats.return_pct), 0.0)
-    btc_trend = torch.where(btc_present, at_btc(feats.trend_score), 0.0)
+    btc_present = btc_ok & (at_btc(cols.filled) >= 2)
+    btc_return = torch.where(btc_present, at_btc(cols.return_pct), 0.0)
+    btc_trend = torch.where(btc_present, at_btc(cols.trend_score), 0.0)
 
     # RS-vs-BTC rewrite: every symbol except BTC itself
     is_btc_row = torch.arange(S, device=dev) == safe_btc
-    rs = torch.where(btc_present & ~is_btc_row, feats.return_pct - btc_return, 0.0)
-    feats = feats._replace(relative_strength_vs_btc=rs)
+    rs = torch.where(btc_present & ~is_btc_row, cols.return_pct - btc_return, 0.0)
 
-    m = feats.valid
+    m = cols.valid
     effective = m.sum(dtype=I32)
-    total_tracked = torch.maximum(tracked.sum(dtype=I32), effective)
+    total_tracked = torch.maximum(cols.tracked.sum(dtype=I32), effective)
 
-    advancers = (m & (feats.return_pct > 0)).sum(dtype=I32)
-    decliners = (m & (feats.return_pct < 0)).sum(dtype=I32)
+    advancers = (m & (cols.return_pct > 0)).sum(dtype=I32)
+    decliners = (m & (cols.return_pct < 0)).sum(dtype=I32)
     advancers_ratio = jsafe_div(advancers, torch.clamp(effective, min=1))
     decliners_ratio = jsafe_div(decliners, torch.clamp(effective, min=1))
     adv_dec_ratio = jsafe_div(advancers, torch.clamp(decliners, min=1))
 
-    average_return = _masked_mean(feats.return_pct, m, effective)
-    average_rs = _masked_mean(feats.relative_strength_vs_btc, m, effective)
-    pct_above_ema20 = _masked_mean(feats.above_ema20.to(F32), m, effective)
-    pct_above_ema50 = _masked_mean(feats.above_ema50.to(F32), m, effective)
-    average_trend = _masked_mean(feats.trend_score, m, effective)
-    average_atr_pct = _masked_mean(feats.atr_pct, m, effective)
-    average_bb_width = _masked_mean(feats.bb_width, m, effective)
+    average_return = _masked_mean(cols.return_pct, m, effective)
+    average_rs = _masked_mean(rs, m, effective)
+    pct_above_ema20 = _masked_mean(cols.above_ema20.to(F32), m, effective)
+    pct_above_ema50 = _masked_mean(cols.above_ema50.to(F32), m, effective)
+    average_trend = _masked_mean(cols.trend_score, m, effective)
+    average_atr_pct = _masked_mean(cols.atr_pct, m, effective)
+    average_bb_width = _masked_mean(cols.bb_width, m, effective)
 
     breadth_balance = jclamp((advancers_ratio - decliners_ratio) * 1.5)
     ema_balance = jclamp(((pct_above_ema20 + pct_above_ema50) - 1.0) * 1.5)
@@ -596,23 +612,24 @@ def compute_market_context(
     ts32 = timestamp.to(I32)
     newer = ts32 > carry.stage_ts
     promote = newer & carry.stage_valid
-    promote_micro = newer & carry.stage_micro_valid
     eff_carry = carry._replace(
         has_prev=carry.has_prev | promote,
         market_regime=torch.where(promote, carry.stage_regime, carry.market_regime),
         market_scores=torch.where(promote, carry.stage_scores, carry.market_scores),
         stable_since=torch.where(promote, carry.stage_stable_since, carry.stable_since),
-        micro_has_prev=carry.micro_has_prev | promote_micro,
-        micro_regime=torch.where(promote_micro, carry.stage_micro_regime, carry.micro_regime),
-        micro_strength=torch.where(
-            promote_micro, carry.stage_micro_strength, carry.micro_strength
-        ),
     )
-
     ctx = _annotate_market_regime(ctx, eff_carry, ts32)
-    feats = _annotate_micro_regimes(feats, eff_carry)
 
-    context = MarketContext(
+    # only the STAGE is overwritten by this evaluation (and only when valid)
+    new_scores = torch.stack(
+        [
+            ctx["long_regime_score"],
+            ctx["short_regime_score"],
+            ctx["range_regime_score"],
+            ctx["stress_regime_score"],
+        ]
+    )
+    out = dict(
         valid=valid,
         timestamp=ts32,
         fresh_count=effective,
@@ -647,33 +664,93 @@ def compute_market_context(
         stress_regime_score=ctx["stress_regime_score"],
         regime_is_transitioning=ctx["regime_is_transitioning"],
         regime_stable_since=ctx["regime_stable_since"],
-        features=feats,
+        newer=newer,
+        safe_btc=safe_btc,
     )
-
-    # only the STAGE is overwritten by this evaluation (and only when valid)
-    new_scores = torch.stack(
-        [
-            ctx["long_regime_score"],
-            ctx["short_regime_score"],
-            ctx["range_regime_score"],
-            ctx["stress_regime_score"],
-        ]
-    )
-    micro_update = valid & feats.valid
-    new_carry = eff_carry._replace(
-        stage_ts=torch.where(newer, ts32, carry.stage_ts).to(I32),
-        stage_valid=torch.where(newer, valid, carry.stage_valid | valid),
-        stage_regime=torch.where(
+    stage = {
+        "stage_ts": torch.where(newer, ts32, carry.stage_ts).to(I32),
+        "stage_valid": torch.where(newer, valid, carry.stage_valid | valid),
+        "stage_regime": torch.where(
             valid, ctx["market_regime"], torch.where(newer, -1, carry.stage_regime)
         ).to(I32),
-        stage_scores=torch.where(
+        "stage_scores": torch.where(
             valid, new_scores, torch.where(newer, 0.0, carry.stage_scores)
         ),
-        stage_stable_since=torch.where(
+        "stage_stable_since": torch.where(
             valid,
             ctx["regime_stable_since"],
             torch.where(newer, -1, carry.stage_stable_since),
         ).to(I32),
+    }
+    for f in MARKET_CARRY_FIELDS:
+        out[f"carry.{f}"] = stage[f] if f in stage else getattr(eff_carry, f)
+    return out
+
+
+def compute_market_context(
+    buf: MarketBuffer,
+    fresh: torch.Tensor,  # (S,) bool — latest bar == evaluated tick
+    tracked: torch.Tensor,  # (S,) bool — registry-occupied rows
+    btc_row: torch.Tensor,  # int32 scalar; -1 when BTC untracked
+    timestamp: torch.Tensor,  # int32 seconds, the tick being evaluated
+    carry: RegimeCarry,
+    cfg: ContextConfig = ContextConfig(),
+    feats: SymbolFeatureArrays | None = None,
+    comm=None,
+) -> tuple[MarketContext, RegimeCarry]:
+    """One tick's market context for the whole universe + updated carry.
+    When the coverage gates fail ``context.valid`` is False and only the
+    stage bookkeeping moves. ``feats`` passes in symbol features read from
+    the carried indicator state (:func:`symbol_features_from_carry`, the
+    incremental tick); None computes them from the window.
+
+    Two halves: the market-wide scalars (:func:`market_scalars`) and the
+    per-row rest (the RS-vs-BTC rewrite, the micro regimes, the carry's
+    per-row fields). Under a sharded tick (``comm``, a
+    :class:`~binquant_tpu_torch.parallel.collectives.ShardComm`) each shard
+    holds its own rows: the scalars' columns are gathered in row order,
+    computed once by the same code on shard 0 and handed to every shard, so
+    every shard reads the bits the unsharded tick computes."""
+    if feats is None:
+        feats = compute_symbol_features(buf, fresh & tracked)
+    cols = MarketColumns(
+        filled=buf.filled, tracked=tracked, valid=feats.valid,
+        return_pct=feats.return_pct, above_ema20=feats.above_ema20,
+        above_ema50=feats.above_ema50, trend_score=feats.trend_score,
+        atr_pct=feats.atr_pct, bb_width=feats.bb_width,
+    )
+
+    def scalars(full: MarketColumns) -> dict[str, torch.Tensor]:
+        return market_scalars(full, btc_row, timestamp, carry, cfg)
+
+    mk = scalars(cols) if comm is None else comm.finalize(scalars, cols, kind="context")
+    lo = 0 if comm is None else comm.lo
+    rows = torch.arange(lo, lo + buf.filled.shape[0], device=buf.filled.device)
+
+    # RS-vs-BTC rewrite: every symbol except BTC itself
+    is_btc_row = rows == mk["safe_btc"]
+    rs = torch.where(
+        mk["btc_present"] & ~is_btc_row, feats.return_pct - mk["btc_return"], 0.0
+    )
+    feats = feats._replace(relative_strength_vs_btc=rs)
+
+    promote_micro = mk["newer"] & carry.stage_micro_valid
+    eff_carry = carry._replace(
+        micro_has_prev=carry.micro_has_prev | promote_micro,
+        micro_regime=torch.where(promote_micro, carry.stage_micro_regime, carry.micro_regime),
+        micro_strength=torch.where(
+            promote_micro, carry.stage_micro_strength, carry.micro_strength
+        ),
+    )
+    feats = _annotate_micro_regimes(feats, eff_carry)
+    context = MarketContext(
+        **{f: mk[f] for f in MarketContext._fields if f != "features"}, features=feats
+    )
+
+    newer, valid = mk["newer"], mk["valid"]
+    micro_update = valid & feats.valid
+    new_carry = eff_carry._replace(
+        **{f: mk[f"carry.{f}"] for f in MARKET_CARRY_FIELDS},
         stage_micro_valid=torch.where(
             newer, micro_update, carry.stage_micro_valid | micro_update
         ),
@@ -689,4 +766,3 @@ def compute_market_context(
         ),
     )
     return context, new_carry
-

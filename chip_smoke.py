@@ -343,23 +343,53 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    checks as launches (the profiled calls write nothing in place, so their
    tensors are held by reference: the timed calls carry no copies). It
    prints the card's name and power limit.
-15. Print the kernels line, the card's name and power limit, and the result.
+15. Shard the tick over the symbol mesh (``[slice sharded]``,
+   ``binquant_tpu_torch/parallel/``): four shards of S/4 rows, all on the
+   one card (``make_mesh([cuda:0] * 4)``, the counterpart of the
+   reference's virtual CPU mesh; a host with four cards puts shard k on
+   ``cuda:k`` with the same code). A phase-3-style market (W bars of warm
+   history, then 4 live ticks) through an unsharded and a sharded serial
+   engine (the latter placed by the engine's own ``place_on_mesh``), both
+   digests on, the engines taking each tick in turns: the incremental
+   drive (its cold start, incremental ticks, an audit with the drift meter
+   on the last) and the classic drive. Same routing, wires within the
+   reference's ``_parity_check`` rule (the fired block exact, floats
+   ``atol=rtol=1e-5``, NaN equal; bit-equal ticks counted), every
+   replicated leaf equal on the four shards after each tick, the drift
+   meter's compared positions and verdicts equal. (On the CPU the sharded
+   wire is the unsharded one bit for bit; on the card the library's
+   per-row operations may sum a row in another order in a batch of S/4
+   rows than in one of S, which the phase prints for the EWM's product, a
+   row sum, a cumulative sum and the tick's fixed-order sum.) Then phase
+   5's crash market's last 4 ticks (the crash overflows the wire) through
+   an unsharded and a sharded
+   engine at the production loop's defaults, at depth 1 and at depth 2:
+   the same signal tuples. Every qtail launch of the phase is held against
+   the twin, as many checks as launches, and the shards' launches are
+   equal; no cross-shard collective may reach the reference's limit,
+   S·W·F·4/16 bytes. It prints, per tick kind, the host p50 sharded and
+   unsharded, the cross-shard bytes a tick and the largest collective; the
+   device operations of one copying step of each evaluation, sharded and
+   unsharded (one profiler session, the spin-kernel marks of phase 14);
+   the launches by shard and by site; the card's name and power limit.
+16. Print the kernels line, the card's name and power limit, and the result.
 
 The drives are host-bound (the card is idle most of a tick), so after
 phase 2 the phases run in three processes on the one card at once: this
 one runs phases 5-8 and 11 and phase 12's part C, a second one (``--second
-PATH``) phases 3, 4, 9, 10 and 14, a third one (``--third PATH``) phase 12's
-parts A and B and phase 13; each is started by this
-one and killed with it, writes its results to PATH and its standard
+PATH``) phases 3, 4, 9, 10, 14 and 13, a third one (``--third PATH``) phase
+12's parts A and B and phase 15; each is started by this one and killed
+with it, writes its results to PATH and its standard
 output to ``PATH.log`` (printed here when it ends). Each process zeroes
 and reads its own launch counts around each of its drives; the kernels
 line sums all three. Host times of any process are taken while the others
-run. Phase 14 runs in the second process because its profiler session
-counts the card's activities in full only in a process that has opened no
-profiler before (phase 8 opens one in this process; here the counts came
-short). All run OpenMP with ``OMP_WAIT_POLICY=PASSIVE`` (unless set): the
-CPU engines' threads sleep between parallel regions instead of spinning
-on the shared cores.
+run. Phases 14 and 15 run in processes of their own because a profiler
+session counts the card's activities in full only in a process that has
+opened no profiler before (phase 8 opens one in this process, phase 14
+its sessions in the second; after them the counts came short). All run
+OpenMP with ``OMP_WAIT_POLICY=PASSIVE`` (unless set): the CPU engines'
+threads sleep between parallel regions instead of spinning on the shared
+cores.
 
 Phase 5 times five card configurations (depth 1 in place; depth 0
 copying; depth 0 copying without the digests and the meter; depth 2 on
@@ -6784,9 +6814,387 @@ class Laps:
         self.t = now
 
 
+SHARDS = 4  # the sharded phase's shards, all on the one card
+SHARD_LIVE = 4  # live ticks of each sharded parity drive (the incremental one audits the last)
+SHARD_CRASH = 4  # live ticks of the sharded crash replay (the crash the last)
+
+
+def sharded_engine(device: str, mesh, **kw):
+    """A stub engine on ``device`` at S x W, placed on ``mesh`` by its own
+    mesh method (None: unsharded); the plane, the fan-out and the switched
+    observability off."""
+    from binquant_tpu_torch.io.replay import make_stub_engine
+    from binquant_tpu_torch.regime.context import ContextConfig
+
+    engine = make_stub_engine(capacity=S, window=W, context_config=ContextConfig(),
+                              device=device, **{"delivery": False, **OBS_OFF, **FANOUT_OFF, **kw})
+    if mesh is not None:
+        engine.place_on_mesh(mesh)
+    return engine
+
+
+def _bits(t):
+    import torch
+
+    t = t.contiguous()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def replicated_equal(state) -> bool:
+    """Every leaf the placement replicates holds the same bits on every shard."""
+    import torch
+
+    from binquant_tpu_torch.parallel.mesh import tree_leaves
+
+    for split, *leaves in zip(tree_leaves(state.split), *(tree_leaves(s) for s in state.shards)):
+        if not split and not all(torch.equal(_bits(x), _bits(leaves[0])) for x in leaves[1:]):
+            return False
+    return True
+
+
+def wire_parity(a: np.ndarray, b: np.ndarray) -> tuple[bool, bool, float]:
+    """(bit-equal, within the reference's ``_parity_check`` rule: the fired
+    block exact, floats to atol/rtol 1e-5 with NaN equal, the largest
+    finite difference)."""
+    from binquant_tpu_torch.engine.step import WIRE_FIRED_COUNT_OFF, WIRE_MAX_FIRED
+
+    off = WIRE_FIRED_COUNT_OFF
+    end = off + 1 + 6 * WIRE_MAX_FIRED
+    exact = a.shape == b.shape and np.array_equal(a.view(np.int32), b.view(np.int32))
+    ok = (a.shape == b.shape and np.array_equal(a[off:end], b[off:end])
+          and bool(np.isclose(a, b, atol=1e-5, rtol=1e-5, equal_nan=True).all()))
+    fin = np.isfinite(a) & np.isfinite(b) if a.shape == b.shape else np.zeros(0, bool)
+    return exact, ok, float(np.abs(a[fin] - b[fin]).max()) if fin.any() else 0.0
+
+
+def sharded_parity(card: str, mesh, m5: dict, m15: dict, incremental: bool) -> dict:
+    """An unsharded and a sharded serial engine on the card take each tick
+    of one stream in turn (the warm tick, then SHARD_LIVE live ticks; the
+    incremental engines audit the last with the drift meter on): the same
+    routing, wires within the reference's rule (bit-equal counted), the
+    sharded state's replicated leaves equal on every shard after each tick,
+    the drift meter's verdicts equal; host ms per tick and the cross-shard
+    traffic per tick by kind."""
+    import torch
+
+    from binquant_tpu_torch.parallel.collectives import TRAFFIC
+
+    flags = dict(incremental=incremental, carry_audit_every=SHARD_LIVE, pipeline_depth=0,
+                 donate=False, numeric_digest=True, ingest_digest=True,
+                 drift_meter=incremental, outcomes=False)
+    plain = sharded_engine(card, None, **flags)
+    placed = sharded_engine(card, mesh, **flags)
+    ticks = tick_plan(plain, m5, m15, SHARD_LIVE)
+    queue_warm(placed, m5, m15)
+    rec: dict = {"kinds": [], "plain_ms": [], "sharded_ms": [], "bit_equal": 0,
+                 "max_err": 0.0, "traffic": [], "fired": 0}
+
+    async def run():
+        for now_ms, klines in ticks:
+            times = []
+            for engine in (plain, placed):
+                for k in klines:
+                    engine.ingest(k)
+                torch.cuda.synchronize()
+                TRAFFIC.reset()
+                t0 = time.perf_counter()
+                fired = await engine.process_tick(now_ms=now_ms)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1000.0)
+                rec["fired"] += len(fired) if engine is plain else 0
+            kind = plain.last_path
+            if placed.last_path != kind:
+                fail(f"[slice sharded] routing: {placed.last_path} sharded, {kind} unsharded")
+            exact, ok, err = wire_parity(placed.last_wire, plain.last_wire)
+            if not ok:
+                fail(f"[slice sharded] the {kind} tick's wire differs from the unsharded "
+                     f"one past the reference's rule (max {err})")
+            if not replicated_equal(placed.state):
+                fail(f"[slice sharded] after a {kind} tick a replicated leaf differs "
+                     "between shards")
+            rec["bit_equal"] += exact
+            rec["max_err"] = max(rec["max_err"], err)
+            rec["kinds"].append(kind)
+            rec["plain_ms"].append(times[0])
+            rec["sharded_ms"].append(times[1])
+            rec["traffic"].append(TRAFFIC.snapshot())
+
+    asyncio.run(run())
+    if incremental:
+        if plain.drift.audits != 1 or placed.drift.audits != 1:
+            fail(f"[slice sharded] drift audits: {plain.drift.audits} unsharded, "
+                 f"{placed.drift.audits} sharded (expected 1)")
+        d_plain, d_placed = plain.drift.last, placed.drift.last
+        if {f: v["compared"] for f, v in d_plain.items()} != {
+                f: v["compared"] for f, v in d_placed.items()}:
+            fail("[slice sharded] the drift meter compared other positions sharded")
+
+        def breached(d: dict, tol: float) -> list:
+            return sorted(f for f, v in d.items() if v["compared"] > 0 and v["max_rel"] > tol)
+
+        verdicts = (breached(d_plain, plain.drift.tol), breached(d_placed, placed.drift.tol))
+        if verdicts[0] != verdicts[1]:
+            fail(f"[slice sharded] drift verdicts: {verdicts[1]} breached sharded, "
+                 f"{verdicts[0]} unsharded")
+        rec["drift"] = {
+            "equal": d_plain == d_placed,
+            "breached": verdicts[0],
+            "max_rel_diff": max(abs(d_plain[f]["max_rel"] - d_placed[f]["max_rel"])
+                                for f in d_plain),
+        }
+    rec["engines"] = (plain, placed)
+    return rec
+
+
+async def _replay(engine, ticks) -> list:
+    from binquant_tpu_torch.io.replay import signal_tuples
+
+    out = []
+    for now_ms, klines in ticks:
+        for k in klines:
+            engine.ingest(k)
+        out += signal_tuples(await engine.process_tick(now_ms=now_ms))
+    return out + signal_tuples(await engine.flush_pending())
+
+
+def sharded_crash(card: str, mesh, cm5: dict, cm15: dict, depth: int) -> dict:
+    """Phase 5's crash market, its last SHARD_CRASH ticks (the crash tick,
+    which overflows the wire, the last), through an unsharded and a sharded
+    engine at the production loop's defaults at ``depth``: the same signal
+    tuples, the overflow's fallback on both."""
+    import torch
+
+    warm = W + LIVE_TICKS + 1 - SHARD_CRASH
+    out = {}
+    for name, m in (("unsharded", None), ("sharded", mesh)):
+        engine = sharded_engine(card, m, pipeline_depth=depth)
+        ticks = tick_plan(engine, cm5, cm15, SHARD_CRASH, warm)
+        t0 = time.perf_counter()
+        fired = asyncio.run(_replay(engine, ticks))
+        torch.cuda.synchronize()
+        out[name] = {"fired": fired, "s": time.perf_counter() - t0,
+                     "overflow_ticks": engine.overflow_ticks, "fresh_slots": engine.fresh_slots,
+                     "inplace_ticks": engine.inplace_ticks}
+    if out["sharded"]["fired"] != out["unsharded"]["fired"]:
+        fail(f"[slice sharded] crash replay at depth {depth}: "
+             f"{len(out['sharded']['fired'])} signals sharded, "
+             f"{len(out['unsharded']['fired'])} unsharded, not the same tuples")
+    if not out["sharded"]["overflow_ticks"] or len(out["sharded"]["fired"]) <= 128:
+        fail(f"[slice sharded] crash replay at depth {depth}: the crash did not overflow")
+    return out
+
+
+def device_ops(calls: list) -> list:
+    """The device operations of each call, from one ``torch.profiler``
+    session whose activities the calls' spin-kernel marks split (the
+    technique of ``binquant_tpu_torch/tools/profile_stages.py``); None for
+    every call when the session lost a mark."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from binquant_tpu_torch.tools.profile_stages import EDGE_S, MARK_CYCLES, MARK_KERNEL
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(EDGE_S)
+        for fn in calls:
+            torch.cuda._sleep(MARK_CYCLES)
+            fn()
+            torch.cuda._sleep(MARK_CYCLES)
+            torch.cuda.synchronize()
+        time.sleep(EDGE_S)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = sorted(
+        (e.start_ns(), MARK_KERNEL in e.name())
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == cuda and not e.is_user_annotation()
+    )
+    marks = [i for i, e in enumerate(events) if e[1]]
+    if len(marks) != 2 * len(calls):
+        return [None] * len(calls)
+    return [marks[2 * k + 1] - marks[2 * k] - 1 for k in range(len(calls))]
+
+
+def step_calls(engine, incremental: bool, maintain_carry: bool):
+    """One copying tick step on ``engine``'s state with no updates: its
+    classic, full or incremental evaluation, for the operation counts."""
+    from binquant_tpu_torch.engine.step import tick_step_wire
+
+    inputs = engine._host_inputs(0, T_LIVE0 + 900 * (SHARD_LIVE - 1),
+                                 T_LIVE0 + 900 * SHARD_LIVE - 300, False)
+    empty = engine._empty_updates()
+    return lambda: tick_step_wire(engine.state, empty, empty, inputs, engine.context_config,
+                                  incremental=incremental, maintain_carry=maintain_carry)
+
+
+def row_count_bits(engine) -> dict:
+    """Whether the per-row library operations the tick runs give a row the
+    same bits in a batch of S/SHARDS rows as in the batch of S: the EWM's
+    decay-matrix product, a row sum, a cumulative sum, and the tick's own
+    fixed-order sum, each on the unsharded engine's 15m closes, per shard's
+    rows against the same rows of the whole batch. ``{op: (bit-equal on
+    every shard, the largest difference)}``."""
+    import torch
+
+    from binquant_tpu_torch.engine.buffer import Field, materialize
+    from binquant_tpu_torch.ops.rolling import ewm_mean, fixed_order_sum
+
+    x = materialize(engine.state.buf15).values[:, :, Field.CLOSE]
+    ops = {
+        "ewm matmul": lambda a: ewm_mean(a, span=20.0),
+        "row sum": lambda a: torch.where(torch.isfinite(a), a, 0.0).sum(dim=-1),
+        "cumsum": lambda a: torch.where(torch.isfinite(a), a, 0.0).cumsum(dim=-1),
+        "fixed-order sum": lambda a: fixed_order_sum(torch.where(torch.isfinite(a), a, 0.0)),
+    }
+    out = {}
+    for name, fn in ops.items():
+        whole = fn(x)
+        equal, err = True, 0.0
+        for k in range(SHARDS):
+            lo, hi = k * S // SHARDS, (k + 1) * S // SHARDS
+            part, ref = fn(x[lo:hi].contiguous()), whole[lo:hi]
+            equal &= bool(torch.equal(_bits(part), _bits(ref)))
+            fin = torch.isfinite(part) & torch.isfinite(ref)
+            if bool(fin.any()):
+                err = max(err, float((part - ref)[fin].abs().max()))
+        out[name] = (equal, err)
+    return out
+
+
+def check_sharded(card: str = "cuda") -> dict:
+    """Phase 15: the sharded tick at S x W over SHARDS shards on the one
+    card (``make_mesh([card] * SHARDS)``, the counterpart of the reference's
+    virtual CPU mesh): tick parity against the unsharded tick (classic,
+    incremental after a resync, an audit with the drift meter), phase 5's
+    crash replay through engines placed on the mesh by their own mesh
+    method at depth 1 and 2, every qtail launch held against its twin, the
+    cross-shard traffic under the reference's limit, host p50 per tick kind
+    and the device operations per tick, sharded and unsharded."""
+    import torch
+
+    from binquant_tpu_torch.engine.buffer import NUM_FIELDS
+    from binquant_tpu_torch.ops import quantile_tail as qt
+    from binquant_tpu_torch.parallel.collectives import check_traffic, traffic_limit
+    from binquant_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh([card] * SHARDS)
+    m5, m15 = make_market(np.random.default_rng(SEED + 3), live_ticks=SHARD_LIVE)
+    cm5, cm15 = make_crash_market(np.random.default_rng(SEED + 1))
+    qt.reset_launches()
+    checks: list = []
+    part_s: dict = {}
+    with _twin_checked(checks):
+        t0 = time.perf_counter()
+        incr = sharded_parity(card, mesh, m5, m15, incremental=True)
+        part_s["incremental parity"] = time.perf_counter() - t0
+        classic = sharded_parity(card, mesh, m5, m15, incremental=False)
+        part_s["classic parity"] = time.perf_counter() - t0 - sum(part_s.values())
+        crash = {}
+        for d in (1, 2):
+            crash[d] = sharded_crash(card, mesh, cm5, cm15, d)
+            part_s[f"crash depth {d}"] = time.perf_counter() - t0 - sum(part_s.values())
+    launches, by_site = qt.launches, dict(qt.launches_by_site)
+    by_shard = dict(sorted(qt.launches_by_shard.items()))
+    if card == "cuda" and (len(checks) != launches or not launches):
+        fail(f"[slice sharded] {len(checks)} twin checks for {launches} qtail launches")
+    if not all(c[3] for c in checks):
+        fail(f"[slice sharded] qtail differs from its twin: {[c for c in checks if not c[3]][:3]}")
+    if card == "cuda" and (sorted(by_shard) != list(range(SHARDS))
+                           or len(set(by_shard.values())) != 1):
+        fail(f"[slice sharded] qtail launches by shard {by_shard}: not every shard alike")
+
+    limit = traffic_limit(S, W, NUM_FIELDS)
+    kinds: dict = {}
+    for rec in (incr, classic):
+        for kind, plain_ms, sharded_ms, snap in zip(rec["kinds"], rec["plain_ms"],
+                                                    rec["sharded_ms"], rec["traffic"]):
+            check_traffic(snap, limit)
+            k = kinds.setdefault(kind, {"plain_ms": [], "sharded_ms": [], "bytes": [],
+                                        "largest": 0, "collectives": []})
+            k["plain_ms"].append(plain_ms)
+            k["sharded_ms"].append(sharded_ms)
+            k["bytes"].append(snap["bytes"])
+            k["collectives"].append(snap["collectives"])
+            k["largest"] = max(k["largest"], snap["largest"])
+
+    # the device operations of one copying step of each evaluation, on the
+    # incremental pair's final states (their last tick a full audit)
+    t0 = time.perf_counter()
+    plain, placed = incr["engines"]
+    rows = row_count_bits(plain)
+    evals = {"classic": (False, False), "full": (False, True), "incremental": (True, True)}
+    calls = [step_calls(engine, *evals[e]) for e in evals for engine in (plain, placed)]
+    for fn in calls:  # one untimed pass, so nothing is first-call in the session
+        fn()
+    ops = device_ops(calls) if card == "cuda" else [None] * len(calls)
+    if card == "cuda" and None in ops:
+        fail("[slice sharded] torch.profiler lost the device operations of a step")
+    op_counts = {e: {"unsharded": ops[2 * i], "sharded": ops[2 * i + 1]}
+                 for i, e in enumerate(evals)}
+    del incr["engines"], classic["engines"], plain, placed
+    torch_empty_cache()
+    part_s["operation counts"] = time.perf_counter() - t0
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30,
+    ) if card == "cuda" else None
+    card_line = smi.stdout.strip() if smi is not None and smi.stdout.strip() else "n/a"
+    seconds = time.perf_counter() - t_phase
+    summary = {}
+    print(f"[slice sharded] S={S} W={W} over {SHARDS} shards on {mesh.devices[0]} "
+          f"({card_line}); cross-shard limit {limit} bytes")
+    for kind, k in kinds.items():
+        p50_plain, p50_sharded = _p(k["plain_ms"], 50), _p(k["sharded_ms"], 50)
+        summary[kind] = {
+            "ticks": len(k["plain_ms"]), "p50_ms_unsharded": p50_plain,
+            "p50_ms_sharded": p50_sharded, "ratio": p50_sharded / p50_plain,
+            "bytes_per_tick": _p(k["bytes"], 50), "largest_bytes": k["largest"],
+            "collectives_per_tick": _p(k["collectives"], 50),
+        }
+        print(f"[slice sharded] {kind}: {len(k['plain_ms'])} ticks, host p50 "
+              f"{p50_sharded:.1f} ms sharded vs {p50_plain:.1f} ms unsharded "
+              f"({p50_sharded / p50_plain:.2f}x); cross-shard {_p(k['bytes'], 50):.0f} bytes "
+              f"a tick in {_p(k['collectives'], 50):.0f} collectives, the largest "
+              f"{k['largest']} bytes")
+    for e, c in op_counts.items():
+        print(f"[slice sharded] device operations of one {e} step: {c['sharded']} sharded, "
+              f"{c['unsharded']} unsharded")
+    for rec, label in ((incr, "incremental drive"), (classic, "classic drive")):
+        print(f"[slice sharded] parity, {label} {rec['kinds']}: wires bit-equal on "
+              f"{rec['bit_equal']} of {len(rec['kinds'])} ticks, max difference "
+              f"{rec['max_err']:.3g}; replicated leaves equal on every shard after each "
+              f"tick; {rec['fired']} signals" + (
+                  f"; drift meter: breached {rec['drift']['breached']} on both, max_rel "
+                  f"{'equal' if rec['drift']['equal'] else 'within'} "
+                  f"{rec['drift']['max_rel_diff']:.3g}" if "drift" in rec else ""))
+    print(f"[slice sharded] a row's bits in a batch of {S // SHARDS} rows vs {S}: " + "; ".join(
+        f"{op} {'equal' if eq else 'differ'} (max {err:.3g})" for op, (eq, err) in rows.items()))
+    for d, c in crash.items():
+        print(f"[slice sharded] crash replay, depth {d}: {len(c['sharded']['fired'])} signals, "
+              f"the unsharded engine's tuples; overflow ticks {c['sharded']['overflow_ticks']}; "
+              f"fresh slots {c['sharded']['fresh_slots']}; in-place ticks "
+              f"{c['sharded']['inplace_ticks']}; {c['sharded']['s']:.1f} s sharded vs "
+              f"{c['unsharded']['s']:.1f} s unsharded")
+    print(f"[slice sharded] qtail {launches} launches by shard {by_shard} by site {by_site}; "
+          f"{len(checks)} twin checks, all equal; phase {seconds:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in part_s.items()) + ")")
+    return {"launches": launches, "launches_by_site": by_site, "launches_by_shard": by_shard,
+            "card": card_line, "kinds": summary, "device_ops": op_counts,
+            "bit_equal": {"incremental": [incr["bit_equal"], len(incr["kinds"])],
+                          "classic": [classic["bit_equal"], len(classic["kinds"])]},
+            "max_err": max(incr["max_err"], classic["max_err"]),
+            "drift": incr.get("drift"),
+            "row_count_bits": {op: {"equal": eq, "max_diff": err} for op, (eq, err) in rows.items()},
+            "crash": {d: {k: {kk: (len(vv) if kk == "fired" else vv) for kk, vv in v.items()}
+                          for k, v in c.items()} for d, c in crash.items()},
+            "twin_checks": len(checks), "seconds": seconds, "part_s": part_s}
+
+
 def second_phases(lap: Laps) -> dict:
-    """Phases 3, 4, 9, 10 and 14, the second process's share: their results
-    by slice, as the first process puts them in the slice line."""
+    """Phases 3, 4, 9, 10, 14 and 13, the second process's share: their
+    results by slice, as the first process puts them in the slice line."""
     m5, m15 = make_market(np.random.default_rng(SEED))
     # phase 3: the classic and the incremental live paths
     classic = check_classic(m5, m15)
@@ -6815,6 +7223,10 @@ def second_phases(lap: Laps) -> dict:
     # opened no profiler before (phase 8 opens one in the first process)
     stages = check_stages()
     lap("stages")
+    torch_empty_cache()
+    # phase 13: the per-symbol oracle (it opens no profiler)
+    oracle = check_oracle()
+    lap("oracle")
     return {
         "classic": {k: v for k, v in classic.items()
                     if k not in ("fired", "indicators", "tick_times")},
@@ -6824,6 +7236,7 @@ def second_phases(lap: Laps) -> dict:
         "scanned": scanned,
         "backtest": backtest,
         "stages": {k: v for k, v in stages.items() if k != "rows"},
+        "oracle": oracle,
     }
 
 
@@ -6840,19 +7253,22 @@ def _die_with_parent() -> None:
 
 
 def third_phases(lap: Laps) -> dict:
-    """Phase 12's parts A and B, then phase 13: the third process's share."""
+    """Phase 12's parts A and B, then phase 15: the third process's share."""
     scenarios = check_scenarios(("wide", "corpus"))
     lap("scenarios: wide and corpus")
     torch_empty_cache()
-    oracle = check_oracle()
-    lap("oracle")
-    return {"scenarios": scenarios, "oracle": oracle}
+    # phase 15: the sharded tick over four shards on the card, here: its
+    # profiler session counts what the card ran only in a process that has
+    # opened no profiler before (phase 14 opens them in the second)
+    sharded = check_sharded()
+    lap("sharded")
+    return {"scenarios": scenarios, "sharded": sharded}
 
 
 # the processes main starts beside itself: flag -> (the phases it runs, their names)
 PARTS = {
-    "--second": (second_phases, "phases 3, 4, 9, 10 and 14"),
-    "--third": (third_phases, "phases 12 A and B and 13"),
+    "--second": (second_phases, "phases 3, 4, 9, 10, 14 and 13"),
+    "--third": (third_phases, "phases 12 A and B and 15"),
 }
 
 
@@ -7003,8 +7419,9 @@ def main() -> int:
         "live": live,
         "scenarios": got["--third"]["scenarios"],
         "scenario_soak": soak,
-        "oracle": got["--third"]["oracle"],
+        "oracle": second["oracle"],
         "stages": second["stages"],
+        "sharded": got["--third"]["sharded"],
     }
     if "--profile" in args:
         m5, m15 = make_market(np.random.default_rng(SEED))

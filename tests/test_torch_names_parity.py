@@ -59,7 +59,6 @@ RENAMED = {
 }
 
 _COMPILE = "the XLA compile ledger and its instruments: the port compiles nothing per shape"
-_MESH = "places state across several devices: waits for the multi-card tick"
 _REFDIFF = ("drives the upstream binquant source from a checkout of it, which is not in "
             "the repository")
 WAITING = {
@@ -90,12 +89,6 @@ WAITING = {
     "obs/ledger.py:ExecutableLedger.reset": _COMPILE,
     "obs/ledger.py:ExecutableLedger.watch": _COMPILE,
     "obs/numeric.py:log": "a module logger the reference defines and never uses",
-    "parallel/mesh.py:make_mesh": _MESH,
-    "parallel/mesh.py:symbol_sharding": _MESH,
-    "parallel/mesh.py:assemble_sharded": _MESH,
-    "parallel/mesh.py:assemble_from_slices": _MESH,
-    "parallel/mesh.py:shard_engine_state": _MESH,
-    "parallel/mesh.py:shard_host_inputs": _MESH,
     "refdiff/*": _REFDIFF,
 }
 

@@ -394,19 +394,30 @@ def test_an_odd_snapshot_shard_count_saves_one_archive(tmp_path, plane_mod):
 
 
 def test_mesh_devices_warns_without_the_cards_and_raises_with_them(monkeypatch, caplog):
+    """The reference's rules for ``mesh_devices`` (``resolve_mesh``): fewer
+    visible cards than asked warns and runs unsharded, so does a capacity
+    the count does not divide; that many cards shards over them, and a CPU
+    engine shards over that many CPU shards. (Named from when that many
+    cards raised, before the multi-card tick was ported.)"""
     with caplog.at_level(logging.WARNING):
         engine = treplay.make_stub_engine(capacity=CAP, window=WIN, device="cpu",
                                           fanout=False, **SERIAL)
         assert engine.mesh is None
-        engine.config.mesh_devices = 4
-        assert tmesh.resolve_mesh(4, CAP) is None
+        assert tmesh.resolve_mesh(4, CAP, "cuda") is None
     assert "only 0 device(s) visible; running single-chip" in caplog.text
     assert engine.health_snapshot()["mesh"] == {"enabled": False}
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    assert tmesh.resolve_mesh(4, 18) is None  # a capacity 4 does not divide
+    caplog.clear()
+    with caplog.at_level(logging.WARNING):
+        assert tmesh.resolve_mesh(4, 18, "cpu") is None  # a capacity 4 does not divide
+    assert "capacity 18 not divisible by mesh size 4; running single-chip" in caplog.text
     assert tmesh.resolve_mesh(1, CAP) is None and tmesh.resolve_mesh(0, CAP) is None
-    with pytest.raises(NotImplementedError, match="multi-card tick"):
-        tmesh.resolve_mesh(4, CAP)
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "device_count", lambda: 4)
+        mesh = tmesh.resolve_mesh(4, CAP, "cuda")
+    assert mesh.devices == tuple(torch.device(f"cuda:{k}") for k in range(4))
     monkeypatch.setenv("BQT_MESH_DEVICES", "4")
-    with pytest.raises(NotImplementedError, match="multi-card tick"):
-        treplay.make_stub_engine(capacity=CAP, window=WIN, device="cpu", fanout=False)
+    engine = treplay.make_stub_engine(capacity=CAP, window=WIN, device="cpu", fanout=False)
+    assert engine.mesh.devices == (torch.device("cpu"),) * 4
+    assert isinstance(engine.state, tmesh.ShardedState)
+    assert [s.buf15.times.shape[0] for s in engine.state.shards] == [CAP // 4] * 4
+    assert engine.health_snapshot()["mesh"]["devices"] == 4
